@@ -1,0 +1,75 @@
+"""Entry points of the port's flagship step: detect + acquire.
+
+- entry(device): (forward, example_args), the counterpart of
+  `__graft_entry__.entry`: int8 I/Q block -> Welch PSD + chunk power flags +
+  the PCF acquisition surface over 32 PRNs x 90 Doppler rows x 2048 lags.
+- detect_acquire_step(raw_i8): the measured chain of `bench.py`, one
+  512k-sample block -> (psd, pm, flags, peak_per_prn), with the acquisition
+  reduced to its per-PRN peak inside kernel B1 (peak-only mode).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gps_jamming_tpu.config import DEFAULT_CONFIG as CFG
+
+from .device import as_device
+from .ops import caf, codes, cuda_pcf, iq, power, spectral
+
+FS = CFG.frontend.sample_rate_hz
+N_CODE = 2048                  # one C/A period at 2.048 MS/s
+N_INTG = 10                    # code periods per acquisition
+MAX_DOPPLER_HZ = 7000.0
+CHUNK = 32768                  # power chunk, samples
+
+
+def _detect(x: torch.Tensor):
+    """Welch PSD, chunk power, baseline and +6 dB flags of one block."""
+    psd = spectral.welch_psd(x, FS, CFG.spectral.nperseg)
+    pm = power.chunk_power(x, CHUNK)
+    base = power.power_baseline(pm, CFG.detector.baseline_percentile)
+    thr = power.power_threshold_linear(base, CFG.detector.power_rise_db)
+    return psd, pm, pm > thr
+
+
+def entry(device=None):
+    """(forward, (raw_i8,)) for one 128k-sample block on `device`.
+
+    forward(raw_i8) takes (2n,) int8 interleaved I/Q (uint8 - 128) and
+    returns (psd, pm, flags, surf).
+    """
+    device = as_device(device)
+    n_block = 1 << 17
+    replica = codes.gps_replica_table(FS, N_CODE, device)
+
+    def forward(raw_i8: torch.Tensor):
+        x = iq.int8_to_complex(raw_i8)
+        psd, pm, flags = _detect(x)
+        blocks = x[: N_INTG * N_CODE].reshape(N_INTG, N_CODE)
+        surf = caf.caf_accumulate_pcf(blocks, replica, FS,
+                                      max_doppler_hz=MAX_DOPPLER_HZ)
+        return psd, pm, flags, surf
+
+    rng = np.random.default_rng(0)
+    raw_u8 = rng.integers(0, 256, 2 * n_block, dtype=np.uint8)
+    raw = torch.from_numpy(iq.uint8_np_to_int8(raw_u8)).to(device)
+    return forward, (raw,)
+
+
+def detect_acquire_step(raw_i8: torch.Tensor,
+                        replica: torch.Tensor | None = None):
+    """One block of the flagship chain -> (psd, pm, flags, peak_per_prn).
+
+    raw_i8: (2n,) int8 I/Q, n >= 10 code periods (512k samples in the
+    benchmark). A full cold 32-PRN x +/-7 kHz x 10-period PCF search runs
+    on every block; peak_per_prn (32,) is the surface's maximum per PRN.
+    """
+    if replica is None:
+        replica = codes.gps_replica_table(FS, N_CODE, raw_i8.device)
+    x = iq.int8_to_complex(raw_i8)
+    psd, pm, flags = _detect(x)
+    blocks = x[: N_INTG * N_CODE].reshape(N_INTG, N_CODE)
+    peak = cuda_pcf.caf_accumulate_pcf_fused(
+        blocks, replica, FS, max_doppler_hz=MAX_DOPPLER_HZ, stats_excl=-1)[0]
+    return psd, pm, flags, peak.amax(dim=-1)

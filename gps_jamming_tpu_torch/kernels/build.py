@@ -1,0 +1,120 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under `gps_jamming_tpu_torch/csrc/` are compiled by `nvcc` into
+one shared library with a plain C interface, at first use, and loaded with
+`ctypes`. The library lands in `gps_jamming_tpu_torch/_build/` under a name
+that carries a hash of the sources and flags, so an edit rebuilds and an
+unchanged tree reuses the file. Nothing is built when the package is
+imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+SOURCES = ("welch_psd.cu", "pcf.cu")
+HEADERS = ("fft_smem.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "gjt_welch_psd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      ctypes.c_float, _P],
+    "gjt_pcf": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+}
+
+
+def find_nvcc() -> str | None:
+    """$CUDA_HOME/bin/nvcc, then nvcc on PATH, then /usr/local/cuda."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        cands.append(on_path)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    return None
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libgjt_kernels_{source_hash()}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels if the hashed library is missing; return its
+    path. Raises RuntimeError (with nvcc's stderr) when nvcc is missing or
+    fails."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found ($CUDA_HOME/bin, PATH, /usr/local/cuda/bin): the "
+            "CUDA kernels of gps_jamming_tpu_torch can only be built on a "
+            "machine with the CUDA toolkit and an sm_90a (Hopper) card")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    if verbose and proc.stderr:
+        print(proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point returned a non-zero cudaError_t."""
+    if err != 0:
+        raise RuntimeError(f"{name} failed: {torch.cuda.CudaError(err)}")
+
+
+@functools.lru_cache(maxsize=16)
+def twiddles(n: int, device) -> torch.Tensor:
+    """(n/2,) complex64 exp(-2*pi*i*k/n), computed in float64 on the host:
+    the table of fft_smem.cuh. Cached per (n, device); read-only."""
+    k = np.arange(n // 2, dtype=np.float64)
+    return torch.from_numpy(np.exp(-2j * np.pi * k / n).astype(
+        np.complex64)).to(device)

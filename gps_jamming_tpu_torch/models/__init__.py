@@ -1,0 +1,1 @@
+"""Models of the port (counterparts of gps_jamming_tpu.models)."""

@@ -1,0 +1,160 @@
+"""GNSS acquisition (counterpart of gps_jamming_tpu.models.receiver.acquisition).
+
+A cold search of every PRN over (Doppler x lag) by the PCF method, then the
+peak-ratio test of the reference's `checkacquisition` (sdracq.c:52-81)
+vectorized over PRNs. On a CUDA tensor the search runs kernel B1 in its
+statistics mode, so the delay x Doppler surface never reaches device
+memory; on the CPU the surface is materialized and reduced here.
+
+Two behaviours of the reference are kept exactly where it has them:
+- `acquisition_test` takes the peak at the lowest flat (Doppler, lag) index
+  among ties (first-occurrence argmax); the kernel's statistics give the
+  lowest lag of a row, and `acquisition_test_from_stats` the lowest row.
+- `acquisition_test_from_stats` divides the excluded sum by
+  n - (2*excl + 1), where `corr.mean_excluded` counts the mask. The two
+  agree only while excl < n//2, so every entry here checks that first.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from gps_jamming_tpu.config import AcquisitionConfig
+from gps_jamming_tpu.utils import constants as C
+
+from ...ops import caf as caf_ops
+from ...ops import corr as corr_ops
+from ...ops import cuda_pcf
+
+
+class AcquisitionResult(NamedTuple):
+    """Per-PRN acquisition outputs (all tensors shape (n_prn,))."""
+    acquired: torch.Tensor     # peak ratio > threshold
+    code_phase: torch.Tensor   # samples (lag of code start in the block)
+    doppler_hz: torch.Tensor
+    peak_ratio: torch.Tensor
+    cn0_dbhz: torch.Tensor
+    peak_power: torch.Tensor
+
+
+def exclusion_half_width(n: int, cfg: AcquisitionConfig,
+                         code_len_chips: float = 1023.0) -> int:
+    """checkacquisition's +/- window in samples; raises ValueError unless it
+    is < n//2 (where the two excluded-mean counts agree)."""
+    nsampchip = max(int(round(n / code_len_chips)), 1)
+    excl = int(cfg.exclude_chips * nsampchip)
+    if not 0 <= excl < n // 2:
+        raise ValueError(f"exclusion half-width {excl} samples must be in "
+                         f"[0, n//2 = {n // 2})")
+    return excl
+
+
+def acquire_all(blocks: torch.Tensor, replica_fft_conj: torch.Tensor,
+                sample_rate: float, cfg: AcquisitionConfig,
+                code_period_s: float = C.GPS_CA_PERIOD_S,
+                code_len_chips: float = 1023.0,
+                method: str = "std") -> AcquisitionResult:
+    """Acquire every PRN from n_integration code-period blocks.
+
+    blocks: (n_intg, n) complex64, one code period each; replica_fft_conj:
+    (n_prn, n) complex64 on the same device. method 'pcf' is the PCF search;
+    'auto' resolves to it where it beats the per-Doppler search
+    (`caf.pcf_profitable`). 'std', and 'auto' resolving to it, need kernel
+    B3, which is not ported yet.
+    """
+    nb, n = blocks.shape[-2], blocks.shape[-1]
+    if method == "auto":
+        nf = caf_ops.doppler_bins(cfg.doppler_max_hz,
+                                  cfg.doppler_step_hz).size
+        method = "pcf" if caf_ops.pcf_profitable(
+            int(n), int(nb), float(sample_rate),
+            float(cfg.doppler_max_hz), int(nf)) else "std"
+    if method == "std":
+        raise NotImplementedError(
+            "the per-Doppler ('std') acquisition search needs kernel B3 "
+            "(ROADMAP.md, queue B), which is not ported yet; use "
+            "method='pcf'")
+    if method != "pcf":
+        raise ValueError(f"unknown acquisition method {method!r}")
+    # the PCF surface sums gl code periods coherently, so C/N0 uses the
+    # coherent integration time gl * Tcode
+    t_coh = code_period_s * max(nb // 2, 1)
+    excl = exclusion_half_width(n, cfg, code_len_chips)
+    freqs = torch.from_numpy(caf_ops.pcf_doppler_hz(
+        sample_rate, int(n), cfg.doppler_max_hz)).to(blocks.device)
+    if blocks.is_cuda:
+        stats = cuda_pcf.caf_accumulate_pcf_fused(
+            blocks, replica_fft_conj, sample_rate,
+            max_doppler_hz=cfg.doppler_max_hz, stats_excl=excl)
+        return acquisition_test_from_stats(stats, freqs, int(n), cfg, t_coh,
+                                           code_len_chips)
+    surf = caf_ops.caf_accumulate_pcf(blocks, replica_fft_conj, sample_rate,
+                                      max_doppler_hz=cfg.doppler_max_hz)
+    return acquisition_test(surf, freqs, sample_rate, cfg, t_coh,
+                            code_len_chips)
+
+
+def acquisition_test(surf: torch.Tensor, freqs: torch.Tensor,
+                     sample_rate: float, cfg: AcquisitionConfig,
+                     code_period_s: float,
+                     code_len_chips: float = 1023.0) -> AcquisitionResult:
+    """checkacquisition over the PRN axis of a (n_prn, n_freq, n) surface.
+
+    Peak over (Doppler, lag), lowest flat index on ties; second peak and
+    mean over the peak's Doppler row outside the circular +/-excl window;
+    C/N0 = 10*log10(peak/mean/Tcode); acquired when peak/second > threshold.
+    """
+    del sample_rate                 # kept for the reference's signature
+    n_prn, n_freq, n = surf.shape
+    excl = exclusion_half_width(n, cfg, code_len_chips)
+    flat = surf.reshape(n_prn, n_freq * n)
+    idx = flat.argmax(dim=-1)
+    freq_i = idx // n
+    code_i = idx % n
+    peak = flat.gather(-1, idx[:, None])[:, 0]
+    rows = surf[torch.arange(n_prn, device=surf.device), freq_i]
+    second = corr_ops.second_peak_excluded(rows, code_i, excl)
+    mean = corr_ops.mean_excluded(rows, code_i, excl)
+    ratio = peak / second.clamp(min=1e-30)
+    cn0 = 10.0 * torch.log10(peak / mean.clamp(min=1e-30) / code_period_s)
+    return AcquisitionResult(
+        acquired=ratio > cfg.peak_ratio_threshold,
+        code_phase=code_i.to(torch.int32),
+        doppler_hz=freqs[freq_i],
+        peak_ratio=ratio,
+        cn0_dbhz=cn0,
+        peak_power=peak,
+    )
+
+
+def acquisition_test_from_stats(stats, freqs: torch.Tensor, n: int,
+                                cfg: AcquisitionConfig, code_period_s: float,
+                                code_len_chips: float = 1023.0
+                                ) -> AcquisitionResult:
+    """`acquisition_test` from per-(PRN, Doppler-row) statistics.
+
+    stats: (max, arglag, excluded_max, total_sum, window_sum), each
+    (n_prn, n_rows), as `cuda_pcf.caf_accumulate_pcf_fused(stats_excl=...)`
+    returns them. The lowest row wins ties. The excluded mean divides by
+    n - (2*excl + 1), as the reference does here.
+    """
+    max1, arg1, exmax, tot, wsum = stats
+    excl = exclusion_half_width(n, cfg, code_len_chips)
+    freq_i = max1.argmax(dim=-1)
+
+    def take(a):
+        return a.gather(-1, freq_i[:, None])[:, 0]
+
+    peak = take(max1)
+    mean = (take(tot) - take(wsum)) / max(n - (2 * excl + 1), 1)
+    ratio = peak / take(exmax).clamp(min=1e-30)
+    cn0 = 10.0 * torch.log10(peak / mean.clamp(min=1e-30) / code_period_s)
+    return AcquisitionResult(
+        acquired=ratio > cfg.peak_ratio_threshold,
+        code_phase=take(arg1).to(torch.int32),
+        doppler_hz=freqs[freq_i],
+        peak_ratio=ratio,
+        cn0_dbhz=cn0,
+        peak_power=peak,
+    )

@@ -1,0 +1,103 @@
+"""I/Q ingest, normalization and framing (counterpart of gps_jamming_tpu.ops.iq).
+
+RTL-SDR captures are interleaved uint8 I/Q bytes. Three conventions, as in
+the reference:
+
+- centered   : x - 127.5              (detector / TDOA path)
+- normalized : (x - 127.5) / 127.5    (RSSI / spectral path)
+- int8       : (int8)(x - 128)        (receiver path)
+
+Device ingest takes int8 bytes (uint8 ^ 0x80) and returns complex64.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_CONVENTIONS = ("centered", "normalized", "int8")
+
+
+def uint8_np_to_int8(raw: np.ndarray) -> np.ndarray:
+    """Host edge conversion: uint8 bytes -> int8 (x - 128), via the sign bit."""
+    return (raw ^ 0x80).view(np.int8)
+
+
+def int8_to_complex(x8: torch.Tensor, *,
+                    convention: str = "centered") -> torch.Tensor:
+    """Interleaved int8 I/Q (..., 2n) -> complex64 (..., n).
+
+    convention:
+      'centered'   : value + 0.5          == uint8 - 127.5
+      'normalized' : (value + 0.5)/127.5
+      'int8'       : value
+    """
+    if convention not in _CONVENTIONS:
+        raise ValueError(f"unknown convention {convention!r}")
+    if x8.dtype != torch.int8:
+        raise ValueError(f"expected int8 bytes, got {x8.dtype}")
+    if x8.shape[-1] % 2:
+        raise ValueError(f"odd byte count {x8.shape[-1]}: I/Q comes in pairs")
+    f = x8.to(torch.float32)
+    if convention == "centered":
+        f = f + 0.5
+    elif convention == "normalized":
+        f = (f + 0.5) / 127.5
+    return torch.view_as_complex(
+        f.reshape(x8.shape[:-1] + (x8.shape[-1] // 2, 2)).contiguous())
+
+
+def bytes_to_iq_f32(raw: torch.Tensor, *, centered: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """uint8 interleaved I/Q (..., 2n) -> complex64 (..., n)."""
+    x = raw.to(torch.float32)
+    if centered:
+        x = x - 127.5
+    if scale is not None:
+        x = x / scale
+    return torch.complex(x[..., 0::2], x[..., 1::2])
+
+
+def remove_dc(iq: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Per-block DC removal (complex mean along `dim`)."""
+    return iq - iq.mean(dim=dim, keepdim=True)
+
+
+def frame(x: torch.Tensor, frame_len: int, hop: int) -> torch.Tensor:
+    """Overlapping frames of the last axis: (..., n_frames, frame_len) with
+    n_frames = 1 + (n - frame_len)//hop; the tail that fills no frame is
+    dropped. A strided view, no copy."""
+    return x.unfold(-1, frame_len, hop)
+
+
+def frame_nonoverlap(x: torch.Tensor, frame_len: int) -> torch.Tensor:
+    """Consecutive non-overlapping frames of the last axis."""
+    n_frames = x.shape[-1] // frame_len
+    return x[..., : n_frames * frame_len].reshape(
+        x.shape[:-1] + (n_frames, frame_len))
+
+
+def read_iq_file(path: str, *, convention: str = "centered",
+                 count: int = -1, offset_bytes: int = 0) -> np.ndarray:
+    """Host-side read of a .bin capture -> numpy complex64."""
+    raw = np.fromfile(path, dtype=np.uint8, count=count, offset=offset_bytes)
+    if raw.size % 2:
+        raw = raw[:-1]
+    f = raw.astype(np.float32)
+    if convention == "centered":
+        f = f - 127.5
+    elif convention == "normalized":
+        f = (f - 127.5) / 127.5
+    elif convention == "int8":
+        f = (raw.astype(np.int16) - 128).astype(np.float32)
+    else:
+        raise ValueError(f"unknown convention {convention!r}")
+    return (f[0::2] + 1j * f[1::2]).astype(np.complex64)
+
+
+def write_iq_file(path: str, iq_float: np.ndarray) -> None:
+    """Write centered float I/Q as RTL-SDR uint8: clip to [-128, 127], +128."""
+    inter = np.empty(iq_float.size * 2, dtype=np.float32)
+    inter[0::2] = np.real(iq_float)
+    inter[1::2] = np.imag(iq_float)
+    clipped = np.clip(inter, -128.0, 127.0)
+    (clipped.astype(np.int16) + 128).astype(np.uint8).tofile(path)

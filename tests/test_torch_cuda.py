@@ -1,0 +1,112 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device and skips without one. The machine with
+the card has no JAX, and tests/conftest.py imports it, so run this file
+there without the conftest:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerances: the surface and the PSD rtol 1e-3, atol 1e-4 * max (float32
+FFTs of different factorizations, sums in another order); stats max and
+sums rtol 1e-3; the arg-lag exact on rows whose top two values differ by
+more than 1e-4 relative.
+"""
+import numpy as np
+import pytest
+import torch
+
+from gps_jamming_tpu_torch.ops import cuda_pcf, cuda_psd, spectral
+
+FS = 2.048e6
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _cplx(shape, seed, dev):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    return torch.from_numpy(x.astype(np.complex64)).to(dev)
+
+
+def _assert_close(got, ref, rtol, atol):
+    err = (got.double() - ref.double()).abs()
+    bad = err > atol + rtol * ref.double().abs()
+    assert not bool(bad.any()), f"max abs err {float(err.max()):.3e}"
+
+
+@pytest.mark.parametrize("nperseg,n", [(1024, 1 << 19), (1024, 100_000),
+                                       (64, 5000), (8192, 40_000)])
+@pytest.mark.parametrize("detrend", [True, False])
+def test_welch_kernel_matches_plain(dev, nperseg, n, detrend):
+    x = _cplx(n, seed=n, dev=dev) + (0.3 - 0.2j)      # a DC offset
+    before = cuda_psd.LAUNCHES
+    got = cuda_psd.welch_psd_fused(x, FS, nperseg, detrend)
+    torch.cuda.synchronize()
+    assert cuda_psd.LAUNCHES == before + 1
+    ref = cuda_psd.welch_psd_reference(x, FS, nperseg, detrend)
+    _assert_close(got, ref, 1e-3, 1e-4 * float(ref.max()))
+
+
+def test_welch_dispatch_on_cuda(dev):
+    """welch_psd takes the kernel on a CUDA tensor where its gate holds,
+    and the kernel wrapper raises (never falls back) where it does not."""
+    x = _cplx(1 << 15, seed=1, dev=dev)
+    before = cuda_psd.LAUNCHES
+    spectral.welch_psd(x, FS, 1024)
+    assert cuda_psd.LAUNCHES == before + 1
+    spectral.welch_psd(x, FS, 1024, overlap_frac=0.25)   # plain path
+    assert cuda_psd.LAUNCHES == before + 1
+    with pytest.raises(ValueError):
+        cuda_psd.welch_psd_fused(x, FS, 1000)
+    with pytest.raises(ValueError):
+        cuda_psd.welch_psd_fused(x[::2], FS, 1024)        # not contiguous
+
+
+@pytest.mark.parametrize("n,nb,nprn", [(2048, 10, 32), (256, 4, 5),
+                                       (16384, 4, 3)])
+def test_pcf_kernel_matches_plain(dev, n, nb, nprn):
+    blocks = _cplx((nb, n), seed=n, dev=dev)
+    rep = _cplx((nprn, n), seed=n + 1, dev=dev)
+    y = cuda_pcf.pcf_prologue(blocks, FS)
+    n_c = cuda_pcf.n_coarse(FS, n, 7000.0)
+    args = (y, rep, n_c, 6, 2)
+    ref = cuda_pcf.pcf_search_reference(*args)
+    before = cuda_pcf.LAUNCHES
+    surf = cuda_pcf.pcf_search(*args)
+    torch.cuda.synchronize()
+    assert cuda_pcf.LAUNCHES == before + 1
+    _assert_close(surf, ref, 1e-3, 1e-4 * float(ref.max()))
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 1e-4 * top2[..., 0]
+    for excl in (4, -1):
+        got = cuda_pcf.pcf_search(*args, stats_excl=excl)
+        want = cuda_pcf.surface_stats(ref, excl)
+        same = got[1] == want[1]
+        assert bool(same[clear].all())
+        _assert_close(got[0], want[0], 1e-3, 0.0)
+        _assert_close(got[3], want[3], 1e-3, 0.0)
+        _assert_close(got[2][same], want[2][same], 1e-3, 0.0)
+        _assert_close(got[4][same], want[4][same], 1e-3, 0.0)
+
+
+def test_pcf_dispatch_on_cuda(dev):
+    """caf_accumulate_pcf on a CUDA tensor is kernel B1; sizes the kernel
+    does not take raise instead of falling back."""
+    from gps_jamming_tpu_torch.ops import caf
+    blocks = _cplx((10, 2048), seed=3, dev=dev)
+    rep = _cplx((4, 2048), seed=4, dev=dev)
+    before = cuda_pcf.LAUNCHES
+    surf = caf.caf_accumulate_pcf(blocks, rep, FS)
+    assert cuda_pcf.LAUNCHES == before + 1
+    plain = caf.caf_accumulate_pcf(blocks.cpu(), rep.cpu(), FS)
+    _assert_close(surf.cpu(), plain, 1e-3, 1e-4 * float(plain.max()))
+    with pytest.raises(ValueError):
+        caf.caf_accumulate_pcf(_cplx((10, 2000), seed=5, dev=dev),
+                               _cplx((4, 2000), seed=6, dev=dev), FS)

@@ -1,0 +1,108 @@
+"""The port's whole slice vs the JAX package's, and the port's guarantees:
+no jax on its import path, no CPU stand-in for a missing CUDA kernel.
+
+Slice tolerances (one 1<<16-sample raw block through both forwards): psd
+rtol 1e-4, atol 1e-4 * max; pm rtol 1e-6; flags equal; surf rtol 2e-4,
+atol 2e-4 * max.
+"""
+import os
+import shutil
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__
+from gps_jamming_tpu_torch import device as tdevice
+from gps_jamming_tpu_torch import entry as tentry
+from gps_jamming_tpu_torch.kernels import build
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_slice_forward_matches_jax_entry():
+    jfn, (raw,) = __graft_entry__.entry()
+    raw = np.array(raw)[: 2 * (1 << 16)]
+    want = [np.asarray(a) for a in jax.jit(jfn)(jnp.asarray(raw))]
+    tfn, (traw,) = tentry.entry(torch.device("cpu"))
+    np.testing.assert_array_equal(traw.numpy(),
+                                  np.asarray(__graft_entry__.entry()[1][0]))
+    got = [a.numpy() for a in tfn(torch.from_numpy(raw))]
+    psd, pm, flags, surf = got
+    assert psd.shape == want[0].shape == (1024,)
+    assert surf.shape == want[3].shape == (32, 90, 2048)
+    np.testing.assert_allclose(psd, want[0], rtol=1e-4,
+                               atol=1e-4 * want[0].max())
+    np.testing.assert_allclose(pm, want[1], rtol=1e-6)
+    np.testing.assert_array_equal(flags, want[2])
+    np.testing.assert_allclose(surf, want[3], rtol=2e-4,
+                               atol=2e-4 * want[3].max())
+    # the measured step reduces the same search to its per-PRN peak
+    step = tentry.detect_acquire_step(torch.from_numpy(raw))
+    np.testing.assert_allclose(step[0].numpy(), psd, rtol=1e-6)
+    np.testing.assert_allclose(step[3].numpy(), surf.max(axis=(1, 2)),
+                               rtol=2e-4)
+
+
+def test_port_imports_no_jax():
+    mods = [
+        "gps_jamming_tpu_torch", "gps_jamming_tpu_torch.device",
+        "gps_jamming_tpu_torch.convert", "gps_jamming_tpu_torch.entry",
+        "gps_jamming_tpu_torch.kernels.build",
+        "gps_jamming_tpu_torch.ops.iq", "gps_jamming_tpu_torch.ops.codes",
+        "gps_jamming_tpu_torch.ops.power",
+        "gps_jamming_tpu_torch.ops.spectral",
+        "gps_jamming_tpu_torch.ops.cuda_psd",
+        "gps_jamming_tpu_torch.ops.corr", "gps_jamming_tpu_torch.ops.caf",
+        "gps_jamming_tpu_torch.ops.cuda_pcf",
+        "gps_jamming_tpu_torch.models.detector",
+        "gps_jamming_tpu_torch.models.receiver.acquisition",
+    ]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'triton']\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_require_cuda_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tdevice.require_cuda()
+    assert tdevice.as_device(None) == torch.device("cpu")
+
+
+def test_kernel_loader_raises_without_nvcc():
+    if build.find_nvcc() is not None:
+        pytest.skip("nvcc is present")
+    build.load.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.load()
+    assert len(build.source_hash()) == 16
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line where
+    CUDA is unavailable, and where it stands alone without the package."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for cwd, script in ((REPO, "chip_smoke.py"),
+                        (str(tmp_path), shutil.copy(
+                            os.path.join(REPO, "chip_smoke.py"), tmp_path))):
+        out = subprocess.run([sys.executable, script], cwd=cwd,
+                             capture_output=True, text=True, timeout=300,
+                             env={**os.environ, "PYTHONPATH": ""})
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
