@@ -1,23 +1,33 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (gps_jamming_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py              # the five phases below
+    python3 chip_smoke.py              # the phases below
     python3 chip_smoke.py --profile    # and a torch.profiler breakdown of
-                                       # the main-path step after phase 4
+                                       # the PCF and std main-path steps
 
 Phases, in order; any failure raises and the exit code is non-zero:
 1. the card: require CUDA, print torch, the device and nvidia-smi's name
    and power limit;
 2. build the CUDA kernels from gps_jamming_tpu_torch/csrc/;
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (Welch PSD on one 512k-sample block; the PCF search at
-   32 PRN x 2048 lags x 10 code periods in surface, stats and peak-only
-   modes), with CUDA-event median times of both;
+   path's shapes, with CUDA-event median times of both: (a) the Welch PSD
+   on one 512k-sample block; (b) the PCF search at 32 PRN x 2048 lags x 10
+   code periods in surface, stats and peak-only modes; (c) the std search
+   at the GPS shape (32 PRN x 71 bins x 10 x 2048) and the Galileo E1B
+   shape (36 PRN x 71 bins x 10 x 16384 at 4.096 MS/s);
 4. the main path: `entry.detect_acquire_step` over 8 consecutive 512k-sample
    blocks of a synthetic capture (noise, GPS PRN 7, a tone jammer in blocks
    3-5), then `acquire_all(method='pcf')` on the clean first 10 ms and
    `power_profile_file` on the same bytes, checked against the known
    answer and against the CPU plain path;
+   (b) the std chain: `detect_acquire_step(method='std')` over the same 8
+   blocks; (c) the GPS receiver's `acquire_all(method='std')` on the first
+   10 ms and `refine_doppler` of PRN 7 over 32 ms; (d) Galileo E1B
+   acquisition of a seeded 40 ms capture at 4.096 MS/s, 'std' (kernel B3
+   at 16384 lags) and 'auto' (kernel B1 in stats mode at 16384 lags), each
+   followed by `refine_doppler`;
+   (e) GLONASS FDMA acquisition of a seeded 4 ms capture at 10 MS/s, 'pcf'
+   and 'std', against the CPU path;
 5. print the per-kernel JSON line, the card line, and the success line.
 """
 import argparse
@@ -46,6 +56,16 @@ JAM_HZ = 250e3                    # PSD bin 125 at nperseg 1024
 JAM_BLOCKS = (3, 4, 5)
 REPS = 25                         # timed samples per kernel
 INNER = 10                        # back-to-back calls per sample
+GAL_FS = 4.096e6                  # Galileo E1B: 2 samples per half-chip
+GAL_N = 16384                     # one 4 ms code period
+GAL_PRN = 11
+GAL_CODE_PHASE = 5000             # samples
+GAL_DOPPLER_HZ = -2400.0
+GLO_FS = 10e6                     # GLONASS L1OF
+GLO_N = 10000                     # one 1 ms code period
+GLO_CH = 2                        # FDMA frequency number
+GLO_CODE_PHASE = 3210             # samples
+GLO_DOPPLER_HZ = 1800.0
 
 
 def fail_unless(cond, msg):
@@ -153,6 +173,134 @@ def make_capture(rng) -> np.ndarray:
     return u8.reshape(N_BLOCKS, 2 * N_BLOCK)
 
 
+def complex_noise(rng, n: int) -> np.ndarray:
+    """Complex white noise, unit rms per component."""
+    return rng.standard_normal(n) + 1j * rng.standard_normal(n)
+
+
+def make_galileo_blocks(rng, dev) -> torch.Tensor:
+    """(10, 16384) complex64: 40 ms at 4.096 MS/s of noise plus E1B PRN
+    GAL_PRN at -18 dB per-sample SNR (about 48 dB-Hz), its code starting at
+    sample GAL_CODE_PHASE, at GAL_DOPPLER_HZ. The BOC code is rendered
+    band-limited: sampled raw, its 2.046 MHz subcarrier line would alias
+    into the Doppler band."""
+    from gps_jamming_tpu_torch.models.receiver import galileo
+    from gps_jamming_tpu_torch.ops import codes
+    n = 10 * GAL_N
+    f = galileo.BOC_RATE * (1.0 + GAL_DOPPLER_HZ / 1575.42e6)
+    code = torch.from_numpy(galileo.e1b_boc_code(GAL_PRN).astype(np.float32))
+    chips = codes.resample_code_bandlimited(
+        code, f, GAL_FS, n, rem_chips=-GAL_CODE_PHASE * f / GAL_FS).numpy()
+    i = np.arange(n, dtype=np.float64)
+    amp = np.sqrt(2 * 10 ** (SIGNAL_SNR_DB / 10))
+    x = complex_noise(rng, n) + amp * chips * np.exp(
+        2j * np.pi * GAL_DOPPLER_HZ * i / GAL_FS)
+    return torch.from_numpy(x.astype(np.complex64).reshape(10, GAL_N)).to(dev)
+
+
+def make_glonass_blocks(rng, dev) -> torch.Tensor:
+    """(4, 10000) complex64: 4 ms at 10 MS/s of noise plus the shared
+    511-chip code on FDMA channel GLO_CH at -20 dB per-sample SNR (about
+    50 dB-Hz), code start at sample GLO_CODE_PHASE, GLO_DOPPLER_HZ off the
+    channel's carrier."""
+    from gps_jamming_tpu_torch.models.receiver import glonass
+    from gps_jamming_tpu_torch.ops import codes
+    n = 4 * GLO_N
+    i = np.arange(n, dtype=np.float64)
+    chip = np.floor((i - GLO_CODE_PHASE) * (0.511e6 / GLO_FS)).astype(
+        np.int64) % 511
+    f = glonass.channel_offsets_hz(channels=[GLO_CH])[0] + GLO_DOPPLER_HZ
+    amp = np.sqrt(2 * 10 ** (-20.0 / 10))
+    x = complex_noise(rng, n) + amp * codes.glonass_code()[chip] * np.exp(
+        2j * np.pi * f * i / GLO_FS)
+    return torch.from_numpy(x.astype(np.complex64).reshape(4, GLO_N)).to(dev)
+
+
+def reset_launches():
+    from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf, cuda_psd
+    cuda_psd.LAUNCHES = cuda_pcf.LAUNCHES = cuda_caf.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf, cuda_psd
+    return {"welch_psd": cuda_psd.LAUNCHES, "pcf": cuda_pcf.LAUNCHES,
+            "caf_std": cuda_caf.LAUNCHES}
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host milliseconds of fn() ending in a synchronise, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def check_b3(label, blocks, replica, freqs, fs, reps, inner) -> dict:
+    """Kernel B3 against its plain version: errors, the arg-lag on rows
+    with a clear peak, and CUDA-event times of both."""
+    from gps_jamming_tpu_torch.ops import cuda_caf
+    ref = cuda_caf.caf_accumulate_reference(blocks, replica, freqs, fs)
+    got = cuda_caf.caf_accumulate_fused(blocks, replica, freqs, fs)
+    ok, abs_err, rel = close(got, ref, 1e-3, 1e-4 * float(ref.max()))
+    top2 = ref.topk(2, dim=-1)
+    clear = (top2.values[..., 0] - top2.values[..., 1]) \
+        > 1e-4 * top2.values[..., 0]
+    same = got.argmax(dim=-1) == top2.indices[..., 0]
+    fail_unless(ok, f"B3 {label} disagrees with its plain version "
+                    f"(max_abs_err {abs_err:.3e})")
+    fail_unless(bool(same[clear].all()),
+                f"B3 {label}: arg-lag differs on a row with a clear peak")
+    del ref, got
+    ms, plain_ms = time_pair(
+        lambda: cuda_caf.caf_accumulate_fused(blocks, replica, freqs, fs),
+        lambda: cuda_caf.caf_accumulate_reference(blocks, replica, freqs,
+                                                  fs), reps, inner)
+    nb, n = blocks.shape
+    print(f"B3 caf_std {label} ({replica.shape[0]} PRN x {len(freqs)} bins "
+          f"x {nb} x {n}): max_abs_err {abs_err:.3e} max_rel_err {rel:.3e} "
+          f"(rtol 1e-3, atol 1e-4*max); arg-lag equal on "
+          f"{int(same[clear].sum())}/{int(clear.sum())} rows with a clear "
+          f"peak ({int(same.sum())}/{same.numel()} in all); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    return {"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def check_acquired(label, res, want_i, want_lag, want_hz, lag_tol, hz_tol,
+                   n):
+    """`want_i` acquired at its lag and Doppler, and nothing else."""
+    acq_i = torch.nonzero(res.acquired).flatten().tolist()
+    lag = int(res.code_phase[want_i])
+    d_lag = (lag - want_lag + n // 2) % n - n // 2
+    hz = float(res.doppler_hz[want_i])
+    print(f"{label}: acquired {acq_i} (want [{want_i}]); lag {lag} (true "
+          f"{want_lag}); doppler {hz:.1f} Hz (true {want_hz}); ratio "
+          f"{float(res.peak_ratio[want_i]):.2f}; cn0 "
+          f"{float(res.cn0_dbhz[want_i]):.2f} dB-Hz", flush=True)
+    fail_unless(acq_i == [want_i], f"{label}: acquired {acq_i}, want "
+                                   f"only [{want_i}]")
+    fail_unless(abs(d_lag) <= lag_tol, f"{label}: lag off by {d_lag}")
+    fail_unless(abs(hz - want_hz) <= hz_tol,
+                f"{label}: Doppler off by {hz - want_hz} Hz")
+
+
+def same_result(label, got, ref, rtol=1e-3):
+    """Equal decisions, lags and Dopplers; the rest within rtol."""
+    for f in ("acquired", "code_phase", "doppler_hz"):
+        fail_unless(bool(torch.equal(getattr(got, f).cpu(), getattr(ref, f))),
+                    f"{label}: {f} differs from the CPU path")
+    for f in ("peak_ratio", "cn0_dbhz", "peak_power"):
+        ok, _, rel = close(getattr(got, f).cpu(), getattr(ref, f), rtol, 0.0)
+        fail_unless(ok, f"{label}: {f} differs from the CPU path "
+                        f"(rel {rel:.3e})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -168,7 +316,8 @@ def main() -> int:
     from gps_jamming_tpu_torch.kernels import build
     from gps_jamming_tpu_torch.models import detector
     from gps_jamming_tpu_torch.models.receiver import acquisition as acq
-    from gps_jamming_tpu_torch.ops import codes, cuda_pcf, cuda_psd, iq
+    from gps_jamming_tpu_torch.models.receiver import galileo, glonass
+    from gps_jamming_tpu_torch.ops import caf, codes, cuda_pcf, cuda_psd, iq
     CFG = entry.CFG
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -267,12 +416,28 @@ def main() -> int:
                     "plain_ms": modes["peak"]["plain_ms"],
                     "modes": modes})
 
+    # 3c. kernel B3 vs plain at the GPS and the Galileo E1B shapes
+    gal_blocks = make_galileo_blocks(rng, dev)
+    gal_rep = codes.replica_tensor(galileo.replica_table_host(GAL_FS, GAL_N),
+                                   dev)
+    std_freqs = caf.doppler_bins(7000.0, 200.0)
+    b3 = {"gps": check_b3("gps", blocks, replica, std_freqs, FS, REPS,
+                          INNER),
+          "galileo": check_b3("galileo", gal_blocks, gal_rep, std_freqs,
+                              GAL_FS, 5, 3)}
+    kernels.append({"name": "caf_std", "route": "cuda",
+                    "source": "gps_jamming_tpu_torch/csrc/caf_std.cu",
+                    "replaces": "gps_jamming_tpu/ops/pallas_caf.py:118, "
+                                ":411, :715",
+                    "max_abs_err": b3["gps"]["max_abs_err"],
+                    "ms": b3["gps"]["ms"],
+                    "plain_ms": b3["gps"]["plain_ms"], "shapes": b3})
+
     # 4. the main path (warm-up pass first, then counters from zero)
     for b in range(N_BLOCKS):
         entry.detect_acquire_step(raw[b], replica)
     torch.cuda.synchronize()
-    cuda_psd.LAUNCHES = 0
-    cuda_pcf.LAUNCHES = 0
+    reset_launches()
     step_s, outs = [], []
     for b in range(N_BLOCKS):
         t0 = time.perf_counter()
@@ -280,32 +445,32 @@ def main() -> int:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         outs.append(out)
-    launches = {"welch_psd": cuda_psd.LAUNCHES, "pcf": cuda_pcf.LAUNCHES}
-    fail_unless(launches == {"welch_psd": N_BLOCKS, "pcf": N_BLOCKS},
-                f"main path: expected {N_BLOCKS} launches of each kernel, "
-                f"got {launches}")
+    launches = read_launches()
+    fail_unless(launches == {"welch_psd": N_BLOCKS, "pcf": N_BLOCKS,
+                             "caf_std": 0},
+                f"main path: expected {N_BLOCKS} launches of B2 and B1, "
+                f"none of B3, got {launches}")
     # the receiver's acquisition (B1 in stats mode) and entry()'s forward
     # (B2 + B1 surface), counted apart from the main path
-    cuda_psd.LAUNCHES = 0
-    cuda_pcf.LAUNCHES = 0
+    reset_launches()
     res = acq.acquire_all(blocks, replica, FS, CFG.acquisition,
                           method="pcf")
-    acq_launches = cuda_pcf.LAUNCHES
+    acq_launches = read_launches()
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "capture.bin")
         cap.tofile(path)
         prof = detector.power_profile_file(path, CFG.detector, device=dev)
         ranges = detector.power_profile_ranges(prof, CFG.detector)
-    cuda_psd.LAUNCHES = 0
-    cuda_pcf.LAUNCHES = 0
+    reset_launches()
     fwd, (raw_ex,) = entry.entry(dev)
     fwd_out = fwd(raw_ex)
     torch.cuda.synchronize()
-    fwd_launches = {"welch_psd": cuda_psd.LAUNCHES, "pcf": cuda_pcf.LAUNCHES}
-    fail_unless(acq_launches == 1, f"acquire_all: {acq_launches} B1 "
-                                   "launches, expected 1")
-    fail_unless(fwd_launches == {"welch_psd": 1, "pcf": 1},
-                f"entry forward: launches {fwd_launches}, expected 1 each")
+    fwd_launches = read_launches()
+    fail_unless(acq_launches == {"welch_psd": 0, "pcf": 1, "caf_std": 0},
+                f"acquire_all: launches {acq_launches}, expected one of B1")
+    fail_unless(fwd_launches == {"welch_psd": 1, "pcf": 1, "caf_std": 0},
+                f"entry forward: launches {fwd_launches}, expected one of "
+                "B2 and of B1")
 
     for b, (psd, pm, flags, peak) in enumerate(outs):
         fail_unless(psd.shape == (1024,) and pm.shape == (16,)
@@ -364,14 +529,150 @@ def main() -> int:
           f"samples: median {med * 1e3:.3f} ms/block "
           f"({N_BLOCK / med / 1e6:.1f} Msamples/s); steps ms "
           f"{[round(s * 1e3, 3) for s in step_s]}; main-path launches "
-          f"{launches}; acquire_all B1 launches {acq_launches}; entry "
+          f"{launches}; acquire_all launches {acq_launches}; entry "
           f"forward launches {fwd_launches}; card {card}", flush=True)
     if args_cli.profile:
         profile_step(lambda r: entry.detect_acquire_step(r, replica), raw)
 
+    # 4b. the std chain (bench.py's acq_method='std'), warm-up pass first
+    for b in range(N_BLOCKS):
+        entry.detect_acquire_step(raw[b], replica, method="std")
+    torch.cuda.synchronize()
+    reset_launches()
+    std_s, std_outs = [], []
+    for b in range(N_BLOCKS):
+        t0 = time.perf_counter()
+        out = entry.detect_acquire_step(raw[b], replica, method="std")
+        torch.cuda.synchronize()
+        std_s.append(time.perf_counter() - t0)
+        std_outs.append(out)
+    std_launches = read_launches()
+    fail_unless(std_launches == {"welch_psd": N_BLOCKS, "pcf": 0,
+                                 "caf_std": N_BLOCKS},
+                f"std main path: expected {N_BLOCKS} launches of B2 and "
+                f"B3, none of B1, got {std_launches}")
+    for b, (psd, pm, flags, peak) in enumerate(std_outs):
+        fail_unless(peak.shape == (32,) and bool(torch.isfinite(peak).all()),
+                    f"std block {b}: bad peak output")
+        if b not in JAM_BLOCKS:
+            fail_unless(int(peak.argmax()) == PRN - 1,
+                        f"std clean block {b}: strongest PRN is "
+                        f"{int(peak.argmax()) + 1}, not {PRN}")
+    cpu_std = entry.detect_acquire_step(raw[0].cpu(), method="std")
+    for nm, g, r, tol in zip(("psd", "pm", "flags", "peak"), std_outs[0],
+                             cpu_std, (1e-3, 1e-4, 0.0, 1e-3)):
+        if nm == "flags":
+            fail_unless(bool((g.cpu() == r).all()), "std flags differ")
+            continue
+        ok, abs_err, rel = close(g.cpu(), r, tol, tol * float(r.abs().max()))
+        fail_unless(ok, f"std step {nm} differs from the CPU path "
+                        f"(rel {rel:.3e})")
+    std_med = statistics.median(std_s)
+    print(f"std main path: detect_acquire_step(method='std') x{N_BLOCKS} "
+          f"blocks of {N_BLOCK} samples: median {std_med * 1e3:.3f} ms/block "
+          f"({N_BLOCK / std_med / 1e6:.1f} Msamples/s); steps ms "
+          f"{[round(t * 1e3, 3) for t in std_s]}; launches {std_launches}; "
+          f"card {card}", flush=True)
+    if args_cli.profile:
+        profile_step(lambda r: entry.detect_acquire_step(r, replica,
+                                                         method="std"), raw)
+
+    # 4c. the GPS receiver's std acquisition and its fine-Doppler handover
+    reset_launches()
+    res = acq.acquire_all(blocks, replica, FS, CFG.acquisition, method="std")
+    torch.cuda.synchronize()
+    gps_std_launches = read_launches()
+    fail_unless(gps_std_launches == {"welch_psd": 0, "pcf": 0, "caf_std": 1},
+                f"acquire_all(std): launches {gps_std_launches}, expected "
+                "one of B3")
+    check_acquired("acquire_all(std) GPS", res, PRN - 1, CODE_PHASE,
+                   DOPPLER_HZ, 1, 0.0, N_CODE)
+    gps_std_ms = host_ms(lambda: acq.acquire_all(
+        blocks, replica, FS, CFG.acquisition, method="std"))
+    x_ref = x0[: 40 * N_CODE]
+    table = codes.gps_ca_code(PRN)[None, :].astype(np.float32)
+    lag, dopp = res.code_phase[PRN - 1:PRN], res.doppler_hz[PRN - 1:PRN]
+    fine = float(acq.refine_doppler(x_ref, table, lag, dopp, FS, 1.023e6)[0])
+    fine_cpu = float(acq.refine_doppler(x_ref.cpu(), table, lag.cpu(),
+                                        dopp.cpu(), FS, 1.023e6)[0])
+    refine_ms = host_ms(lambda: acq.refine_doppler(x_ref, table, lag, dopp,
+                                                   FS, 1.023e6))
+    print(f"refine_doppler PRN {PRN}: {fine:.3f} Hz (true {DOPPLER_HZ}, "
+          f"error {fine - DOPPLER_HZ:+.3f} Hz; CPU path {fine_cpu:.3f} Hz, "
+          f"difference {fine - fine_cpu:+.4f} Hz); acquire_all(std) "
+          f"{gps_std_ms:.3f} ms, refine_doppler {refine_ms:.3f} ms (host, "
+          f"synchronised)", flush=True)
+    fail_unless(abs(fine - DOPPLER_HZ) <= 50.0,
+                f"refine_doppler off by {fine - DOPPLER_HZ} Hz")
+    fail_unless(abs(fine - fine_cpu) <= 0.5,
+                f"refine_doppler differs from the CPU path by "
+                f"{fine - fine_cpu} Hz")
+
+    # 4d. Galileo E1B: std (B3 at 16384 lags) and auto (B1 stats mode at
+    # 16384 lags), each handed over through refine_doppler. The PCF grid's
+    # fine steps (+/-200 Hz) alias across 4 ms blocks (to -/+50 Hz), so
+    # its Doppler label can be one 250 Hz block-rate step off, in the JAX
+    # package too; refine_doppler's +/-500 Hz range takes it back.
+    gal_kw = dict(code_period_s=galileo.PERIOD_S,
+                  code_len_chips=float(galileo.BOC_LEN))
+    gal_x = gal_blocks.reshape(-1)
+    gal_table = galileo.boc_table([GAL_PRN]).astype(np.float32)
+    gi = GAL_PRN - 1
+    gal = {}
+    for method, hz_tol, want in (
+            ("std", 100.0, {"welch_psd": 0, "pcf": 0, "caf_std": 1}),
+            ("auto", 250.0, {"welch_psd": 0, "pcf": 1, "caf_std": 0})):
+        reset_launches()
+        res = acq.acquire_all(gal_blocks, gal_rep, GAL_FS, CFG.acquisition,
+                              method=method, **gal_kw)
+        torch.cuda.synchronize()
+        got = read_launches()
+        fail_unless(got == want, f"Galileo acquire_all({method}): launches "
+                                 f"{got}, expected {want}")
+        check_acquired(f"Galileo acquire_all({method})", res, gi,
+                       GAL_CODE_PHASE, GAL_DOPPLER_HZ, 2, hz_tol, GAL_N)
+        fine = float(acq.refine_doppler(
+            gal_x, gal_table, res.code_phase[gi:gi + 1],
+            res.doppler_hz[gi:gi + 1], GAL_FS, galileo.BOC_RATE)[0])
+        fail_unless(abs(fine - GAL_DOPPLER_HZ) <= 50.0,
+                    f"Galileo {method}: refined Doppler off by "
+                    f"{fine - GAL_DOPPLER_HZ} Hz")
+        gal[method] = (fine, host_ms(lambda: acq.acquire_all(
+            gal_blocks, gal_rep, GAL_FS, CFG.acquisition, method=method,
+            **gal_kw)))
+    print(f"Galileo acquisition, 36 PRN x 10 x {GAL_N}: std "
+          f"{gal['std'][1]:.3f} ms, auto (PCF) {gal['auto'][1]:.3f} ms (host, "
+          f"synchronised); refined Doppler std {gal['std'][0]:.3f} Hz, auto "
+          f"{gal['auto'][0]:.3f} Hz (true {GAL_DOPPLER_HZ}); card {card}",
+          flush=True)
+
+    # 4e. GLONASS FDMA (plain torch on the card) against the CPU path
+    glo_blocks = make_glonass_blocks(rng, dev)
+    chans = list(glonass.FREQ_CHANNELS)
+    glo = {}
+    for method in ("pcf", "std"):
+        reset_launches()
+        res = glonass.acquire_all(glo_blocks, GLO_FS, CFG.acquisition,
+                                  method=method)
+        torch.cuda.synchronize()
+        fail_unless(not any(read_launches().values()),
+                    "GLONASS acquisition launched a kernel")
+        check_acquired(f"GLONASS acquire_all({method})", res,
+                       chans.index(GLO_CH), GLO_CODE_PHASE, GLO_DOPPLER_HZ,
+                       2, 100.0, GLO_N)
+        same_result(f"GLONASS acquire_all({method})", res,
+                    glonass.acquire_all(glo_blocks.cpu(), GLO_FS,
+                                        CFG.acquisition, method=method))
+        glo[method] = host_ms(lambda: glonass.acquire_all(
+            glo_blocks, GLO_FS, CFG.acquisition, method=method))
+    print(f"GLONASS acquisition, 14 channels x 4 x {GLO_N}: pcf "
+          f"{glo['pcf']:.3f} ms, std {glo['std']:.3f} ms (host, "
+          f"synchronised); agrees with the CPU path", flush=True)
+
     # 5. results
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = (std_launches if k["name"] == "caf_std"
+                         else launches)[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,83 @@
+// Per-Doppler ("std") acquisition search (kernel B3 of the port).
+//
+// Replaces the three TPU layouts of one computation in
+// gps_jamming_tpu/ops/pallas_caf.py: caf_accumulate_fused (v1, body
+// _make_kernel), caf_accumulate_fused_v2 (_make_kernel_v2) and
+// caf_accumulate_fused_v3 (_make_kernel_v3 on the (freq, block) grid):
+//
+//   out[p, f, :] = sum_b |IFFT(FFT(x_b * osc_f) * rep[p])|^2
+//
+// with osc_f[t] = exp(-2*pi*i*f*t/fs), the reference's non-coherent sum of
+// n_blocks code periods (sdracq.c:15-27). Two launches:
+//   1. caf_mix_forward: one block per (bin f, block b): x_b * osc_f,
+//      written bit-reversed into shared memory -> n-point FFT ->
+//      Y[f*nb + b]. The phasor rows come from a table the wrapper builds
+//      once per shape (float64 on the host, cast to complex64).
+//   2. pcf_correlate (pcf_correlate.cuh, the correlate stage of kernel B1)
+//      with R = F rows, G = nb groups, one coarse bin (no shift) and the
+//      surface epilogue: one block per (PRN p, bin f) runs product ->
+//      inverse FFT -> |.|^2, summed over the blocks in registers ->
+//      out[p*F + f, :], already the (P, F, n) layout.
+//
+// What bounds it: the inverse FFTs, P*F*nb of them against F*nb forward
+// ones (the GPS search, 32 PRN x 71 bins x 10 periods, runs 22720 inverse
+// transforms of 2048 points; Galileo E1B, 36 x 71 x 10, 25560 of 16384).
+// Each inverse stays in shared memory from the replica product to |.|^2,
+// and the sum over blocks stays in registers, so the only device-memory
+// traffic per (p, f) is nb spectrum rows in and one surface row out. At
+// n = 16384 a block holds 128 KB of row and 64 KB of twiddles, so one
+// block of 1024 threads runs per SM.
+#include <cuda_runtime.h>
+
+#include "pcf_correlate.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(gjt::kMaxThreads)
+caf_mix_forward_kernel(const float2* __restrict__ x,
+                       const float2* __restrict__ osc,
+                       float2* __restrict__ Y, const float2* __restrict__ tw,
+                       int nb, int n, int log2n) {
+  extern __shared__ float2 smem[];
+  float2* buf = smem;
+  float2* tw_s = smem + n;
+  gjt::stage_twiddles(tw_s, tw, n);
+  const int f = blockIdx.x / nb;
+  const int b = blockIdx.x % nb;
+  const float2* xb = x + static_cast<long long>(b) * n;
+  const float2* of = osc + static_cast<long long>(f) * n;
+  for (int t = threadIdx.x; t < n; t += blockDim.x)
+    buf[gjt::bitrev(t, log2n)] = gjt::cmul(xb[t], of[t]);
+  __syncthreads();
+  gjt::fft_radix2<false>(buf, tw_s, n, log2n);
+  float2* dst = Y + static_cast<long long>(blockIdx.x) * n;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = buf[k];
+}
+
+}  // namespace
+
+// x: (nb, n) complex64 blocks; osc: (F, n) complex64 phasor rows; Y:
+// (F*nb, n) complex64 scratch, rows ordered (f, b); rep: (P, n) complex64
+// natural-order conj replica spectra; tw: (n/2,) complex64; out: the
+// (P, F, n) float32 surface. Returns a cudaError_t (0 on success).
+extern "C" int gjt_caf_std(const void* x, const void* osc, void* Y,
+                           const void* rep, const void* tw, void* out, int F,
+                           int nb, int P, int n, void* stream) {
+  if (n < 256 || n > 16384 || (n & (n - 1)) || F < 1 || nb < 1 || P < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = gjt::fft_smem_bytes(n);
+  cudaError_t err = gjt::allow_smem(
+      reinterpret_cast<const void*>(caf_mix_forward_kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  caf_mix_forward_kernel<<<F * nb, gjt::fft_threads(n), smem, s>>>(
+      static_cast<const float2*>(x), static_cast<const float2*>(osc),
+      static_cast<float2*>(Y), static_cast<const float2*>(tw), nb, n,
+      gjt::ilog2(n));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(gjt::launch_correlate(
+      static_cast<const float2*>(Y), static_cast<const float2*>(rep),
+      static_cast<const float2*>(tw), static_cast<float*>(out), F, nb, 1, P,
+      n, 0, 0, s));
+}

@@ -47,6 +47,21 @@ static __device__ void fft_radix2(float2* buf, const float2* tw, int n,
   }
 }
 
+// log2 of a power of two (host side).
+static inline int ilog2(int n) {
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return l;
+}
+
+// Lets `fn` take `bytes` of dynamic shared memory: above 48 KB a kernel
+// must opt in before its launch.
+static inline cudaError_t allow_smem(const void* fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 // Copies the n/2-entry twiddle table into shared memory (no sync).
 static __device__ __forceinline__ void stage_twiddles(float2* tw_s,
                                                       const float2* tw,

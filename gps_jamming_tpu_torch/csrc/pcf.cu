@@ -8,11 +8,11 @@
 // wrapper builds (a small einsum), the natural-order conj replica spectra
 // rep[p, k], and the coarse-shift count n_c. Two launches:
 //   1. pcf_forward:   one block per (s, f, g) row: n-point FFT -> Y.
-//   2. pcf_correlate: one block per (PRN p, coarse c, row r = s*F + f):
-//      for each group g, Y[r, g, k] * rep[p, (k - shift_c) mod n] ->
-//      inverse FFT (with the 1/n of ifft) -> |.|^2, summed over groups in
-//      registers. The coarse shift is index arithmetic on the replica, so
-//      no shifted table exists.
+//   2. pcf_correlate (pcf_correlate.cuh, shared with kernel B3): one block
+//      per (PRN p, coarse c, row r = s*F + f): for each group g,
+//      Y[r, g, k] * rep[p, (k - shift_c) mod n] -> inverse FFT (with the
+//      1/n of ifft) -> |.|^2, summed over groups in registers. The coarse
+//      shift is index arithmetic on the replica, so no shifted table exists.
 // Epilogue modes: the surface row out[p, c*R + r, :]; or per-(p, row)
 // statistics (max, arg-lag with the lowest lag winning ties, max outside
 // the circular window min(d, n-d) <= excl, total sum, window sum) as five
@@ -26,15 +26,9 @@
 // 5 x (P, rows) floats.
 #include <cuda_runtime.h>
 
-#include "fft_smem.cuh"
+#include "pcf_correlate.cuh"
 
 namespace {
-
-constexpr int kMaxPerThread = 16;
-
-__device__ __forceinline__ float neg_inf() {
-  return -__int_as_float(0x7f800000);
-}
 
 __global__ void __launch_bounds__(gjt::kMaxThreads)
 pcf_forward_kernel(const float2* __restrict__ y, float2* __restrict__ Y,
@@ -52,120 +46,6 @@ pcf_forward_kernel(const float2* __restrict__ y, float2* __restrict__ Y,
   for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = buf[k];
 }
 
-__global__ void __launch_bounds__(gjt::kMaxThreads)
-pcf_correlate_kernel(const float2* __restrict__ Y,
-                     const float2* __restrict__ rep,
-                     const float2* __restrict__ tw, float* __restrict__ out,
-                     int R, int G, int n_c, int P, int n, int log2n, int stats,
-                     int excl) {
-  const int b = blockIdx.x;
-  const int r = b % R;
-  const int c = (b / R) % n_c;
-  const int p = b / (R * n_c);
-  const int shift = c - n_c / 2;
-
-  extern __shared__ float2 smem[];
-  float2* buf = smem;                                  // n
-  float2* tw_s = smem + n;                             // n / 2
-  float* red = reinterpret_cast<float*>(tw_s + (n >> 1));   // 32
-  int* redi = reinterpret_cast<int*>(red + 32);              // 32
-  gjt::stage_twiddles(tw_s, tw, n);
-
-  const int T = blockDim.x;
-  const int per = n / T;
-  const float inv_n = 1.f / static_cast<float>(n);
-  const float2* rp = rep + static_cast<long long>(p) * n;
-
-  float acc[kMaxPerThread];
-#pragma unroll
-  for (int j = 0; j < kMaxPerThread; ++j) acc[j] = 0.f;
-
-  for (int g = 0; g < G; ++g) {
-    const float2* yg = Y + (static_cast<long long>(r) * G + g) * n;
-    for (int k = threadIdx.x; k < n; k += T)
-      buf[gjt::bitrev(k, log2n)] =
-          gjt::cmul(yg[k], rp[(k - shift) & (n - 1)]);
-    __syncthreads();
-    gjt::fft_radix2<true>(buf, tw_s, n, log2n);
-#pragma unroll
-    for (int j = 0; j < kMaxPerThread; ++j) {
-      if (j < per) {
-        const float2 v = buf[threadIdx.x + j * T];
-        const float re = v.x * inv_n, im = v.y * inv_n;
-        acc[j] += re * re + im * im;
-      }
-    }
-    __syncthreads();
-  }
-
-  const long long n_rows = static_cast<long long>(n_c) * R;
-  const long long cell = static_cast<long long>(p) * n_rows + c * R + r;
-  if (!stats) {
-    float* o = out + cell * n;
-#pragma unroll
-    for (int j = 0; j < kMaxPerThread; ++j)
-      if (j < per) o[threadIdx.x + j * T] = acc[j];
-    return;
-  }
-
-  // k = threadIdx.x + j*T increases with j, so a strict '>' keeps the
-  // lowest lag of this thread; block_max_arg keeps the lowest across threads
-  float bv = neg_inf();
-  int ba = n;
-#pragma unroll
-  for (int j = 0; j < kMaxPerThread; ++j) {
-    if (j < per && acc[j] > bv) {
-      bv = acc[j];
-      ba = threadIdx.x + j * T;
-    }
-  }
-  float mx;
-  int arg;
-  gjt::block_max_arg(bv, ba, red, redi, &mx, &arg);
-
-  float ex = 0.f, tot = 0.f, ws = 0.f;
-  if (excl >= 0) {
-    float exl = neg_inf(), tl = 0.f, wl = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxPerThread; ++j) {
-      if (j < per) {
-        const int k = threadIdx.x + j * T;
-        const int d = (k - arg + n) & (n - 1);
-        const int dist = min(d, n - d);
-        if (dist <= excl) {
-          wl += acc[j];
-        } else {
-          exl = fmaxf(exl, acc[j]);
-        }
-        tl += acc[j];
-      }
-    }
-    ex = gjt::block_max(exl, red);
-    tot = gjt::block_sum(tl, red);
-    ws = gjt::block_sum(wl, red);
-  }
-  if (threadIdx.x == 0) {
-    const long long plane = static_cast<long long>(P) * n_rows;
-    out[cell] = mx;
-    out[plane + cell] = static_cast<float>(arg);
-    out[2 * plane + cell] = ex;
-    out[3 * plane + cell] = tot;
-    out[4 * plane + cell] = ws;
-  }
-}
-
-int ilog2(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
-}
-
-cudaError_t allow_smem(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 }  // namespace
 
 // y: (R*G, n) complex64, rows ordered (r, g); Y: same-shape scratch;
@@ -180,28 +60,17 @@ extern "C" int gjt_pcf(const void* y, void* Y, const void* rep,
       (stats && excl >= n / 2))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int threads = n / 8;
-  if (threads < 32) threads = 32;
-  if (threads > gjt::kMaxThreads) threads = gjt::kMaxThreads;
-  const int log2n = ilog2(n);
-
-  const size_t smem_fwd = sizeof(float2) * (n + n / 2);
-  cudaError_t err = allow_smem(
-      reinterpret_cast<const void*>(pcf_forward_kernel), smem_fwd);
+  const size_t smem = gjt::fft_smem_bytes(n);
+  cudaError_t err = gjt::allow_smem(
+      reinterpret_cast<const void*>(pcf_forward_kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pcf_forward_kernel<<<R * G, threads, smem_fwd, s>>>(
+  pcf_forward_kernel<<<R * G, gjt::fft_threads(n), smem, s>>>(
       static_cast<const float2*>(y), static_cast<float2*>(Y),
-      static_cast<const float2*>(tw), n, log2n);
+      static_cast<const float2*>(tw), n, gjt::ilog2(n));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  const size_t smem_cor = smem_fwd + sizeof(float) * 32 + sizeof(int) * 32;
-  err = allow_smem(reinterpret_cast<const void*>(pcf_correlate_kernel),
-                   smem_cor);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pcf_correlate_kernel<<<R * n_c * P, threads, smem_cor, s>>>(
+  return static_cast<int>(gjt::launch_correlate(
       static_cast<const float2*>(Y), static_cast<const float2*>(rep),
       static_cast<const float2*>(tw), static_cast<float*>(out), R, G, n_c, P,
-      n, log2n, stats, excl);
-  return static_cast<int>(cudaGetLastError());
+      n, stats, excl, s));
 }

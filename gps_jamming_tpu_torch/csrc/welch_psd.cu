@@ -100,12 +100,6 @@ __global__ void welch_reduce_kernel(const float* __restrict__ partial,
   out[k] = s * scale;
 }
 
-int ilog2(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
-}
-
 }  // namespace
 
 // x: (n,) complex64; win: (nperseg,) float32; tw: (nperseg/2,) complex64;
@@ -125,17 +119,13 @@ extern "C" int gjt_welch_psd(const void* x, const void* win, const void* tw,
   if (threads > gjt::kMaxThreads) threads = gjt::kMaxThreads;
   const size_t smem = sizeof(float2) * (nperseg + nperseg / 2) +
                       sizeof(float) * 32;
-  cudaError_t err = cudaSuccess;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(welch_partial_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  cudaError_t err = gjt::allow_smem(
+      reinterpret_cast<const void*>(welch_partial_kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   welch_partial_kernel<<<n_tiles, threads, smem, s>>>(
       static_cast<const float2*>(x), static_cast<const float*>(win),
       static_cast<const float2*>(tw), static_cast<float*>(partial), nperseg,
-      ilog2(nperseg), hop, n_segs, segs_per_tile, detrend);
+      gjt::ilog2(nperseg), hop, n_segs, segs_per_tile, detrend);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   welch_reduce_kernel<<<(nperseg + 255) / 256, 256, 0, s>>>(

@@ -3,9 +3,12 @@
 - entry(device): (forward, example_args), the counterpart of
   `__graft_entry__.entry`: int8 I/Q block -> Welch PSD + chunk power flags +
   the PCF acquisition surface over 32 PRNs x 90 Doppler rows x 2048 lags.
-- detect_acquire_step(raw_i8): the measured chain of `bench.py`, one
-  512k-sample block -> (psd, pm, flags, peak_per_prn), with the acquisition
-  reduced to its per-PRN peak inside kernel B1 (peak-only mode).
+- detect_acquire_step(raw_i8, method=...): the measured chain of
+  `bench.py`, one 512k-sample block -> (psd, pm, flags, peak_per_prn).
+  method 'pcf' reduces the PCF search to its per-PRN peak inside kernel B1
+  (peak-only mode); 'std' is the r1/r2 chain (`bench.py:58-61`,
+  acq_method='std'): the reference-shaped 71-bin x 10-period search of
+  kernel B3, reduced to its per-PRN peak.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ FS = CFG.frontend.sample_rate_hz
 N_CODE = 2048                  # one C/A period at 2.048 MS/s
 N_INTG = 10                    # code periods per acquisition
 MAX_DOPPLER_HZ = 7000.0
+STD_FREQS = caf.doppler_bins(MAX_DOPPLER_HZ, 200.0)      # 71 bins
 CHUNK = 32768                  # power chunk, samples
 
 
@@ -58,18 +62,28 @@ def entry(device=None):
 
 
 def detect_acquire_step(raw_i8: torch.Tensor,
-                        replica: torch.Tensor | None = None):
+                        replica: torch.Tensor | None = None,
+                        method: str = "pcf"):
     """One block of the flagship chain -> (psd, pm, flags, peak_per_prn).
 
     raw_i8: (2n,) int8 I/Q, n >= 10 code periods (512k samples in the
-    benchmark). A full cold 32-PRN x +/-7 kHz x 10-period PCF search runs
-    on every block; peak_per_prn (32,) is the surface's maximum per PRN.
+    benchmark). A full cold 32-PRN x +/-7 kHz x 10-period search runs on
+    every block, by the PCF method (kernel B1) or, with method='std', by
+    the per-Doppler search over 71 bins (kernel B3); peak_per_prn (32,) is
+    the search's maximum per PRN.
     """
     if replica is None:
         replica = codes.gps_replica_table(FS, N_CODE, raw_i8.device)
     x = iq.int8_to_complex(raw_i8)
     psd, pm, flags = _detect(x)
     blocks = x[: N_INTG * N_CODE].reshape(N_INTG, N_CODE)
-    peak = cuda_pcf.caf_accumulate_pcf_fused(
-        blocks, replica, FS, max_doppler_hz=MAX_DOPPLER_HZ, stats_excl=-1)[0]
-    return psd, pm, flags, peak.amax(dim=-1)
+    if method == "pcf":
+        peak = cuda_pcf.caf_accumulate_pcf_fused(
+            blocks, replica, FS, max_doppler_hz=MAX_DOPPLER_HZ,
+            stats_excl=-1)[0].amax(dim=-1)
+    elif method == "std":
+        peak = caf.caf_accumulate(blocks, replica, STD_FREQS,
+                                  FS).amax(dim=(-2, -1))
+    else:
+        raise ValueError(f"unknown acquisition method {method!r}")
+    return psd, pm, flags, peak

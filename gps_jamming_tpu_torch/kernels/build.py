@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-The sources under `gps_jamming_tpu_torch/csrc/` are compiled by `nvcc` into
-one shared library with a plain C interface, at first use, and loaded with
-`ctypes`. The library lands in `gps_jamming_tpu_torch/_build/` under a name
-that carries a hash of the sources and flags, so an edit rebuilds and an
+The sources under `gps_jamming_tpu_torch/csrc/` are compiled by `nvcc`, one
+process per source, all started together, and linked into one shared
+library with a plain C interface, at first use, and loaded with `ctypes`.
+The library lands in `gps_jamming_tpu_torch/_build/` under a name that
+carries a hash of the sources and flags, so an edit rebuilds and an
 unchanged tree reuses the file. Nothing is built when the package is
 imported.
 """
@@ -24,10 +25,10 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("welch_psd.cu", "pcf.cu")
-HEADERS = ("fft_smem.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("welch_psd.cu", "pcf.cu", "caf_std.cu")
+HEADERS = ("fft_smem.cuh", "pcf_correlate.cuh")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,6 +36,7 @@ _SIGNATURES = {
     "gjt_welch_psd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       ctypes.c_float, _P],
     "gjt_pcf": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gjt_caf_std": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -65,10 +67,26 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgjt_kernels_{source_hash()}.so"
 
 
+def _run(procs: list[tuple[list[str], subprocess.Popen]],
+         verbose: bool) -> None:
+    """Wait for every nvcc process; raise with the first failure's stderr."""
+    failed = None
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, cmd, err)
+        elif verbose and err:
+            print(err)
+    if failed is not None:
+        rc, cmd, err = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{err}")
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels if the hashed library is missing; return its
-    path. Raises RuntimeError (with nvcc's stderr) when nvcc is missing or
-    fails."""
+    path. Each source compiles in its own nvcc process, all at once, then
+    one nvcc links them. Raises RuntimeError (with nvcc's stderr) when nvcc
+    is missing or fails."""
     out = library_path()
     if out.exists():
         return out
@@ -79,18 +97,23 @@ def build(verbose: bool = False) -> Path:
             "CUDA kernels of gps_jamming_tpu_torch can only be built on a "
             "machine with the CUDA toolkit and an sm_90a (Hopper) card")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr)
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in SOURCES:
+            obj = os.path.join(tmp, src + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-c", "-o", obj, str(CSRC / src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True)))
+        _run(procs, verbose)
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, *ARCH, "-shared", "-o", lib, *objs]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                     stderr=subprocess.PIPE, text=True))],
+             verbose)
+        os.replace(lib, out)
     return out
 
 

@@ -1,10 +1,15 @@
 """GNSS acquisition (counterpart of gps_jamming_tpu.models.receiver.acquisition).
 
-A cold search of every PRN over (Doppler x lag) by the PCF method, then the
-peak-ratio test of the reference's `checkacquisition` (sdracq.c:52-81)
-vectorized over PRNs. On a CUDA tensor the search runs kernel B1 in its
-statistics mode, so the delay x Doppler surface never reaches device
-memory; on the CPU the surface is materialized and reduced here.
+A cold search of every PRN over (Doppler x lag), then the peak-ratio test
+of the reference's `checkacquisition` (sdracq.c:52-81) vectorized over
+PRNs, and the fine-Doppler estimate that hands a channel over to tracking
+(`refine_doppler`). Two searches:
+- 'std', the reference-shaped per-Doppler search (71 bins x 10 code
+  periods, non-coherently summed): kernel B3 on a CUDA tensor, its surface
+  reduced here;
+- 'pcf', the post-correlation-FFT search: kernel B1 in its statistics mode
+  on a CUDA tensor, so the delay x Doppler surface never reaches device
+  memory; on the CPU the surface is materialized and reduced here.
 
 Two behaviours of the reference are kept exactly where it has them:
 - `acquisition_test` takes the peak at the lowest flat (Doppler, lag) index
@@ -16,14 +21,17 @@ Two behaviours of the reference are kept exactly where it has them:
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from gps_jamming_tpu.config import AcquisitionConfig
 from gps_jamming_tpu.utils import constants as C
 
 from ...ops import caf as caf_ops
+from ...ops import codes as codes_ops
 from ...ops import corr as corr_ops
 from ...ops import cuda_pcf
 
@@ -50,6 +58,14 @@ def exclusion_half_width(n: int, cfg: AcquisitionConfig,
     return excl
 
 
+def sbas_replica_table_host(sample_rate: float,
+                            n_samples: int) -> tuple[np.ndarray, np.ndarray]:
+    """(19, n) conj-FFT replica planes of the SBAS C/A PRNs 120..138."""
+    return codes_ops.sampled_code_fft_conj_host(
+        codes_ops.sbas_ca_table(), C.GPS_CA_CHIP_RATE_HZ, sample_rate,
+        n_samples)
+
+
 def acquire_all(blocks: torch.Tensor, replica_fft_conj: torch.Tensor,
                 sample_rate: float, cfg: AcquisitionConfig,
                 code_period_s: float = C.GPS_CA_PERIOD_S,
@@ -58,10 +74,15 @@ def acquire_all(blocks: torch.Tensor, replica_fft_conj: torch.Tensor,
     """Acquire every PRN from n_integration code-period blocks.
 
     blocks: (n_intg, n) complex64, one code period each; replica_fft_conj:
-    (n_prn, n) complex64 on the same device. method 'pcf' is the PCF search;
-    'auto' resolves to it where it beats the per-Doppler search
-    (`caf.pcf_profitable`). 'std', and 'auto' resolving to it, need kernel
-    B3, which is not ported yet.
+    (n_prn, n) complex64 on the same device. method 'std' is the
+    reference's per-Doppler non-coherent search (kernel B3 on CUDA); 'pcf'
+    the PCF search (kernel B1); 'auto' takes pcf where it runs fewer
+    inverse-FFT rows (`caf.pcf_profitable`): GPS at 2048 lags, and Galileo
+    E1B at 16384 lags over the default 10 periods; std only where
+    n_blocks <= 9 at 16384 lags and +/-7 kHz.
+
+    The JAX package's `precision=` argument is left out: the port has no
+    precision option and computes in float32/complex64.
     """
     nb, n = blocks.shape[-2], blocks.shape[-1]
     if method == "auto":
@@ -71,10 +92,11 @@ def acquire_all(blocks: torch.Tensor, replica_fft_conj: torch.Tensor,
             int(n), int(nb), float(sample_rate),
             float(cfg.doppler_max_hz), int(nf)) else "std"
     if method == "std":
-        raise NotImplementedError(
-            "the per-Doppler ('std') acquisition search needs kernel B3 "
-            "(ROADMAP.md, queue B), which is not ported yet; use "
-            "method='pcf'")
+        freqs = caf_ops.doppler_bins(cfg.doppler_max_hz, cfg.doppler_step_hz)
+        surf = caf_ops.caf_accumulate(blocks, replica_fft_conj, freqs,
+                                      sample_rate)
+        return acquisition_test(surf, torch.from_numpy(freqs).to(
+            blocks.device), sample_rate, cfg, code_period_s, code_len_chips)
     if method != "pcf":
         raise ValueError(f"unknown acquisition method {method!r}")
     # the PCF surface sums gl code periods coherently, so C/N0 uses the
@@ -158,3 +180,55 @@ def acquisition_test_from_stats(stats, freqs: torch.Tensor, n: int,
         cn0_dbhz=cn0,
         peak_power=peak,
     )
+
+
+def refine_doppler(xp: torch.Tensor, code_table: np.ndarray, lag_samples,
+                   doppler_hz, sample_rate: float, chip_rate: float,
+                   carrier_hz=C.GPS_L1_FREQ_HZ, nominal_offset_hz=0.0,
+                   n_blocks: int = 32, n_sub: int = 4) -> torch.Tensor:
+    """Fine-Doppler estimate after coarse acquisition, before handover.
+
+    The 200 Hz grid leaves up to half a bin of error, and a tracking FLL
+    with epoch T is unambiguous only within +/-1/(2T) (125 Hz at Galileo's
+    4 ms). Per channel this takes n_blocks code periods starting at the
+    acquired code boundary, wipes off code and coarse carrier, splits each
+    period into n_sub sub-correlations, and averages the phase advance
+    between neighbours: unambiguous over +/- n_sub/(2T), a few Hz accurate.
+
+    xp: (n,) complex64 baseband. code_table: (n_ch, code_len) host chips.
+    lag_samples, doppler_hz: per channel; doppler_hz is the effective
+    baseband frequency (an FDMA offset included); carrier_hz and
+    nominal_offset_hz (scalars or per channel) set the code Doppler from
+    the true carrier Doppler. The input is zero-padded by the window length
+    so a lag near the end keeps its window start at the code boundary, as
+    the reference does. Returns the refined doppler (n_ch,) float32; sums
+    are float32 (complex64).
+    """
+    dev = xp.device
+    n_ch, code_len = code_table.shape
+    n_code = int(round(sample_rate * code_len / chip_rate))
+    n_sub_len = n_code // n_sub
+    n_win = n_blocks * n_sub * n_sub_len
+    n = xp.shape[-1]
+    lag = torch.as_tensor(lag_samples, device=dev).to(torch.int64)
+    dopp = torch.as_tensor(doppler_hz, device=dev).to(torch.float32)
+    xp = torch.cat([xp, xp.new_zeros(n_win)])
+    start = lag.reshape(-1).clamp(0, n)
+    win = xp[start[:, None] + torch.arange(n_win, device=dev)]  # (C, n_win)
+    t = codes_ops.sample_times(n_win, sample_rate, dev)
+    phase = (-2.0 * math.pi) * dopp[:, None] * t[None, :]
+    osc = torch.polar(torch.ones_like(phase), phase)
+    offs = torch.as_tensor(nominal_offset_hz, dtype=torch.float32,
+                           device=dev).expand(n_ch)
+    carr = torch.as_tensor(carrier_hz, dtype=torch.float32,
+                           device=dev).expand(n_ch)
+    fcode = chip_rate * (1.0 + (dopp - offs) / carr)
+    chips = codes_ops.resample_code(
+        torch.as_tensor(code_table, dtype=torch.float32, device=dev), fcode,
+        sample_rate, n_win)
+    z = (win * osc * chips).reshape(n_ch, n_blocks, n_sub,
+                                    n_sub_len).sum(-1)
+    s = (z[..., 1:] * z[..., :-1].conj()).sum(dim=(-2, -1))
+    tau = n_sub_len / sample_rate
+    return (dopp + torch.atan2(s.imag, s.real) / (2.0 * math.pi * tau)).to(
+        torch.float32)

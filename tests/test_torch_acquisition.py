@@ -1,9 +1,11 @@
 """Port acquisition (models.receiver.acquisition, ops.codes, convert) vs the
 JAX package.
 
-A synthetic 10-period GPS block with one injected PRN goes through both
-`acquire_all(method='pcf')`; acquired / code phase / Doppler must be equal,
-peak ratio and C/N0 within rtol 1e-4. The replica builders are bit-equal.
+A synthetic 10-period GPS (or SBAS) block with one injected PRN goes
+through both `acquire_all` (method 'pcf', 'std' or 'auto'); acquired / code
+phase / Doppler must be equal, peak ratio, C/N0 and peak power within rtol
+1e-4. The replica builders are bit-equal. `refine_doppler` agrees within
+0.5 Hz (float32 sums in another order under an arctan2).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +19,7 @@ from gps_jamming_tpu.ops import codes as jcodes
 from gps_jamming_tpu.ops import cplx, pallas_caf
 from gps_jamming_tpu_torch import convert
 from gps_jamming_tpu_torch.models.receiver import acquisition as tacq
+from gps_jamming_tpu_torch.ops import caf as tcaf
 from gps_jamming_tpu_torch.ops import codes as tcodes
 from gps_jamming_tpu_torch.ops import cuda_pcf
 
@@ -28,16 +31,22 @@ N_PRN = 8
 CFG = AcquisitionConfig()
 
 
-def _block(prn=3, code_phase=700, doppler_hz=2350.0, seed=21):
-    """10 code periods: unit complex noise + one PRN at ~45 dB-Hz."""
+def _block(prn=3, code_phase=700, doppler_hz=2350.0, seed=21, code=None,
+           n_periods=10):
+    """n_periods code periods: unit complex noise + one PRN (GPS unless
+    `code` is given) at ~45 dB-Hz."""
     rng = np.random.default_rng(seed)
-    i = np.arange(10 * N)
+    code = jcodes.gps_ca_code(prn) if code is None else code
+    i = np.arange(n_periods * N)
     chip = np.floor((i - code_phase) * (1.023e6 / FS)).astype(int) % 1023
     amp = np.sqrt(2 * 10 ** (-18 / 10))
     x = (rng.standard_normal(i.size) + 1j * rng.standard_normal(i.size)
-         + amp * jcodes.gps_ca_code(prn)[chip]
-         * np.exp(2j * np.pi * doppler_hz * i / FS))
-    return x.astype(np.complex64).reshape(10, N)
+         + amp * code[chip] * np.exp(2j * np.pi * doppler_hz * i / FS))
+    return x.astype(np.complex64).reshape(n_periods, N)
+
+
+def _jax_blocks(x):
+    return cplx.CArray(jnp.asarray(x.real.copy()), jnp.asarray(x.imag.copy()))
 
 
 def _replica_planes():
@@ -112,18 +121,103 @@ def test_acquisition_tests_match_jax_on_the_same_inputs():
 
 
 def test_std_search_and_bad_exclusion_raise():
-    rep = torch.zeros(2, N, dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match="B3"):
-        tacq.acquire_all(torch.zeros(10, N, dtype=torch.complex64), rep, FS,
-                         CFG, method="std")
-    with pytest.raises(NotImplementedError, match="B3"):
-        # Galileo E1B geometry: 'auto' resolves to the std search
-        tacq.acquire_all(torch.zeros(4, 16384, dtype=torch.complex64),
-                         torch.zeros(2, 16384, dtype=torch.complex64),
-                         4.096e6, CFG, method="auto")
+    """acquire_all(method='std') for GPS (kernel B3's plain version, 71
+    bins x 10 periods, 8 PRNs) matches the JAX package; a bad exclusion
+    window and an unknown method raise."""
+    x = _block(prn=6, code_phase=1500, doppler_hz=-3350.0, seed=24)
+    planes = _replica_planes()
+    want = jacq.acquire_all(
+        _jax_blocks(x),
+        cplx.CArray(jnp.asarray(planes[0]), jnp.asarray(planes[1])), FS, CFG,
+        method="std")
+    got = tacq.acquire_all(torch.from_numpy(x),
+                           convert.replica_from_jax(planes), FS, CFG,
+                           method="std")
+    _assert_same_result(got, want)
+    assert got.acquired.tolist() == [p == 5 for p in range(N_PRN)]
+    assert int(got.code_phase[5]) == 1500
+    assert float(got.doppler_hz[5]) == -3400.0          # the 200 Hz grid
+    with pytest.raises(ValueError):
+        tacq.acquire_all(torch.from_numpy(x),
+                         convert.replica_from_jax(planes), FS, CFG,
+                         method="fft")
     with pytest.raises(ValueError):
         tacq.exclusion_half_width(N, AcquisitionConfig(exclude_chips=600.0))
     assert tacq.exclusion_half_width(N, CFG) == 4
+
+
+@pytest.mark.parametrize("n,nb,fs,pcf", [
+    (2048, 10, 2.048e6, True),      # GPS: 15 coarse bins, 180 vs 710 rows
+    (16384, 10, 4.096e6, True),     # Galileo E1B: 684 vs 710 rows
+    (16384, 9, 4.096e6, False),     # 684 vs 639: std from 9 periods down
+    (16384, 4, 4.096e6, False),
+])
+def test_auto_resolution_matches_jax(n, nb, fs, pcf):
+    """'auto' takes PCF where it runs fewer inverse-FFT rows, in both
+    packages; at 16384 lags and +/-7 kHz std wins only for n_blocks <= 9."""
+    nf = jcaf.doppler_bins(CFG.doppler_max_hz, CFG.doppler_step_hz).size
+    args = (n, nb, fs, CFG.doppler_max_hz, nf)
+    assert tcaf.pcf_profitable(*args) is pcf
+    assert jcaf.pcf_profitable(*args) is pcf
+
+
+def test_auto_resolving_to_std_runs_the_std_search():
+    rng = np.random.default_rng(25)
+    x = torch.from_numpy((rng.standard_normal((2, N))
+                          + 1j * rng.standard_normal((2, N))).astype(
+        np.complex64))
+    rep = convert.replica_from_jax(_replica_planes())[:2]
+    # 2 GPS periods: 180 PCF rows against 71 * 2 = 142 std rows
+    assert not tcaf.pcf_profitable(N, 2, FS, CFG.doppler_max_hz, 71)
+    a = tacq.acquire_all(x, rep, FS, CFG, method="auto")
+    b = tacq.acquire_all(x, rep, FS, CFG, method="std")
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f))
+
+
+def test_sbas_std_acquisition_matches_jax():
+    """SBAS PRN 124 among PRNs 120-127 (the replica table of
+    `sbas_replica_table_host`), std search."""
+    x = _block(code_phase=321, doppler_hz=1800.0, seed=26,
+               code=jcodes.sbas_ca_code(124))
+    re, im = tacq.sbas_replica_table_host(FS, N)
+    planes = (re[:8], im[:8])
+    want = jacq.acquire_all(
+        _jax_blocks(x),
+        cplx.CArray(jnp.asarray(planes[0]), jnp.asarray(planes[1])), FS, CFG,
+        method="std")
+    got = tacq.acquire_all(torch.from_numpy(x),
+                           convert.replica_from_jax(planes), FS, CFG,
+                           method="std")
+    _assert_same_result(got, want)
+    assert got.acquired.tolist() == [p == 4 for p in range(8)]
+    assert int(got.code_phase[4]) == 321
+    assert float(got.doppler_hz[4]) == 1800.0
+
+
+def test_refine_doppler_matches_jax():
+    """Two GPS channels over 40 ms, from their acquired lags and 200 Hz
+    grid Dopplers, and a third lag near the end of the capture (its
+    window runs into the zero padding)."""
+    x = _block(prn=3, code_phase=700, doppler_hz=2350.0, seed=28,
+               n_periods=40).reshape(-1)
+    i = np.arange(x.size)
+    chip = np.floor((i - 1900) * (1.023e6 / FS)).astype(int) % 1023
+    x = x + (0.3 * jcodes.gps_ca_code(9)[chip]
+             * np.exp(-2j * np.pi * 4125.0 * i / FS)).astype(np.complex64)
+    x = x.astype(np.complex64)
+    table = jcodes.gps_ca_table()[[2, 8, 2]]
+    lags = np.array([700, 1900, x.size - 5000], np.int32)
+    dopp = np.array([2400.0, -4200.0, 2400.0], np.float32)
+    want = np.asarray(jacq.refine_doppler(
+        cplx.CArray(jnp.asarray(x.real.copy()), jnp.asarray(x.imag.copy())),
+        table, lags, dopp, FS, 1.023e6))
+    got = tacq.refine_doppler(torch.from_numpy(x), table, lags, dopp, FS,
+                              1.023e6)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (3,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=0.5)
+    assert abs(float(got[0]) - 2350.0) < 20.0
+    assert abs(float(got[1]) + 4125.0) < 20.0
 
 
 def test_codes_and_replica_are_bit_equal_to_jax():

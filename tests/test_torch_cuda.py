@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from gps_jamming_tpu_torch.ops import cuda_pcf, cuda_psd, spectral
+from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf, cuda_psd, spectral
 
 FS = 2.048e6
 
@@ -110,3 +110,81 @@ def test_pcf_dispatch_on_cuda(dev):
     with pytest.raises(ValueError):
         caf.caf_accumulate_pcf(_cplx((10, 2000), seed=5, dev=dev),
                                _cplx((4, 2000), seed=6, dev=dev), FS)
+
+
+@pytest.mark.parametrize("n,nb,nprn,nf,fs", [
+    (256, 3, 5, 7, FS), (2048, 10, 32, 71, FS), (8192, 4, 6, 71, 4.096e6),
+    (16384, 10, 4, 71, 4.096e6)])
+def test_caf_std_kernel_matches_plain(dev, n, nb, nprn, nf, fs):
+    """Kernel B3 against its plain version: the GPS shape, Galileo E1B's
+    16384 lags (one 192 KB block per SM) and the sizes between."""
+    from gps_jamming_tpu_torch.ops import caf
+    blocks = _cplx((nb, n), seed=n + 2, dev=dev)
+    rep = _cplx((nprn, n), seed=n + 3, dev=dev)
+    freqs = caf.doppler_bins(7000.0, 200.0)[:nf]
+    ref = cuda_caf.caf_accumulate_reference(blocks, rep, freqs, fs)
+    before = cuda_caf.LAUNCHES
+    got = cuda_caf.caf_accumulate_fused(blocks, rep, freqs, fs)
+    torch.cuda.synchronize()
+    assert cuda_caf.LAUNCHES == before + 1
+    assert got.shape == ref.shape == (nprn, nf, n)
+    _assert_close(got, ref, 1e-3, 1e-4 * float(ref.max()))
+    top2 = ref.topk(2, dim=-1)
+    clear = (top2.values[..., 0] - top2.values[..., 1]) \
+        > 1e-4 * top2.values[..., 0]
+    assert bool((got.argmax(dim=-1) == top2.indices[..., 0])[clear].all())
+
+
+def test_caf_std_dispatch_on_cuda(dev):
+    """caf_accumulate, acquire_all(method='std') and
+    detect_acquire_step(method='std') on CUDA tensors each launch kernel B3
+    once; a size the kernel does not take raises instead of falling back."""
+    from gps_jamming_tpu.config import AcquisitionConfig
+    from gps_jamming_tpu_torch import entry
+    from gps_jamming_tpu_torch.models.receiver import acquisition as acq
+    from gps_jamming_tpu_torch.ops import caf
+    blocks = _cplx((10, 2048), seed=7, dev=dev)
+    rep = _cplx((4, 2048), seed=8, dev=dev)
+    freqs = caf.doppler_bins(7000.0, 200.0)
+    before = cuda_caf.LAUNCHES
+    surf = caf.caf_accumulate(blocks, rep, freqs, FS)
+    assert cuda_caf.LAUNCHES == before + 1
+    plain = caf.caf_accumulate(blocks.cpu(), rep.cpu(), freqs, FS)
+    _assert_close(surf.cpu(), plain, 1e-3, 1e-4 * float(plain.max()))
+    acq.acquire_all(blocks, rep, FS, AcquisitionConfig(), method="std")
+    assert cuda_caf.LAUNCHES == before + 2
+    raw = torch.randint(-128, 128, (2 * 65536,), dtype=torch.int8,
+                        device=dev)
+    entry.detect_acquire_step(raw, method="std")
+    assert cuda_caf.LAUNCHES == before + 3
+    with pytest.raises(ValueError, match="B3"):
+        caf.caf_accumulate(_cplx((10, 3200), seed=9, dev=dev),
+                           _cplx((4, 3200), seed=10, dev=dev), freqs, 3.2e6)
+    assert cuda_caf.LAUNCHES == before + 3
+
+
+def test_refine_doppler_on_cuda_matches_cpu(dev):
+    """The per-row code resample is equal on the card and the CPU, so the
+    fine-Doppler estimate agrees within 0.5 Hz (float32 sums in another
+    order)."""
+    from gps_jamming_tpu_torch.models.receiver import acquisition as acq
+    from gps_jamming_tpu_torch.ops import codes
+    table = codes.gps_ca_table()[:4]
+    fcode = torch.tensor([1.023e6 * (1.0 + d / 1575.42e6)
+                          for d in (-7000.0, -150.0, 2000.0, 6800.0)])
+    want = codes.resample_code(torch.from_numpy(table), fcode, FS, 65536)
+    got = codes.resample_code(torch.from_numpy(table).to(dev), fcode.to(dev),
+                              FS, 65536)
+    assert torch.equal(got.cpu(), want)
+    x = _cplx(40 * 2048, seed=11, dev=dev)
+    i = torch.arange(x.numel(), device=dev, dtype=torch.float64)
+    chip = torch.floor((i - 300) * (1.023e6 / FS)).long() % 1023
+    sig = torch.from_numpy(table[1]).to(dev)[chip].double() * torch.exp(
+        2j * np.pi * 1234.0 * i / FS)
+    x = (x + 0.5 * sig).to(torch.complex64)
+    args = (table[[1, 1]], [300, 300], [1200.0, 1400.0], FS, 1.023e6)
+    fine = acq.refine_doppler(x, *args)
+    fine_cpu = acq.refine_doppler(x.cpu(), *args)
+    assert float((fine.cpu() - fine_cpu).abs().max()) <= 0.5
+    assert float((fine_cpu - 1234.0).abs().max()) <= 20.0
+

@@ -3,7 +3,7 @@ no jax on its import path, no CPU stand-in for a missing CUDA kernel.
 
 Slice tolerances (one 1<<16-sample raw block through both forwards): psd
 rtol 1e-4, atol 1e-4 * max; pm rtol 1e-6; flags equal; surf rtol 2e-4,
-atol 2e-4 * max.
+atol 2e-4 * max; the std chain's per-PRN peak rtol 2e-4.
 """
 import os
 import shutil
@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import __graft_entry__
+from gps_jamming_tpu_torch import convert
 from gps_jamming_tpu_torch import device as tdevice
 from gps_jamming_tpu_torch import entry as tentry
 from gps_jamming_tpu_torch.kernels import build
@@ -50,6 +51,41 @@ def test_slice_forward_matches_jax_entry():
                                rtol=2e-4)
 
 
+def test_detect_acquire_step_std_matches_jax_chain():
+    """detect_acquire_step(method='std') against `bench.py`'s std chain
+    body (acq_method='std'), rebuilt from the JAX package's functions, on
+    the same raw block and an 8-PRN replica."""
+    from gps_jamming_tpu.models.receiver import acquisition as jacq
+    from gps_jamming_tpu.ops import caf, cplx, iq, power, spectral
+    fs = tentry.FS
+    raw = np.array(__graft_entry__.entry()[1][0])[: 2 * (1 << 16)]
+    rep = jacq.gps_replica_table_host(fs, 2048)
+    rep = cplx.CArray(rep.re[:8], rep.im[:8])
+
+    def block_step(raw_i8):
+        x = iq.int8_to_planar(raw_i8)
+        psd = spectral.welch_psd_p(x, fs, 1024)
+        pm = power.chunk_power_p(x, 32768)
+        thr = power.power_threshold_linear(power.power_baseline(pm, 5.0),
+                                           6.0)
+        blocks = x[: 10 * 2048].reshape(10, 2048)
+        surf = caf.caf_accumulate(blocks, rep,
+                                  caf.doppler_bins(7000.0, 200.0), fs)
+        return psd, pm, pm > thr, jnp.max(surf, axis=(-2, -1))
+
+    want = [np.asarray(a) for a in jax.jit(block_step)(jnp.asarray(raw))]
+    got = [a.numpy() for a in tentry.detect_acquire_step(
+        torch.from_numpy(raw), convert.replica_from_jax(rep), method="std")]
+    assert got[3].shape == want[3].shape == (8,)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4,
+                               atol=1e-4 * want[0].max())
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6)
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_allclose(got[3], want[3], rtol=2e-4)
+    with pytest.raises(ValueError):
+        tentry.detect_acquire_step(torch.from_numpy(raw), method="fft")
+
+
 def test_port_imports_no_jax():
     mods = [
         "gps_jamming_tpu_torch", "gps_jamming_tpu_torch.device",
@@ -61,11 +97,16 @@ def test_port_imports_no_jax():
         "gps_jamming_tpu_torch.ops.cuda_psd",
         "gps_jamming_tpu_torch.ops.corr", "gps_jamming_tpu_torch.ops.caf",
         "gps_jamming_tpu_torch.ops.cuda_pcf",
+        "gps_jamming_tpu_torch.ops.cuda_caf",
         "gps_jamming_tpu_torch.models.detector",
         "gps_jamming_tpu_torch.models.receiver.acquisition",
+        "gps_jamming_tpu_torch.models.receiver.galileo",
+        "gps_jamming_tpu_torch.models.receiver.glonass",
     ]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
+            "importlib.import_module('gps_jamming_tpu_torch.models.receiver"
+            ".galileo').e1b_code(1)\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'triton']\n"
             "assert not bad, bad\n"
