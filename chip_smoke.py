@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # the phases below
     python3 chip_smoke.py --profile    # and a torch.profiler breakdown of
                                        # the PCF and std main-path steps
+                                       # and of 200 tracking epochs
 
 Phases, in order; any failure raises and the exit code is non-zero:
 1. the card: require CUDA, print torch, the device and nvidia-smi's name
@@ -14,7 +15,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    on one 512k-sample block; (b) the PCF search at 32 PRN x 2048 lags x 10
    code periods in surface, stats and peak-only modes; (c) the std search
    at the GPS shape (32 PRN x 71 bins x 10 x 2048) and the Galileo E1B
-   shape (36 PRN x 71 bins x 10 x 16384 at 4.096 MS/s);
+   shape (36 PRN x 71 bins x 10 x 16384 at 4.096 MS/s); (d) B1 in its
+   three modes and B3 at the mixed-radix n of GPS at 2.4 and 3.2 MS/s
+   (n = 2400, 3200; 32 PRN x 10 periods x +/-7 kHz), B3 alone at 81*128 =
+   10368, and the power-of-two times of (b) and (c) beside them;
 4. the main path: `entry.detect_acquire_step` over 8 consecutive 512k-sample
    blocks of a synthetic capture (noise, GPS PRN 7, a tone jammer in blocks
    3-5), then `acquire_all(method='pcf')` on the clean first 10 ms and
@@ -27,8 +31,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
    at 16384 lags) and 'auto' (kernel B1 in stats mode at 16384 lags), each
    followed by `refine_doppler`;
    (e) GLONASS FDMA acquisition of a seeded 4 ms capture at 10 MS/s, 'pcf'
-   and 'std', against the CPU path;
-5. print the per-kernel JSON line, the card line, and the success line.
+   and 'std', against the CPU path; (f) GPS `acquire_all` 'pcf' (B1) and
+   'std' (B3) on seeded 10 ms captures at 2.4 and 3.2 MS/s, against the
+   known answer and the CPU path;
+5. the GPS receiver: a geometry-true 20.8 s capture of a 24-satellite
+   shell (`sim/constellation.py`, NumPy, the long pole of the run), scaled
+   to RTL-SDR uint8 and written as a .bin, read back with
+   `iq.read_iq_file`, then `receiver.run_receiver` on the card: at least
+   4 channels decoded with the simulated ephemeris and a fix within 30 m
+   (50 m in height); per-stage times, tracking Msamples/s and multiples
+   of real time; (b) the tracker on the card against the CPU over the
+   first 2000 epochs of the same capture and handover;
+6. print the per-kernel JSON line, the card line, and the success line.
 """
 import argparse
 import json
@@ -66,6 +80,14 @@ GLO_N = 10000                     # one 1 ms code period
 GLO_CH = 2                        # FDMA frequency number
 GLO_CODE_PHASE = 3210             # samples
 GLO_DOPPLER_HZ = 1800.0
+MIXED_RATES = (2.4e6, 3.2e6)      # GPS at RTL-SDR rates: n = 2400, 3200
+MIXED_CODE_FRAC = 0.6             # PRN 7's code phase, fraction of n
+V1_N = 10368                      # 81 * 128, a v1 size of the JAX package
+RX_SECONDS = 20.8                 # subframes 1-3 after a 1.3 s pull-in
+RX_LLA = (50.06, 19.94, 219.0)
+RX_TOE = 345600.0
+RX_SCALE = 12.0                   # float -> uint8 LSB, as the CLI's users
+RX_CHECK_EPOCHS = 2000            # card vs CPU tracker comparison
 
 
 def fail_unless(cond, msg):
@@ -110,11 +132,12 @@ def close(got, ref, rtol, atol):
     return ok, float(err.max()), rel
 
 
-def profile_step(step, raw, steps=N_BLOCKS, top=12):
+def profile_step(step, raw, steps=N_BLOCKS, top=12, unit="step"):
     """torch.profiler (CPU + CUDA activity) over `steps` back-to-back
     main-path steps after a warm-up: device time per step by kernel, and
     the device's busy share of the profiled window (summed kernel time over
-    the window's host wall time; one stream, so kernels do not overlap)."""
+    the window's host wall time; one stream, so kernels do not overlap).
+    `unit` names what one step is in the printout."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for b in range(steps):
@@ -138,9 +161,9 @@ def profile_step(step, raw, steps=N_BLOCKS, top=12):
     rows.sort(reverse=True)
     dev_us = sum(r[0] for r in rows)
     fail_unless(dev_us > 0, "profile: the trace shows no device time")
-    print(f"profile: {steps} steps, device {dev_us:.1f} us/step, profiled "
-          f"wall {wall_us / steps:.1f} us/step, busy share "
-          f"{dev_us * steps / wall_us:.3f}; device work per step:",
+    print(f"profile: {steps} x {unit}, device {dev_us:.1f} us/{unit}, "
+          f"profiled wall {wall_us / steps:.1f} us/{unit}, busy share "
+          f"{dev_us * steps / wall_us:.3f}; device work per {unit}:",
           flush=True)
     for us, cnt, key in rows[:top]:
         print(f"  {us:9.1f} us {100 * us / dev_us:5.1f} %  x{cnt}  "
@@ -216,6 +239,20 @@ def make_glonass_blocks(rng, dev) -> torch.Tensor:
     return torch.from_numpy(x.astype(np.complex64).reshape(4, GLO_N)).to(dev)
 
 
+def make_gps_blocks(rng, fs, dev, code_phase) -> torch.Tensor:
+    """(10, n) complex64, n = fs * 1 ms: 10 ms of unit noise plus GPS PRN
+    7 at -18 dB per-sample SNR, its code starting at sample `code_phase`,
+    at DOPPLER_HZ (as make_capture renders it at 2.048 MS/s)."""
+    from gps_jamming_tpu_torch.ops import codes
+    n = int(round(fs * 1e-3))
+    i = np.arange(10 * n, dtype=np.float64)
+    chip = np.floor((i - code_phase) * (1.023e6 / fs)).astype(np.int64) % 1023
+    amp = np.sqrt(2 * 10 ** (SIGNAL_SNR_DB / 10))
+    x = complex_noise(rng, 10 * n) + amp * codes.gps_ca_code(PRN)[chip] \
+        * np.exp(2j * np.pi * DOPPLER_HZ * i / fs)
+    return torch.from_numpy(x.astype(np.complex64).reshape(10, n)).to(dev)
+
+
 def reset_launches():
     from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf, cuda_psd
     cuda_psd.LAUNCHES = cuda_pcf.LAUNCHES = cuda_caf.LAUNCHES = 0
@@ -239,6 +276,64 @@ def host_ms(fn, reps: int = 3) -> float:
         torch.cuda.synchronize()
         ts.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(ts)
+
+
+def check_b1(label, blocks, replica, fs, excl) -> dict:
+    """Kernel B1 against its plain version in its three modes (surface,
+    stats, peak-only) at 32 PRN x +/-7 kHz: errors, the arg-lag on rows
+    with a clear peak, and CUDA-event times of both, per mode."""
+    from gps_jamming_tpu_torch.ops import cuda_pcf
+    n = blocks.shape[-1]
+    y = cuda_pcf.pcf_prologue(blocks, fs)
+    n_c = cuda_pcf.n_coarse(fs, n, 7000.0)
+    args = (y, replica, n_c, 6, 2)
+    tag = f"B1 pcf{label}"
+    ref_surf = cuda_pcf.pcf_search_reference(*args)
+    surf = cuda_pcf.pcf_search(*args)
+    ok, abs_err, rel = close(surf, ref_surf, 1e-3,
+                             1e-4 * float(ref_surf.max()))
+    ms, plain_ms = time_pair(lambda: cuda_pcf.pcf_search(*args),
+                             lambda: cuda_pcf.pcf_search_reference(*args))
+    print(f"{tag} surface {tuple(surf.shape)}: max_abs_err {abs_err:.3e} "
+          f"max_rel_err {rel:.3e} (rtol 1e-3, atol 1e-4*max); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    fail_unless(ok, f"{tag} surface disagrees with its plain version")
+    modes = {"surface": {"max_abs_err": abs_err, "max_rel_err": rel,
+                         "ms": ms, "plain_ms": plain_ms}}
+    top2 = ref_surf.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 1e-4 * top2[..., 0]
+    for mode, ex in (("stats", excl), ("peak", -1)):
+        got = cuda_pcf.pcf_search(*args, stats_excl=ex)
+        ref = cuda_pcf.surface_stats(ref_surf, ex)
+        same = got[1] == ref[1]
+        fail_unless(bool(same[clear].all()),
+                    f"{tag} {mode}: arg-lag differs on a row with a clear "
+                    "peak")
+        ok, abs_err, rel = close(got[0], ref[0], 1e-3, 0.0)
+        fail_unless(ok, f"{tag} {mode}: max disagrees (rel {rel:.3e})")
+        if ex >= 0:
+            # exclusion values are compared where both chose the same lag
+            for j, what in ((2, "excluded max"), (3, "total"),
+                            (4, "window sum")):
+                sel = same if j != 3 else torch.ones_like(same)
+                ok_j, _, rel_j = close(got[j][sel], ref[j][sel], 1e-3, 0.0)
+                fail_unless(ok_j, f"{tag} stats {what} disagrees "
+                                  f"(rel {rel_j:.3e})")
+        else:
+            fail_unless(not any(bool(got[j].any()) for j in (2, 3, 4)),
+                        f"{tag} peak-only: exclusion planes are not zero")
+        ms, plain_ms = time_pair(
+            lambda: cuda_pcf.pcf_search(*args, stats_excl=ex),
+            lambda: cuda_pcf.surface_stats(
+                cuda_pcf.pcf_search_reference(*args), ex))
+        print(f"{tag} {mode} (excl {ex}): max_abs_err(max) {abs_err:.3e} "
+              f"max_rel_err {rel:.3e}; arg-lag equal on "
+              f"{int(same.sum())}/{same.numel()} rows "
+              f"({int(clear.sum())} with a clear peak); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+        modes[mode] = {"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
+                       "plain_ms": plain_ms}
+    return modes
 
 
 def check_b3(label, blocks, replica, freqs, fs, reps, inner) -> dict:
@@ -317,7 +412,9 @@ def main() -> int:
     from gps_jamming_tpu_torch.models import detector
     from gps_jamming_tpu_torch.models.receiver import acquisition as acq
     from gps_jamming_tpu_torch.models.receiver import galileo, glonass
-    from gps_jamming_tpu_torch.ops import caf, codes, cuda_pcf, cuda_psd, iq
+    from gps_jamming_tpu_torch.models.receiver import receiver, tracking
+    from gps_jamming_tpu_torch.ops import caf, codes, cuda_psd, iq
+    from gps_jamming_tpu_torch.sim import constellation
     CFG = entry.CFG
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -360,54 +457,8 @@ def main() -> int:
 
     # 3b. kernel B1 vs plain, three modes, 32 PRN x 2048 x 10 periods
     blocks = x0[: 10 * N_CODE].reshape(10, N_CODE)
-    y = cuda_pcf.pcf_prologue(blocks, FS)
-    n_c = cuda_pcf.n_coarse(FS, N_CODE, 7000.0)
     excl = acq.exclusion_half_width(N_CODE, CFG.acquisition)
-    args = (y, replica, n_c, 6, 2)
-    ref_surf = cuda_pcf.pcf_search_reference(*args)
-    surf = cuda_pcf.pcf_search(*args)
-    ok, abs_err, rel = close(surf, ref_surf, 1e-3,
-                             1e-4 * float(ref_surf.max()))
-    ms, plain_ms = time_pair(lambda: cuda_pcf.pcf_search(*args),
-                             lambda: cuda_pcf.pcf_search_reference(*args))
-    print(f"B1 pcf surface {tuple(surf.shape)}: max_abs_err {abs_err:.3e} "
-          f"max_rel_err {rel:.3e} (rtol 1e-3, atol 1e-4*max); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    fail_unless(ok, "B1 surface disagrees with its plain version")
-    modes = {"surface": {"max_abs_err": abs_err, "ms": ms,
-                         "plain_ms": plain_ms}}
-    top2 = ref_surf.topk(2, dim=-1).values
-    clear = (top2[..., 0] - top2[..., 1]) > 1e-4 * top2[..., 0]
-    for mode, ex in (("stats", excl), ("peak", -1)):
-        got = cuda_pcf.pcf_search(*args, stats_excl=ex)
-        ref = cuda_pcf.surface_stats(ref_surf, ex)
-        same = got[1] == ref[1]
-        fail_unless(bool(same[clear].all()),
-                    f"B1 {mode}: arg-lag differs on a row with a clear peak")
-        ok, abs_err, rel = close(got[0], ref[0], 1e-3, 0.0)
-        fail_unless(ok, f"B1 {mode}: max disagrees (rel {rel:.3e})")
-        if ex >= 0:
-            # exclusion values are compared where both chose the same lag
-            for j, what in ((2, "excluded max"), (3, "total"),
-                            (4, "window sum")):
-                sel = same if j != 3 else torch.ones_like(same)
-                ok_j, _, rel_j = close(got[j][sel], ref[j][sel], 1e-3, 0.0)
-                fail_unless(ok_j, f"B1 stats {what} disagrees "
-                                  f"(rel {rel_j:.3e})")
-        else:
-            fail_unless(not any(bool(got[j].any()) for j in (2, 3, 4)),
-                        "B1 peak-only: exclusion planes are not zero")
-        ms, plain_ms = time_pair(
-            lambda: cuda_pcf.pcf_search(*args, stats_excl=ex),
-            lambda: cuda_pcf.surface_stats(
-                cuda_pcf.pcf_search_reference(*args), ex))
-        print(f"B1 pcf {mode} (excl {ex}): max_abs_err(max) {abs_err:.3e} "
-              f"max_rel_err {rel:.3e}; arg-lag equal on "
-              f"{int(same.sum())}/{same.numel()} rows "
-              f"({int(clear.sum())} with a clear peak); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-        modes[mode] = {"max_abs_err": abs_err, "ms": ms,
-                       "plain_ms": plain_ms}
+    modes = check_b1("", blocks, replica, FS, excl)
     kernels.append({"name": "pcf", "route": "cuda",
                     "source": "gps_jamming_tpu_torch/csrc/pcf.cu",
                     "replaces": "gps_jamming_tpu/ops/pallas_caf.py:715",
@@ -432,6 +483,45 @@ def main() -> int:
                     "max_abs_err": b3["gps"]["max_abs_err"],
                     "ms": b3["gps"]["ms"],
                     "plain_ms": b3["gps"]["plain_ms"], "shapes": b3})
+
+    # 3d. B1 and B3 at the non-power-of-two n of GPS at 2.4 and 3.2 MS/s
+    # (the mixed-radix shared-memory FFT), and B3 alone at 81*128 = 10368
+    mixed = {}
+    for fs_m in MIXED_RATES:
+        n_m = int(round(fs_m * 1e-3))
+        lag_m = int(MIXED_CODE_FRAC * n_m)
+        blocks_m = make_gps_blocks(rng, fs_m, dev, lag_m)
+        rep_m = codes.gps_replica_table(fs_m, n_m, dev)
+        excl_m = acq.exclusion_half_width(n_m, CFG.acquisition)
+        mixed[n_m] = {
+            "fs": fs_m, "lag": lag_m, "blocks": blocks_m, "rep": rep_m,
+            "b1": check_b1(f" n={n_m}", blocks_m, rep_m, fs_m, excl_m),
+            "b3": check_b3(f"n={n_m}", blocks_m, rep_m, std_freqs, fs_m,
+                           REPS, INNER)}
+    fs_v1 = V1_N * 1e3
+    b3_v1 = check_b3(f"n={V1_N}", make_gps_blocks(rng, fs_v1, dev, 777),
+                     codes.gps_replica_table(fs_v1, V1_N, dev), std_freqs,
+                     fs_v1, 5, 3)
+    print("power-of-two sizes in this run beside the mixed-radix ones "
+          "(kernel / plain ms): B1 peak 2048 "
+          f"{modes['peak']['ms']:.4f}/{modes['peak']['plain_ms']:.4f}, "
+          + ", ".join(f"{n_m} {m['b1']['peak']['ms']:.4f}/"
+                      f"{m['b1']['peak']['plain_ms']:.4f}"
+                      for n_m, m in mixed.items())
+          + f"; B3 2048 {b3['gps']['ms']:.4f}/{b3['gps']['plain_ms']:.4f}, "
+          f"16384 {b3['galileo']['ms']:.4f}/"
+          f"{b3['galileo']['plain_ms']:.4f}, "
+          + ", ".join(f"{n_m} {m['b3']['ms']:.4f}/{m['b3']['plain_ms']:.4f}"
+                      for n_m, m in mixed.items())
+          + f", {V1_N} {b3_v1['ms']:.4f}/{b3_v1['plain_ms']:.4f}; card "
+          f"{card}", flush=True)
+    for k in kernels:
+        if k["name"] == "pcf":
+            k["sizes"] = {str(n_m): m["b1"] for n_m, m in mixed.items()}
+        if k["name"] == "caf_std":
+            k["shapes"].update({f"n{n_m}": m["b3"]
+                                for n_m, m in mixed.items()})
+            k["shapes"][f"n{V1_N}"] = b3_v1
 
     # 4. the main path (warm-up pass first, then counters from zero)
     for b in range(N_BLOCKS):
@@ -669,7 +759,147 @@ def main() -> int:
           f"{glo['pcf']:.3f} ms, std {glo['std']:.3f} ms (host, "
           f"synchronised); agrees with the CPU path", flush=True)
 
-    # 5. results
+    # 4f. GPS acquisition at 2.4 and 3.2 MS/s: 'pcf' (B1 stats mode) and
+    # 'std' (B3), against the known answer and the CPU plain path
+    for n_m, m in mixed.items():
+        label = f"GPS {m['fs'] / 1e6:.1f} MS/s"
+        times = {}
+        for method, hz_tol, want in (
+                ("pcf", 250.0, {"welch_psd": 0, "pcf": 1, "caf_std": 0}),
+                ("std", 200.0, {"welch_psd": 0, "pcf": 0, "caf_std": 1})):
+            args_m = (m["blocks"], m["rep"], m["fs"], CFG.acquisition)
+            reset_launches()
+            res = acq.acquire_all(*args_m, method=method)
+            torch.cuda.synchronize()
+            got = read_launches()
+            fail_unless(got == want, f"{label} acquire_all({method}): "
+                                     f"launches {got}, expected {want}")
+            check_acquired(f"{label} acquire_all({method})", res, PRN - 1,
+                           m["lag"], DOPPLER_HZ, 1, hz_tol, n_m)
+            same_result(f"{label} acquire_all({method})", res,
+                        acq.acquire_all(m["blocks"].cpu(), m["rep"].cpu(),
+                                        m["fs"], CFG.acquisition,
+                                        method=method))
+            times[method] = host_ms(lambda: acq.acquire_all(
+                *args_m, method=method))
+        print(f"{label} acquisition, 32 PRN x 10 x {n_m}: pcf "
+              f"{times['pcf']:.3f} ms, std {times['std']:.3f} ms (host, "
+              f"synchronised); agrees with the CPU path; card {card}",
+              flush=True)
+    del mixed
+
+    # 5. the GPS receiver: a geometry-true 20.8 s capture of the
+    # 24-satellite shell -> RTL-SDR uint8 .bin -> read back -> run_receiver
+    # on the card (acquisition by B1, tracking, decode, PVT)
+    t0 = time.perf_counter()
+    sats = constellation.gps_shell(RX_TOE)
+    iq_sim, truths, rx_ecef = constellation.simulate_constellation(
+        sats, RX_LLA, RX_TOE - 1.3, int(RX_SECONDS * FS), FS,
+        noise_std=0.4, seed=2)
+    render_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "gps.bin")
+        iq.write_iq_file(path, iq_sim * RX_SCALE)
+        del iq_sim
+        t0 = time.perf_counter()
+        x_rx = torch.from_numpy(iq.read_iq_file(
+            path, convention="centered")).to(dev)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+    n_rx = x_rx.numel()
+    reset_launches()
+    t0 = time.perf_counter()
+    rres = receiver.run_receiver(x_rx, FS, skip_epochs=600)
+    rx_s = time.perf_counter() - t0
+    rx_launches = read_launches()
+    tracked = [c for c in rres.channels if c.obs is not None]
+    decoded = [c for c in tracked if c.obs.eph.complete]
+    by_prn = {e.prn: e for e in sats}
+    st_s = rres.stage_seconds
+    n_trk = rres.tracked_spans[0][2] if rres.tracked_spans else 0
+    fix = rres.best_fix
+    err = (float(np.linalg.norm(fix.pos_ecef - rx_ecef)) if fix is not None
+           else float("nan"))
+    d_h = fix.height_m - RX_LLA[2] if fix is not None else float("nan")
+    print(f"receiver: {RX_SECONDS} s at {FS / 1e6} MS/s ({n_rx} samples), "
+          f"{len(truths)} satellites in view {sorted(t.prn for t in truths)}"
+          f"; render {render_s:.1f} s (NumPy, host), .bin read + upload "
+          f"{read_s:.2f} s; acquired "
+          f"{[c.prn for c in rres.channels if c.acquired]}, tracked "
+          f"{[c.prn for c in tracked]}, decoded {[c.prn for c in decoded]}; "
+          f"{len(rres.fixes)} fixes, best fix error {err:.2f} m, height "
+          f"error {d_h:+.2f} m; launches {rx_launches}", flush=True)
+    print(f"receiver times (host, each stage ending in a read of its "
+          f"result): acquire {st_s['acquire']:.3f} s, refine "
+          f"{st_s['refine']:.3f} s, track {st_s['track']:.3f} s "
+          f"({len(rres.tracked_spans)} channels x {n_trk} epochs, "
+          f"{1e3 * st_s['track'] / max(n_trk, 1):.4f} ms per epoch, "
+          f"{n_rx / st_s['track'] / 1e6:.2f} Msamples/s of capture, "
+          f"{RX_SECONDS / st_s['track']:.2f}x real time), decode "
+          f"{st_s['decode']:.3f} s, pvt {st_s['pvt']:.3f} s; run_receiver "
+          f"{rx_s:.3f} s = {RX_SECONDS / rx_s:.2f}x real time; card {card}",
+          flush=True)
+    fail_unless(rx_launches["pcf"] >= 1,
+                f"run_receiver did not launch B1: {rx_launches}")
+    fail_unless(len(tracked) >= 4, f"only {len(tracked)} channels tracked")
+    fail_unless(len(decoded) >= 4, f"only {len(decoded)} channels decoded")
+    for c in decoded:
+        fail_unless(c.obs.eph.iode == by_prn[c.prn].iode
+                    and abs(c.obs.eph.sqrt_a - by_prn[c.prn].sqrt_a) < 1e-3,
+                    f"PRN {c.prn}: decoded ephemeris differs from the "
+                    "simulated one")
+    fail_unless(fix is not None, "no valid PVT fix")
+    fail_unless(err < 30.0 and abs(d_h) < 50.0,
+                f"fix error {err:.2f} m, height error {d_h:+.2f} m")
+
+    # 5b. the tracker on the card against the CPU over the first
+    # RX_CHECK_EPOCHS epochs of the same capture and handover
+    sel = sorted((c for c in rres.channels if c.acquired),
+                 key=lambda c: -c.peak_ratio)[:12]
+    table = np.stack([codes.gps_ca_code(c.prn) for c in sel])
+    lags = np.array([c.code_phase_samples for c in sel], np.int32)
+    fine = acq.refine_doppler(
+        x_rx, table, lags, np.array([c.doppler_hz for c in sel], np.float32),
+        FS, 1.023e6).cpu().numpy()
+    _, run, n_epoch = tracking.make_tracker(table, FS, CFG.tracking)
+    x_chk = x_rx[: int(lags.max()) + RX_CHECK_EPOCHS * n_epoch]
+    trk, trk_s = {}, {}
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        st = tracking.init_state(len(sel), fine, np.zeros(len(sel)), FS,
+                                 device=d)
+        _, o = run(st, x_chk.to(d), start_offsets=lags,
+                   n_epochs=RX_CHECK_EPOCHS)
+        trk[d.type] = {f: getattr(o, f).cpu().double() for f in
+                       ("carr_freq_hz", "code_rem_chips", "i_prompt")}
+        trk_s[d.type] = time.perf_counter() - t0
+    g, c = trk["cuda"], trk["cpu"]
+    d_cf = (g["carr_freq_hz"] - c["carr_freq_hz"]).abs()
+    d_rem = (g["code_rem_chips"] - c["code_rem_chips"]).abs()
+    d_rem = torch.minimum(d_rem, 1023.0 - d_rem)
+    pull = CFG.tracking.pullin_ms + 200               # epochs of pull-in
+    signs = (torch.sign(g["i_prompt"][pull:])
+             == torch.sign(c["i_prompt"][pull:]))
+    print(f"tracker card vs CPU, {len(sel)} channels x {RX_CHECK_EPOCHS} "
+          f"epochs: max |d carr_freq| {float(d_cf.max()):.4f} Hz (after "
+          f"pull-in {float(d_cf[pull:].max()):.4f}), max |d code_rem| "
+          f"{float(d_rem.max()):.2e} chips (after pull-in "
+          f"{float(d_rem[pull:].max()):.2e}); prompt-I signs equal after "
+          f"epoch {pull}: {int(signs.sum())}/{signs.numel()}; card "
+          f"{trk_s['cuda']:.2f} s, CPU {trk_s['cpu']:.2f} s", flush=True)
+    if args_cli.profile:
+        st = tracking.init_state(len(sel), fine, np.zeros(len(sel)), FS,
+                                 device=dev)
+        profile_step(lambda _: run(st, x_chk, start_offsets=lags,
+                                   n_epochs=200), [None], steps=1,
+                     unit="200 tracking epochs")
+    fail_unless(bool(signs.all()), "prompt-I signs differ after pull-in")
+    fail_unless(float(d_cf.max()) <= 0.05,
+                "carr_freq differs from the CPU by more than 0.05 Hz")
+    fail_unless(float(d_rem.max()) <= 1e-3,
+                "code_rem differs from the CPU by more than 1e-3 chips")
+
+    # 6. results
     for k in kernels:
         k["launches"] = (std_launches if k["name"] == "caf_std"
                          else launches)[k["name"]]

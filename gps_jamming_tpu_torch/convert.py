@@ -3,8 +3,8 @@
 The main path has no trained weights: its only parameters are the replica
 table and the Hann window, both built from published constants. These
 helpers take the JAX package's host values (numpy `(re, im)` planes, a
-planar `CArray`, or the stats tuple of the PCF kernel) and return the
-port's tensors, so a test can feed one side's value to the other. They read
+planar `CArray`, the stats tuple of the PCF kernel, or a tracking carry)
+and return the port's tensors, so a test can feed one side's value to the other. They read
 values through `numpy.asarray` and need no JAX.
 """
 from __future__ import annotations
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .device import as_device
+from .models.receiver import tracking
 
 
 def _planes(v) -> tuple[np.ndarray, np.ndarray]:
@@ -40,3 +41,11 @@ def stats_from_jax(stats, device=None) -> tuple[torch.Tensor, ...]:
     `pallas_caf.caf_accumulate_pcf_fused(stats_excl=...)` -> float32
     tensors in the same order."""
     return tuple(surface_from_jax(s, device) for s in stats)
+
+
+def track_state_from_jax(state, device=None) -> tracking.TrackState:
+    """A JAX `tracking.TrackState` (any arrays, in field order) -> the
+    port's TrackState of float32 tensors."""
+    dev = as_device(device)
+    return tracking.TrackState(*[
+        torch.from_numpy(np.array(v, np.float32)).to(dev) for v in state])

@@ -10,7 +10,7 @@
 // with osc_f[t] = exp(-2*pi*i*f*t/fs), the reference's non-coherent sum of
 // n_blocks code periods (sdracq.c:15-27). Two launches:
 //   1. caf_mix_forward: one block per (bin f, block b): x_b * osc_f,
-//      written bit-reversed into shared memory -> n-point FFT ->
+//      written digit-reversed into shared memory -> n-point FFT ->
 //      Y[f*nb + b]. The phasor rows come from a table the wrapper builds
 //      once per shape (float64 on the host, cast to complex64).
 //   2. pcf_correlate (pcf_correlate.cuh, the correlate stage of kernel B1)
@@ -27,17 +27,26 @@
 // traffic per (p, f) is nb spectrum rows in and one surface row out. At
 // n = 16384 a block holds 128 KB of row and 64 KB of twiddles, so one
 // block of 1024 threads runs per SM.
+//
+// n: every length in [256, 16384] whose prime factors are all <= 127, as
+// v1 takes every multiple of 128 with a divisor <= 256 (3200 = 25*128 at
+// 3.2 MS/s GPS, 10368 = 81*128) and the RTL-SDR rates give 2400, 2560 and
+// 2800: a power of two runs the radix-2 FFT, any other n the mixed-radix
+// one of fft_smem.cuh (radix-2 stages, then a direct radix-p stage per odd
+// prime factor).
 #include <cuda_runtime.h>
 
 #include "pcf_correlate.cuh"
 
 namespace {
 
+template <bool MIXED>
 __global__ void __launch_bounds__(gjt::kMaxThreads)
 caf_mix_forward_kernel(const float2* __restrict__ x,
                        const float2* __restrict__ osc,
                        float2* __restrict__ Y, const float2* __restrict__ tw,
-                       int nb, int n, int log2n) {
+                       int nb, gjt::FftPlan plan) {
+  const int n = plan.n;
   extern __shared__ float2 smem[];
   float2* buf = smem;
   float2* tw_s = smem + n;
@@ -47,37 +56,50 @@ caf_mix_forward_kernel(const float2* __restrict__ x,
   const float2* xb = x + static_cast<long long>(b) * n;
   const float2* of = osc + static_cast<long long>(f) * n;
   for (int t = threadIdx.x; t < n; t += blockDim.x)
-    buf[gjt::bitrev(t, log2n)] = gjt::cmul(xb[t], of[t]);
+    buf[gjt::load_pos<MIXED>(t, plan)] = gjt::cmul(xb[t], of[t]);
   __syncthreads();
-  gjt::fft_radix2<false>(buf, tw_s, n, log2n);
+  gjt::fft_row<MIXED, false>(buf, tw_s, plan);
   float2* dst = Y + static_cast<long long>(blockIdx.x) * n;
   for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = buf[k];
+}
+
+template <bool MIXED>
+cudaError_t launch_mix_forward(const float2* x, const float2* osc, float2* Y,
+                               const float2* tw, int F, int nb,
+                               const gjt::FftPlan& plan, cudaStream_t s) {
+  const size_t smem = gjt::fft_smem_bytes(plan.n);
+  cudaError_t err = gjt::allow_smem(
+      reinterpret_cast<const void*>(caf_mix_forward_kernel<MIXED>), smem);
+  if (err != cudaSuccess) return err;
+  caf_mix_forward_kernel<MIXED>
+      <<<F * nb, gjt::fft_threads(plan.n), smem, s>>>(x, osc, Y, tw, nb,
+                                                      plan);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x: (nb, n) complex64 blocks; osc: (F, n) complex64 phasor rows; Y:
 // (F*nb, n) complex64 scratch, rows ordered (f, b); rep: (P, n) complex64
-// natural-order conj replica spectra; tw: (n/2,) complex64; out: the
-// (P, F, n) float32 surface. Returns a cudaError_t (0 on success).
+// natural-order conj replica spectra; tw: ((n+1)/2,) complex64; out: the
+// (P, F, n) float32 surface. n in [256, 16384] with every prime factor
+// <= 127. Returns a cudaError_t (0 on success).
 extern "C" int gjt_caf_std(const void* x, const void* osc, void* Y,
                            const void* rep, const void* tw, void* out, int F,
                            int nb, int P, int n, void* stream) {
-  if (n < 256 || n > 16384 || (n & (n - 1)) || F < 1 || nb < 1 || P < 1)
+  gjt::FftPlan plan;
+  if (!gjt::row_plan(n, &plan) || F < 1 || nb < 1 || P < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = gjt::fft_smem_bytes(n);
-  cudaError_t err = gjt::allow_smem(
-      reinterpret_cast<const void*>(caf_mix_forward_kernel), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  caf_mix_forward_kernel<<<F * nb, gjt::fft_threads(n), smem, s>>>(
-      static_cast<const float2*>(x), static_cast<const float2*>(osc),
-      static_cast<float2*>(Y), static_cast<const float2*>(tw), nb, n,
-      gjt::ilog2(n));
-  err = cudaGetLastError();
+  const float2* x2 = static_cast<const float2*>(x);
+  const float2* osc2 = static_cast<const float2*>(osc);
+  float2* Y2 = static_cast<float2*>(Y);
+  const float2* tw2 = static_cast<const float2*>(tw);
+  cudaError_t err = gjt::is_pow2(n)
+      ? launch_mix_forward<false>(x2, osc2, Y2, tw2, F, nb, plan, s)
+      : launch_mix_forward<true>(x2, osc2, Y2, tw2, F, nb, plan, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(gjt::launch_correlate(
-      static_cast<const float2*>(Y), static_cast<const float2*>(rep),
-      static_cast<const float2*>(tw), static_cast<float*>(out), F, nb, 1, P,
-      n, 0, 0, s));
+      Y2, static_cast<const float2*>(rep), tw2, static_cast<float*>(out), F,
+      nb, 1, P, plan, 0, 0, s));
 }

@@ -1,31 +1,118 @@
-// Shared-memory radix-2 FFT and block reductions for the port's kernels.
+// Shared-memory FFTs and block reductions for the port's kernels.
 //
-// One thread block transforms one power-of-two row held in shared memory.
-// The row is written in bit-reversed order (bitrev) and comes back in
-// natural order after fft_radix2. The twiddle table tw[k] = exp(-2*pi*i*k/n),
-// k < n/2, is float32 computed in float64 on the host and staged into shared
-// memory by the caller.
+// One thread block transforms one n-point row held in shared memory, in
+// place, decimation in time. The row is written in digit-reversed order and
+// comes back in natural order:
+// - n a power of two: bit-reversed load (bitrev), then fft_radix2;
+// - any other n = 2^a * p_1 * ... * p_k with odd primes p_i <= kMaxRadix
+//   (FftPlan): mixed-radix digit-reversed load (digit_rev), then a radix-2
+//   stages and one radix-p stage per odd prime, ascending (fft_mixed).
+// The twiddle table tw[k] = exp(-2*pi*i*k/n), k < (n+1)/2, is float32
+// computed in float64 on the host and staged into shared memory by the
+// caller; `twiddle` reads the rest of the circle from its conjugate
+// symmetry, so the table stays half a row (n = 16384: 64 KB beside the
+// 128 KB row).
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace gjt {
 
+#if !defined(GJT_FFT_MIN_N) || !defined(GJT_FFT_MAX_N) || \
+    !defined(GJT_FFT_MAX_RADIX)
+#error "kernels/build.py defines the FFT's size rule (GJT_FFT_*)"
+#endif
+
 // Every kernel is compiled for blocks of up to this many threads, so
 // ptxas keeps it within the SM's 64K registers at that size.
 constexpr int kMaxThreads = 1024;
+// The n the FFT takes: [kMinN, kMaxN], every prime factor <= kMaxRadix
+// (kernels/build.py's FFT_* constants, the rule cuda_pcf.supported reads).
+constexpr int kMinN = GJT_FFT_MIN_N;
+constexpr int kMaxN = GJT_FFT_MAX_N;
+constexpr int kMaxRadix = GJT_FFT_MAX_RADIX;
+// The most odd prime factors (with multiplicity) of an n <= kMaxN
+// (16384: 3^8 = 6561).
+constexpr int kMaxOddFactors = 8;
+
+constexpr long long ipow(long long b, int e) {
+  return e == 0 ? 1 : b * ipow(b, e - 1);
+}
+static_assert(ipow(3, kMaxOddFactors + 1) > kMaxN,
+              "kMaxOddFactors cannot hold every odd factor of kMaxN");
+
+// The factorization of a mixed-radix n: a = log2p2 radix-2 stages, then
+// one stage per odd prime factor, ascending.
+struct FftPlan {
+  int n;
+  int log2p2;
+  int n_odd;
+  int odd[kMaxOddFactors];
+};
+
+// Fills `pl` for n (host side); false when n has a prime factor above
+// kMaxRadix.
+static inline bool make_plan(int n, FftPlan* pl) {
+  pl->n = n;
+  pl->log2p2 = 0;
+  pl->n_odd = 0;
+  if (n < 2) return false;
+  int m = n;
+  while ((m & 1) == 0) {
+    m >>= 1;
+    ++pl->log2p2;
+  }
+  for (int p = 3; p <= kMaxRadix && m > 1; p += 2) {
+    while (m % p == 0) {
+      if (pl->n_odd == kMaxOddFactors) return false;
+      pl->odd[pl->n_odd++] = p;
+      m /= p;
+    }
+  }
+  return m == 1;
+}
 
 static __device__ __forceinline__ unsigned bitrev(unsigned i, int log2n) {
   return __brev(i) >> (32 - log2n);
+}
+
+// Position of input sample i in the mixed-radix DIT buffer: i's digits,
+// the last stage's radix least significant, written with the first
+// stage's radix least significant (weights 1, p_1, p_1*p_2, ...).
+static __device__ __forceinline__ int digit_rev(int i, const FftPlan& pl) {
+  int pos = 0, r = i, w = pl.n;
+#pragma unroll
+  for (int s = kMaxOddFactors - 1; s >= 0; --s) {
+    if (s < pl.n_odd) {
+      const int p = pl.odd[s];
+      const int q = r / p;
+      w /= p;
+      pos += (r - q * p) * w;
+      r = q;
+    }
+  }
+  // the radix-2 digits left in r reverse as bits (w == 2^log2p2 here)
+  return pl.log2p2 ? pos + static_cast<int>(bitrev(r, pl.log2p2)) : pos;
 }
 
 static __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
-// In-place decimation-in-time FFT of buf[0..n). INVERSE conjugates the
-// twiddles (no 1/n scaling). The caller synchronises after filling buf;
-// this returns after a final __syncthreads.
+// exp(-2*pi*i*k/n) for k in [0, n) from the half table.
+static __device__ __forceinline__ float2 twiddle(const float2* tw, int k,
+                                                 int n) {
+  if (k < ((n + 1) >> 1)) return tw[k];
+  if (2 * k == n) return make_float2(-1.f, 0.f);
+  const float2 w = tw[n - k];
+  return make_float2(w.x, -w.y);
+}
+
+// In-place decimation-in-time radix-2 stages 1..log2n of an n-point
+// transform (all of it when n = 2^log2n; the first log2p2 stages of a
+// mixed-radix n). INVERSE conjugates the twiddles (no 1/n scaling). The
+// caller synchronises after filling buf; this returns after a final
+// __syncthreads (none when log2n is 0).
 template <bool INVERSE>
 static __device__ void fft_radix2(float2* buf, const float2* tw, int n,
                                   int log2n) {
@@ -47,6 +134,95 @@ static __device__ void fft_radix2(float2* buf, const float2* tw, int n,
   }
 }
 
+// One radix-p DIT stage over sub-transforms of length Lp: each of the n/p
+// butterflies (group g, position j) reads x_m = buf[g*L + j + m*Lp],
+// m < p (L = Lp*p), scales x_m by W_L^(j*m), and writes the direct p-point
+// DFT y_q = sum_m x_m W_p^(q*m) back to the same places. P > 0 fixes the
+// radix at compile time (unrolled, in registers); P == 0 takes p_rt at run
+// time (p_rt <= kMaxRadix; the p values spill to local memory).
+template <bool INVERSE, int P>
+static __device__ void fft_radix_p(float2* buf, const float2* tw, int n,
+                                   int Lp, int p_rt) {
+  constexpr int kCap = P > 0 ? P : kMaxRadix;
+  const int p = P > 0 ? P : p_rt;
+  const int L = Lp * p;
+  const int stride_l = n / L, stride_p = n / p;
+  float2 wp[kCap];
+#pragma unroll
+  for (int m = 0; m < p; ++m) {
+    wp[m] = twiddle(tw, m * stride_p, n);
+    if (INVERSE) wp[m].y = -wp[m].y;
+  }
+  for (int b = threadIdx.x; b < stride_p; b += blockDim.x) {
+    const int g = b / Lp;
+    const int j = b - g * Lp;
+    const int base = g * L + j;
+    float2 v[kCap];
+    v[0] = buf[base];
+#pragma unroll
+    for (int m = 1; m < p; ++m) {
+      float2 w = twiddle(tw, j * m * stride_l, n);
+      if (INVERSE) w.y = -w.y;
+      v[m] = cmul(buf[base + m * Lp], w);
+    }
+#pragma unroll
+    for (int q = 0; q < p; ++q) {
+      float2 acc = v[0];
+      int e = 0;
+#pragma unroll
+      for (int m = 1; m < p; ++m) {
+        e += q;
+        if (e >= p) e -= p;
+        const float2 t = cmul(v[m], wp[e]);
+        acc.x += t.x;
+        acc.y += t.y;
+      }
+      buf[base + q * Lp] = acc;
+    }
+  }
+  __syncthreads();
+}
+
+// The whole mixed-radix transform of a digit-reversed row; returns after a
+// final __syncthreads.
+template <bool INVERSE>
+static __device__ void fft_mixed(float2* buf, const float2* tw,
+                                 const FftPlan& pl) {
+  fft_radix2<INVERSE>(buf, tw, pl.n, pl.log2p2);
+  int Lp = 1 << pl.log2p2;
+#pragma unroll 1
+  for (int s = 0; s < pl.n_odd; ++s) {
+    const int p = pl.odd[s];
+    if (p == 3) {
+      fft_radix_p<INVERSE, 3>(buf, tw, pl.n, Lp, p);
+    } else if (p == 5) {
+      fft_radix_p<INVERSE, 5>(buf, tw, pl.n, Lp, p);
+    } else if (p == 7) {
+      fft_radix_p<INVERSE, 7>(buf, tw, pl.n, Lp, p);
+    } else {
+      fft_radix_p<INVERSE, 0>(buf, tw, pl.n, Lp, p);
+    }
+    Lp *= p;
+  }
+}
+
+// A row's load position and transform, by layout: MIXED is the
+// digit-reversed mixed-radix FFT, else the power-of-two one.
+template <bool MIXED>
+static __device__ __forceinline__ int load_pos(int i, const FftPlan& pl) {
+  return MIXED ? digit_rev(i, pl) : static_cast<int>(bitrev(i, pl.log2p2));
+}
+
+template <bool MIXED, bool INVERSE>
+static __device__ __forceinline__ void fft_row(float2* buf, const float2* tw,
+                                               const FftPlan& pl) {
+  if (MIXED) {
+    fft_mixed<INVERSE>(buf, tw, pl);
+  } else {
+    fft_radix2<INVERSE>(buf, tw, pl.n, pl.log2p2);
+  }
+}
+
 // log2 of a power of two (host side).
 static inline int ilog2(int n) {
   int l = 0;
@@ -62,11 +238,16 @@ static inline cudaError_t allow_smem(const void* fn, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// Copies the n/2-entry twiddle table into shared memory (no sync).
+// Entries of an n-point twiddle table: (n+1)/2, n/2 for even n.
+static __host__ __device__ __forceinline__ int tw_len(int n) {
+  return (n + 1) >> 1;
+}
+
+// Copies the twiddle table into shared memory (no sync).
 static __device__ __forceinline__ void stage_twiddles(float2* tw_s,
                                                       const float2* tw,
                                                       int n) {
-  for (int k = threadIdx.x; k < (n >> 1); k += blockDim.x) tw_s[k] = tw[k];
+  for (int k = threadIdx.x; k < tw_len(n); k += blockDim.x) tw_s[k] = tw[k];
 }
 
 static __device__ __forceinline__ float warp_sum(float v) {

@@ -24,53 +24,70 @@
 // memory from the replica product to |.|^2, and in statistics mode the
 // delay x Doppler surface never reaches device memory: the only output is
 // 5 x (P, rows) floats.
+//
+// n: every length in [256, 16384] whose prime factors are all <= 127; a
+// power of two runs the radix-2 shared-memory FFT, any other n the
+// mixed-radix one (fft_smem.cuh).
 #include <cuda_runtime.h>
 
 #include "pcf_correlate.cuh"
 
 namespace {
 
+template <bool MIXED>
 __global__ void __launch_bounds__(gjt::kMaxThreads)
 pcf_forward_kernel(const float2* __restrict__ y, float2* __restrict__ Y,
-                   const float2* __restrict__ tw, int n, int log2n) {
+                   const float2* __restrict__ tw, gjt::FftPlan plan) {
+  const int n = plan.n;
   extern __shared__ float2 smem[];
   float2* buf = smem;
   float2* tw_s = smem + n;
   gjt::stage_twiddles(tw_s, tw, n);
   const float2* src = y + static_cast<long long>(blockIdx.x) * n;
   for (int t = threadIdx.x; t < n; t += blockDim.x)
-    buf[gjt::bitrev(t, log2n)] = src[t];
+    buf[gjt::load_pos<MIXED>(t, plan)] = src[t];
   __syncthreads();
-  gjt::fft_radix2<false>(buf, tw_s, n, log2n);
+  gjt::fft_row<MIXED, false>(buf, tw_s, plan);
   float2* dst = Y + static_cast<long long>(blockIdx.x) * n;
   for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = buf[k];
+}
+
+template <bool MIXED>
+cudaError_t launch_forward(const float2* y, float2* Y, const float2* tw,
+                           int rows, const gjt::FftPlan& plan,
+                           cudaStream_t s) {
+  const size_t smem = gjt::fft_smem_bytes(plan.n);
+  cudaError_t err = gjt::allow_smem(
+      reinterpret_cast<const void*>(pcf_forward_kernel<MIXED>), smem);
+  if (err != cudaSuccess) return err;
+  pcf_forward_kernel<MIXED><<<rows, gjt::fft_threads(plan.n), smem, s>>>(
+      y, Y, tw, plan);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // y: (R*G, n) complex64, rows ordered (r, g); Y: same-shape scratch;
-// rep: (P, n) complex64; tw: (n/2,) complex64; out: the surface
+// rep: (P, n) complex64; tw: ((n+1)/2,) complex64; out: the surface
 // (P, n_c*R, n) float32 when stats == 0, else (5, P, n_c*R) float32.
-// Returns a cudaError_t (0 on success).
+// n in [256, 16384] with every prime factor <= 127. Returns a cudaError_t
+// (0 on success).
 extern "C" int gjt_pcf(const void* y, void* Y, const void* rep,
                        const void* tw, void* out, int R, int G, int n_c,
                        int P, int n, int stats, int excl, void* stream) {
-  if (n < 256 || n > 16384 || (n & (n - 1)) || R < 1 || G < 1 || P < 1 ||
-      n_c < 1 || (n_c & 1) == 0 || n_c / 2 >= n ||
-      (stats && excl >= n / 2))
+  gjt::FftPlan plan;
+  if (!gjt::row_plan(n, &plan) || R < 1 || G < 1 || P < 1 || n_c < 1 ||
+      (n_c & 1) == 0 || n_c / 2 >= n || (stats && excl >= n / 2))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = gjt::fft_smem_bytes(n);
-  cudaError_t err = gjt::allow_smem(
-      reinterpret_cast<const void*>(pcf_forward_kernel), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pcf_forward_kernel<<<R * G, gjt::fft_threads(n), smem, s>>>(
-      static_cast<const float2*>(y), static_cast<float2*>(Y),
-      static_cast<const float2*>(tw), n, gjt::ilog2(n));
-  err = cudaGetLastError();
+  const float2* y2 = static_cast<const float2*>(y);
+  float2* Y2 = static_cast<float2*>(Y);
+  const float2* tw2 = static_cast<const float2*>(tw);
+  cudaError_t err = gjt::is_pow2(n)
+      ? launch_forward<false>(y2, Y2, tw2, R * G, plan, s)
+      : launch_forward<true>(y2, Y2, tw2, R * G, plan, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(gjt::launch_correlate(
-      static_cast<const float2*>(Y), static_cast<const float2*>(rep),
-      static_cast<const float2*>(tw), static_cast<float*>(out), R, G, n_c, P,
-      n, stats, excl, s));
+      Y2, static_cast<const float2*>(rep), tw2, static_cast<float*>(out), R,
+      G, n_c, P, plan, stats, excl, s));
 }

@@ -28,7 +28,14 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("welch_psd.cu", "pcf.cu", "caf_std.cu")
 HEADERS = ("fft_smem.cuh", "pcf_correlate.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+# The code-period lengths the shared-memory FFT of kernels B1 and B3 takes:
+# n in [FFT_MIN_N, FFT_MAX_N] with every prime factor <= FFT_MAX_RADIX. The
+# C gate (`row_plan`, csrc/pcf_correlate.cuh) gets them as -D defines, and
+# `cuda_pcf.supported` reads them here: one rule for both.
+FFT_MIN_N, FFT_MAX_N, FFT_MAX_RADIX = 256, 16384, 127
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              f"-DGJT_FFT_MIN_N={FFT_MIN_N}", f"-DGJT_FFT_MAX_N={FFT_MAX_N}",
+              f"-DGJT_FFT_MAX_RADIX={FFT_MAX_RADIX}")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -136,8 +143,9 @@ def check(err: int, name: str) -> None:
 
 @functools.lru_cache(maxsize=16)
 def twiddles(n: int, device) -> torch.Tensor:
-    """(n/2,) complex64 exp(-2*pi*i*k/n), computed in float64 on the host:
-    the table of fft_smem.cuh. Cached per (n, device); read-only."""
-    k = np.arange(n // 2, dtype=np.float64)
+    """((n+1)//2,) complex64 exp(-2*pi*i*k/n), computed in float64 on the
+    host: the half table of fft_smem.cuh (n/2 entries for even n). Cached
+    per (n, device); read-only."""
+    k = np.arange((n + 1) // 2, dtype=np.float64)
     return torch.from_numpy(np.exp(-2j * np.pi * k / n).astype(
         np.complex64)).to(device)

@@ -4,8 +4,8 @@ ported yet).
 
 All 14 FDMA channels share one 511-chip code and differ by carrier
 (k * 562.5 kHz, k = -7..6, sdrinit.c:391-399). Two searches over
-(channel x Doppler x lag), both plain torch (cuFFT on the card: the
-10000-sample period at 10 MS/s is no power of two):
+(channel x Doppler x lag), both plain torch (cuFFT on the card), as the
+JAX package left both to XLA:
 - 'pcf': `caf.caf_accumulate_pcf_fdma`, sub-bin mixes per channel and
   integer shifts of the shared replica spectrum;
 - 'std': `caf.caf_surface` over one flattened (channel, Doppler) frequency

@@ -148,8 +148,8 @@ def caf_accumulate_pcf_fdma(blocks: torch.Tensor, replica: torch.Tensor,
     offsets. Returns float32 (C, n_coarse*n_sets*n_fine, n); the Doppler of
     axis-1 index i, relative to the channel's carrier, is
     pcf_doppler_hz(sample_rate, n, max_doppler_hz, n_sets, fine_hz)[i].
-    Plain torch.fft (cuFFT on the card): n = 10000 at 10 MS/s is no power
-    of two.
+    Plain torch.fft (cuFFT on the card), as the JAX package left it to
+    XLA.
     """
     nb, n = blocks.shape
     if nb % n_groups:

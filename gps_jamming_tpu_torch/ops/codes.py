@@ -117,6 +117,12 @@ def glonass_code() -> np.ndarray:
     return out
 
 
+def glonass_carrier_hz(freq_ch: int) -> float:
+    """GLONASS FDMA carrier for channel number k (sdrinit.c:391-399 maps
+    prn -> k = prn - 8)."""
+    return C.GLO_G1_BASE_FREQ_HZ + freq_ch * C.GLO_G1_CH_SPACING_HZ
+
+
 def boc11(code: np.ndarray) -> np.ndarray:
     """BOC(1,1): each chip split into (+c, -c) half-chips (Galileo E1B/E1C);
     doubles the chip rate."""

@@ -33,8 +33,8 @@ LAUNCHES = 0
 
 
 def supported(n: int) -> bool:
-    """Power-of-two code-period lengths from 256 to 16384 samples (the
-    sizes of kernel B1's shared-memory FFT)."""
+    """The code-period lengths of kernel B1's shared-memory FFT
+    (`cuda_pcf.supported`): n in [256, 16384], prime factors <= 127."""
     return cuda_pcf.supported(n)
 
 
@@ -90,8 +90,8 @@ def caf_accumulate_fused(blocks: torch.Tensor, replica: torch.Tensor, freqs,
                          f"{blocks.device}")
     nb, n = blocks.shape
     if not supported(n):
-        raise ValueError(f"kernel B3 (std CAF): n {n} is not a power of two "
-                         "in [256, 16384]")
+        raise ValueError(f"kernel B3 (std CAF): "
+                         f"{cuda_pcf.unsupported_reason(n)}")
     check_tensor(blocks, "blocks", torch.complex64, (nb, n))
     check_tensor(replica, "replica", torch.complex64, (None, n),
                  blocks.device)

@@ -31,8 +31,23 @@ LAUNCHES = 0
 
 
 def supported(n: int) -> bool:
-    """Power-of-two code-period lengths from 256 to 16384 samples."""
-    return 256 <= n <= 16384 and n & (n - 1) == 0
+    """Code-period lengths the kernels' shared-memory FFT takes
+    (`build.FFT_*`, the rule of the C gate): 256 to 16384 samples whose
+    prime factors are all <= 127. Every power of two, v1's n1*128 sizes up
+    to 16384, and the RTL-SDR rates' 2400, 2560, 2800 and 3200."""
+    if not build.FFT_MIN_N <= n <= build.FFT_MAX_N:
+        return False
+    for p in range(2, build.FFT_MAX_RADIX + 1):
+        while n % p == 0:
+            n //= p
+    return n == 1
+
+
+def unsupported_reason(n: int) -> str:
+    """Why kernels B1 and B3 refuse an n that `supported` rejects."""
+    if not build.FFT_MIN_N <= n <= build.FFT_MAX_N:
+        return f"n {n} is outside [{build.FFT_MIN_N}, {build.FFT_MAX_N}]"
+    return f"n {n} has a prime factor above {build.FFT_MAX_RADIX}"
 
 
 def n_coarse(sample_rate: float, n: int, max_doppler_hz: float) -> int:
@@ -128,8 +143,7 @@ def pcf_search(y: torch.Tensor, replica: torch.Tensor, n_c: int,
     if y.device.type != "cuda":
         raise ValueError(f"pcf_search: unsupported device {y.device}")
     if not supported(n):
-        raise ValueError(f"pcf_search: n {n} is not a power of two in "
-                         "[256, 16384]")
+        raise ValueError(f"pcf_search: {unsupported_reason(n)}")
     check_tensor(y, "y", torch.complex64, (n_rows * n_groups, n))
     check_tensor(replica, "replica", torch.complex64, (None, n), y.device)
     n_prn = replica.shape[0]

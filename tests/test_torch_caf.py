@@ -138,7 +138,12 @@ def test_pcf_search_rejects_bad_arguments():
     with pytest.raises(ValueError):
         cuda_pcf.pcf_search(y, rep, 15, 6, 2, stats_excl=-2)
     assert cuda_pcf.supported(2048) and cuda_pcf.supported(16384)
-    assert not cuda_pcf.supported(10000) and not cuda_pcf.supported(128)
+    # mixed-radix lengths (prime factors <= 127) are in; GLONASS's 10000
+    # qualifies, though its search stays in plain torch
+    assert cuda_pcf.supported(2400) and cuda_pcf.supported(10000)
+    assert cuda_pcf.supported(4 * 127) and cuda_pcf.supported(3 ** 8)
+    assert not cuda_pcf.supported(128) and not cuda_pcf.supported(32768)
+    assert not cuda_pcf.supported(2 * 131) and not cuda_pcf.supported(2 * 127)
 
 
 def test_corr_reductions_match_jax():

@@ -85,6 +85,44 @@ def test_std_search_at_gps_width_matches_xla():
     assert _rel_err(got.numpy(), want) < 1e-4
 
 
+@pytest.mark.parametrize("n", [2400, 3200])
+def test_std_search_at_rtl_rates_matches_xla(n):
+    """Kernel B3's plain version at the non-power-of-two code periods of
+    GPS at 2.4 and 3.2 MS/s (n = fs * 1 ms), 71 bins, 3 PRNs, against the
+    JAX package's `caf.caf_accumulate` on the CPU."""
+    fs = n * 1000.0
+    rng = np.random.default_rng(n)
+    x = (rng.standard_normal((4, n))
+         + 1j * rng.standard_normal((4, n))).astype(np.complex64)
+    planes = tuple(rng.standard_normal((3, n)).astype(np.float32)
+                   for _ in range(2))
+    freqs = jcaf.doppler_bins(7000.0, 200.0)
+    rep = cplx.CArray(jnp.asarray(planes[0]), jnp.asarray(planes[1]))
+    want = np.asarray(jcaf.caf_accumulate(_jb(x), rep, freqs, fs))
+    got = tcaf.caf_accumulate(torch.from_numpy(x),
+                              convert.replica_from_jax(planes), freqs, fs)
+    assert tuple(got.shape) == want.shape == (3, 71, n)
+    assert _rel_err(got.numpy(), want) < 1e-4
+
+
+@pytest.mark.parametrize("n", [2400, 3200])
+def test_pcf_surface_at_rtl_rates_matches_xla(n):
+    """Kernel B1's plain version (the PCF surface) at n = 2400 and 3200
+    against the JAX package's `caf.caf_accumulate_pcf` on the CPU."""
+    fs = n * 1000.0
+    rng = np.random.default_rng(n + 1)
+    x = (rng.standard_normal((10, n))
+         + 1j * rng.standard_normal((10, n))).astype(np.complex64)
+    planes = tuple(rng.standard_normal((3, n)).astype(np.float32)
+                   for _ in range(2))
+    rep = cplx.CArray(jnp.asarray(planes[0]), jnp.asarray(planes[1]))
+    want = np.asarray(jcaf.caf_accumulate_pcf(_jb(x), rep, fs))
+    got = tcaf.caf_accumulate_pcf(torch.from_numpy(x),
+                                  convert.replica_from_jax(planes), fs)
+    assert tuple(got.shape) == want.shape
+    assert _rel_err(got.numpy(), want) < 1e-4
+
+
 @pytest.mark.parametrize("batched", [True, False])
 def test_caf_surface_matches_jax(batched):
     x, planes, freqs = _case(256, 3, 2, 5, seed=33)
@@ -121,7 +159,8 @@ def test_std_search_rejects_other_devices():
     x = torch.zeros(2, 256, dtype=torch.complex64, device="meta")
     with pytest.raises(ValueError, match="device"):
         cuda_caf.caf_accumulate_fused(x, x, [0.0], FS)
-    assert cuda_caf.supported(16384) and not cuda_caf.supported(3200)
+    assert cuda_caf.supported(16384) and cuda_caf.supported(3200)
+    assert cuda_caf.supported(10368) and not cuda_caf.supported(16384 * 2)
 
 
 @pytest.mark.parametrize("channels", [(-3, 4), (-7, 0, 6)])

@@ -9,7 +9,10 @@ there without the conftest:
 Tolerances: the surface and the PSD rtol 1e-3, atol 1e-4 * max (float32
 FFTs of different factorizations, sums in another order); stats max and
 sums rtol 1e-3; the arg-lag exact on rows whose top two values differ by
-more than 1e-4 relative.
+more than 1e-4 relative. B1 and B3 are held at power-of-two n and at the
+mixed-radix n of GPS at 2.4 and 3.2 MS/s (2400, 3200), v1's 81*128 = 10368,
+an odd n (3^7) and one with a generic-radix stage (4*127), to the same
+tolerances.
 """
 import numpy as np
 import pytest
@@ -70,7 +73,9 @@ def test_welch_dispatch_on_cuda(dev):
 
 
 @pytest.mark.parametrize("n,nb,nprn", [(2048, 10, 32), (256, 4, 5),
-                                       (16384, 4, 3)])
+                                       (16384, 4, 3), (2400, 10, 32),
+                                       (3200, 10, 32), (10368, 4, 3),
+                                       (3 ** 7, 4, 5), (4 * 127, 4, 5)])
 def test_pcf_kernel_matches_plain(dev, n, nb, nprn):
     blocks = _cplx((nb, n), seed=n, dev=dev)
     rep = _cplx((nprn, n), seed=n + 1, dev=dev)
@@ -107,17 +112,21 @@ def test_pcf_dispatch_on_cuda(dev):
     assert cuda_pcf.LAUNCHES == before + 1
     plain = caf.caf_accumulate_pcf(blocks.cpu(), rep.cpu(), FS)
     _assert_close(surf.cpu(), plain, 1e-3, 1e-4 * float(plain.max()))
-    with pytest.raises(ValueError):
-        caf.caf_accumulate_pcf(_cplx((10, 2000), seed=5, dev=dev),
-                               _cplx((4, 2000), seed=6, dev=dev), FS)
+    with pytest.raises(ValueError, match="prime factor"):
+        caf.caf_accumulate_pcf(_cplx((10, 2062), seed=5, dev=dev),
+                               _cplx((4, 2062), seed=6, dev=dev), FS)
+    assert cuda_pcf.LAUNCHES == before + 1
 
 
 @pytest.mark.parametrize("n,nb,nprn,nf,fs", [
     (256, 3, 5, 7, FS), (2048, 10, 32, 71, FS), (8192, 4, 6, 71, 4.096e6),
-    (16384, 10, 4, 71, 4.096e6)])
+    (16384, 10, 4, 71, 4.096e6), (2400, 10, 32, 71, 2.4e6),
+    (3200, 10, 32, 71, 3.2e6), (10368, 4, 4, 71, 10.368e6),
+    (3 ** 7, 3, 5, 7, FS), (4 * 127, 3, 5, 7, FS)])
 def test_caf_std_kernel_matches_plain(dev, n, nb, nprn, nf, fs):
     """Kernel B3 against its plain version: the GPS shape, Galileo E1B's
-    16384 lags (one 192 KB block per SM) and the sizes between."""
+    16384 lags (one 192 KB block per SM), the sizes between, and the
+    mixed-radix n (GPS at 2.4 and 3.2 MS/s, 81*128, 3^7, 4*127)."""
     from gps_jamming_tpu_torch.ops import caf
     blocks = _cplx((nb, n), seed=n + 2, dev=dev)
     rep = _cplx((nprn, n), seed=n + 3, dev=dev)
@@ -138,7 +147,8 @@ def test_caf_std_kernel_matches_plain(dev, n, nb, nprn, nf, fs):
 def test_caf_std_dispatch_on_cuda(dev):
     """caf_accumulate, acquire_all(method='std') and
     detect_acquire_step(method='std') on CUDA tensors each launch kernel B3
-    once; a size the kernel does not take raises instead of falling back."""
+    once, as does caf_accumulate at the mixed-radix n = 3200 (3.2 MS/s);
+    a size the kernel does not take raises instead of falling back."""
     from gps_jamming_tpu.config import AcquisitionConfig
     from gps_jamming_tpu_torch import entry
     from gps_jamming_tpu_torch.models.receiver import acquisition as acq
@@ -157,10 +167,16 @@ def test_caf_std_dispatch_on_cuda(dev):
                         device=dev)
     entry.detect_acquire_step(raw, method="std")
     assert cuda_caf.LAUNCHES == before + 3
+    b32, r32 = (_cplx((10, 3200), seed=9, dev=dev),
+                _cplx((4, 3200), seed=10, dev=dev))
+    surf = caf.caf_accumulate(b32, r32, freqs, 3.2e6)
+    assert cuda_caf.LAUNCHES == before + 4
+    plain = caf.caf_accumulate(b32.cpu(), r32.cpu(), freqs, 3.2e6)
+    _assert_close(surf.cpu(), plain, 1e-3, 1e-4 * float(plain.max()))
     with pytest.raises(ValueError, match="B3"):
-        caf.caf_accumulate(_cplx((10, 3200), seed=9, dev=dev),
-                           _cplx((4, 3200), seed=10, dev=dev), freqs, 3.2e6)
-    assert cuda_caf.LAUNCHES == before + 3
+        caf.caf_accumulate(_cplx((10, 2062), seed=9, dev=dev),
+                           _cplx((4, 2062), seed=10, dev=dev), freqs, 2.062e6)
+    assert cuda_caf.LAUNCHES == before + 4
 
 
 def test_refine_doppler_on_cuda_matches_cpu(dev):
@@ -188,3 +204,40 @@ def test_refine_doppler_on_cuda_matches_cpu(dev):
     assert float((fine.cpu() - fine_cpu).abs().max()) <= 0.5
     assert float((fine_cpu - 1234.0).abs().max()) <= 20.0
 
+
+
+def test_tracker_on_cuda_matches_cpu(dev):
+    """The tracker on the card against the CPU: 2 GPS channels over 1000
+    epochs with per-channel start offsets (the K-epoch gather). Divisions
+    by constants divide by tensors, so the two start bit-equal; sums in
+    another order then move the loops apart as they move the JAX package
+    and the port apart (tests/test_torch_tracking.py): carr_freq within
+    0.05 Hz, code_rem within 1e-3 chips (chip_smoke.py phase 5b's limits),
+    equal prompt-I signs after the 800 ms pull-in."""
+    from gps_jamming_tpu.config import TrackingConfig
+    from gps_jamming_tpu_torch.models.receiver import tracking
+    from gps_jamming_tpu_torch.ops import codes
+    n_ep, lags, dopps = 1000, (300, 1111), (3000.0, -1234.0)
+    i = np.arange(n_ep * 2048 + 2048, dtype=np.float64)
+    rng = np.random.default_rng(12)
+    x = 0.5 * (rng.standard_normal(i.size) + 1j * rng.standard_normal(i.size))
+    for prn, lag, d in zip((7, 21), lags, dopps):
+        chip = np.floor((i - lag) * 1.023e6 * (1 + d / 1575.42e6) / FS)
+        x = x + codes.gps_ca_code(prn)[chip.astype(np.int64) % 1023] \
+            * np.exp(2j * np.pi * d * i / FS)
+    x = torch.from_numpy(x.astype(np.complex64))
+    table = np.stack([codes.gps_ca_code(p) for p in (7, 21)])
+    _, run, _ = tracking.make_tracker(table, FS, TrackingConfig())
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        st = tracking.init_state(2, [2950.0, -1230.0], [0.0, 0.0], FS,
+                                 device=d)
+        outs[d.type] = run(st, x.to(d), start_offsets=np.array(lags),
+                           n_epochs=n_ep)[1]
+    g, c = outs["cuda"], outs["cpu"]
+    d_hz = float((g.carr_freq_hz.cpu() - c.carr_freq_hz).abs().max())
+    rem = (g.code_rem_chips.cpu() - c.code_rem_chips).abs()
+    d_chips = float(torch.minimum(rem, 1023.0 - rem).max())
+    assert d_hz < 0.05 and d_chips < 1e-3, (d_hz, d_chips)
+    assert torch.equal(torch.sign(g.i_prompt.cpu()[900:]),
+                       torch.sign(c.i_prompt[900:]))
