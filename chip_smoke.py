@@ -8,7 +8,8 @@
 
 Phases, in order; any failure raises and the exit code is non-zero:
 1. the card: require CUDA, print torch, the device and nvidia-smi's name
-   and power limit;
+   and power limit; the port's imports must load nothing of the JAX
+   package `gps_jamming_tpu`;
 2. build the CUDA kernels from gps_jamming_tpu_torch/csrc/;
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes, with CUDA-event median times of both: (a) the Welch PSD
@@ -43,9 +44,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
    of real time; (b) the tracker on the card against the CPU over the
    first 2000 epochs of the same capture and handover;
 6. print the per-kernel JSON line, the card line, and the success line.
+
+Each kernel's entry in the JSON line, and each of its shapes, carries
+`bound_ms`: the least time the card could take for the same work, the
+larger of the bytes it must move (each input read once, each output written
+once) over the H100's 3.35 TB/s and its float32 operations (5 n log2 n per
+complex FFT of n points, 10 per correlated point for the replica product,
+|.|^2 and the sum, 6 per mixed point) over 67 TFLOP/s outside the tensor
+cores; `bound_by` ("bytes" or "operations"), `bound_share` (bound over
+measured time), `launches_per_step` (per main-path step) and `library_ms`
+(null: no single PyTorch call computes these functions). `ifft_ms` is
+`torch.fft.ifft` alone over the same rows as B1's and B3's inverse
+transforms, one part of their work only.
 """
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -88,6 +102,8 @@ RX_LLA = (50.06, 19.94, 219.0)
 RX_TOE = 345600.0
 RX_SCALE = 12.0                   # float -> uint8 LSB, as the CLI's users
 RX_CHECK_EPOCHS = 2000            # card vs CPU tracker comparison
+HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
+FP32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
 
 
 def fail_unless(cond, msg):
@@ -130,6 +146,52 @@ def close(got, ref, rtol, atol):
     ok = bool((err <= atol + rtol * ref.abs()).all())
     rel = float((err / ref.abs().clamp(min=1e-30)).max())
     return ok, float(err.max()), rel
+
+
+def fft_flops(rows: int, n: int) -> float:
+    return 5.0 * rows * n * math.log2(n)
+
+
+def with_bound(entry: dict, flops: float, nbytes: float) -> dict:
+    """entry (with its measured "ms") plus bound_ms, bound_by and
+    bound_share for work of `flops` float32 operations and `nbytes` of
+    device memory."""
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    entry.update(bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+    entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+    return entry
+
+
+def b1_work(n_prn, n_c, rows, groups, n, stats) -> tuple[float, float]:
+    """(flops, bytes) of kernel B1: rows*groups forward FFTs, then per
+    (PRN, coarse, row, group) a product, inverse FFT, |.|^2 and sum."""
+    inv = n_prn * n_c * rows * groups
+    flops = fft_flops(rows * groups, n) + fft_flops(inv, n) + 10.0 * inv * n
+    out = 5 * n_prn * n_c * rows if stats else n_prn * n_c * rows * n
+    return flops, 8.0 * (rows * groups + n_prn) * n + 4.0 * out
+
+
+def b3_work(n_prn, n_f, nb, n) -> tuple[float, float]:
+    """(flops, bytes) of kernel B3: per (bin, block) a mix and forward FFT,
+    per (PRN, bin, block) a product, inverse FFT, |.|^2 and sum; the
+    blocks, phasor rows and replica rows in, the surface out."""
+    inv = n_prn * n_f * nb
+    flops = (6.0 * n_f * nb * n + fft_flops(n_f * nb, n) + fft_flops(inv, n)
+             + 10.0 * inv * n)
+    return flops, 8.0 * (nb + n_f + n_prn) * n + 4.0 * n_prn * n_f * n
+
+
+def ifft_ms(rows: int, n: int, dev, reps: int = 5) -> float:
+    """CUDA-event median ms of one torch.fft.ifft over (rows, n) complex64:
+    the inverse transforms of B1 or B3 alone, no product, |.|^2 or sum."""
+    x = torch.randn(rows, n, dtype=torch.complex64, device=dev)
+    ms, _ = time_pair(lambda: torch.fft.ifft(x, dim=-1), lambda: None,
+                      reps, 1)
+    del x
+    torch.cuda.empty_cache()
+    return ms
 
 
 def profile_step(step, raw, steps=N_BLOCKS, top=12, unit="step"):
@@ -298,8 +360,10 @@ def check_b1(label, blocks, replica, fs, excl) -> dict:
           f"max_rel_err {rel:.3e} (rtol 1e-3, atol 1e-4*max); "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
     fail_unless(ok, f"{tag} surface disagrees with its plain version")
-    modes = {"surface": {"max_abs_err": abs_err, "max_rel_err": rel,
-                         "ms": ms, "plain_ms": plain_ms}}
+    n_prn = replica.shape[0]
+    modes = {"surface": with_bound(
+        {"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
+         "plain_ms": plain_ms}, *b1_work(n_prn, n_c, 6, 2, n, False))}
     top2 = ref_surf.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1]) > 1e-4 * top2[..., 0]
     for mode, ex in (("stats", excl), ("peak", -1)):
@@ -331,8 +395,17 @@ def check_b1(label, blocks, replica, fs, excl) -> dict:
               f"{int(same.sum())}/{same.numel()} rows "
               f"({int(clear.sum())} with a clear peak); "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-        modes[mode] = {"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
-                       "plain_ms": plain_ms}
+        modes[mode] = with_bound(
+            {"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
+             "plain_ms": plain_ms}, *b1_work(n_prn, n_c, 6, 2, n, True))
+    ifft = ifft_ms(n_prn * n_c * 6 * 2, n, y.device)
+    print(f"{tag}: bound (ms, by) surface {modes['surface']['bound_ms']:.4f} "
+          f"{modes['surface']['bound_by']}, peak {modes['peak']['bound_ms']:.4f}"
+          f" {modes['peak']['bound_by']}; share of bound, peak "
+          f"{modes['peak']['bound_share']:.3f}; torch.fft.ifft alone over the "
+          f"same {n_prn * n_c * 12} rows {ifft:.4f} ms", flush=True)
+    for m in modes.values():
+        m["ifft_ms"] = ifft
     return modes
 
 
@@ -363,8 +436,17 @@ def check_b3(label, blocks, replica, freqs, fs, reps, inner) -> dict:
           f"{int(same[clear].sum())}/{int(clear.sum())} rows with a clear "
           f"peak ({int(same.sum())}/{same.numel()} in all); kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    return {"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
-            "plain_ms": plain_ms}
+    ifft = ifft_ms(replica.shape[0] * len(freqs) * nb, n, blocks.device,
+                   reps=3)
+    res = with_bound({"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
+                      "plain_ms": plain_ms, "ifft_ms": ifft},
+                     *b3_work(replica.shape[0], len(freqs), nb, n))
+    print(f"B3 caf_std {label}: bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}), share of bound {res['bound_share']:.3f}; "
+          f"torch.fft.ifft alone over the same "
+          f"{replica.shape[0] * len(freqs) * nb} rows {ifft:.4f} ms",
+          flush=True)
+    return res
 
 
 def check_acquired(label, res, want_i, want_lag, want_hz, lag_tol, hz_tol,
@@ -415,7 +497,11 @@ def main() -> int:
     from gps_jamming_tpu_torch.models.receiver import receiver, tracking
     from gps_jamming_tpu_torch.ops import caf, codes, cuda_psd, iq
     from gps_jamming_tpu_torch.sim import constellation
-    CFG = entry.CFG
+    from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
+    jax_side = sorted(m for m in sys.modules if m == "gps_jamming_tpu"
+                      or m.startswith("gps_jamming_tpu."))
+    fail_unless(not jax_side, f"the port imported the JAX package: "
+                              f"{jax_side}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -450,10 +536,18 @@ def main() -> int:
           f"max_rel_err {rel:.3e} (rtol 1e-3, atol 1e-4*max); "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
     fail_unless(ok, "B2 disagrees with its plain version")
+    # per segment: the FFT, then detrend, window, |.|^2 and the sum
+    segs = (N_BLOCK - 1024) // 512 + 1
+    b2 = with_bound({"ms": ms}, fft_flops(segs, 1024) + 10.0 * segs * 1024,
+                    8.0 * N_BLOCK + 4.0 * 1024)
+    print(f"B2: bound {b2['bound_ms']:.4f} ms ({b2['bound_by']}), share of "
+          f"bound {b2['bound_share']:.3f}", flush=True)
     kernels.append({"name": "welch_psd", "route": "cuda",
                     "source": "gps_jamming_tpu_torch/csrc/welch_psd.cu",
                     "replaces": "gps_jamming_tpu/ops/pallas_psd.py:99",
-                    "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms})
+                    "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                    **{k: b2[k] for k in ("bound_ms", "bound_by",
+                                          "bound_share")}})
 
     # 3b. kernel B1 vs plain, three modes, 32 PRN x 2048 x 10 periods
     blocks = x0[: 10 * N_CODE].reshape(10, N_CODE)
@@ -463,8 +557,9 @@ def main() -> int:
                     "source": "gps_jamming_tpu_torch/csrc/pcf.cu",
                     "replaces": "gps_jamming_tpu/ops/pallas_caf.py:715",
                     "max_abs_err": modes["peak"]["max_abs_err"],
-                    "ms": modes["peak"]["ms"],
-                    "plain_ms": modes["peak"]["plain_ms"],
+                    **{k: modes["peak"][k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "bound_share", "ifft_ms")},
                     "modes": modes})
 
     # 3c. kernel B3 vs plain at the GPS and the Galileo E1B shapes
@@ -481,8 +576,10 @@ def main() -> int:
                     "replaces": "gps_jamming_tpu/ops/pallas_caf.py:118, "
                                 ":411, :715",
                     "max_abs_err": b3["gps"]["max_abs_err"],
-                    "ms": b3["gps"]["ms"],
-                    "plain_ms": b3["gps"]["plain_ms"], "shapes": b3})
+                    **{k: b3["gps"][k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "bound_share", "ifft_ms")},
+                    "shapes": b3})
 
     # 3d. B1 and B3 at the non-power-of-two n of GPS at 2.4 and 3.2 MS/s
     # (the mixed-radix shared-memory FFT), and B3 alone at 81*128 = 10368
@@ -903,6 +1000,8 @@ def main() -> int:
     for k in kernels:
         k["launches"] = (std_launches if k["name"] == "caf_std"
                          else launches)[k["name"]]
+        k["launches_per_step"] = k["launches"] / N_BLOCKS
+        k["library_ms"] = None
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

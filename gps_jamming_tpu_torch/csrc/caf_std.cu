@@ -9,10 +9,10 @@
 //
 // with osc_f[t] = exp(-2*pi*i*f*t/fs), the reference's non-coherent sum of
 // n_blocks code periods (sdracq.c:15-27). Two launches:
-//   1. caf_mix_forward: one block per (bin f, block b): x_b * osc_f,
-//      written digit-reversed into shared memory -> n-point FFT ->
-//      Y[f*nb + b]. The phasor rows come from a table the wrapper builds
-//      once per shape (float64 on the host, cast to complex64).
+//   1. mix + forward FFT: one block per (bin f, block b): x_b * osc_f ->
+//      n-point FFT -> Y[f*nb + b]. The phasor rows come from a table the
+//      wrapper builds once per shape (float64 on the host, cast to
+//      complex64).
 //   2. pcf_correlate (pcf_correlate.cuh, the correlate stage of kernel B1)
 //      with R = F rows, G = nb groups, one coarse bin (no shift) and the
 //      surface epilogue: one block per (PRN p, bin f) runs product ->
@@ -21,17 +21,20 @@
 //
 // What bounds it: the inverse FFTs, P*F*nb of them against F*nb forward
 // ones (the GPS search, 32 PRN x 71 bins x 10 periods, runs 22720 inverse
-// transforms of 2048 points; Galileo E1B, 36 x 71 x 10, 25560 of 16384).
-// Each inverse stays in shared memory from the replica product to |.|^2,
-// and the sum over blocks stays in registers, so the only device-memory
-// traffic per (p, f) is nb spectrum rows in and one surface row out. At
-// n = 16384 a block holds 128 KB of row and 64 KB of twiddles, so one
-// block of 1024 threads runs per SM.
+// transforms of 2048 points, 3.1 GFLOP of float32 at 5 n log2 n each, and
+// writes an 18.6 MB surface: 0.046 ms on the card; Galileo E1B, 36 x 71 x
+// 10, 25560 of 16384, 34.4 GFLOP and 167.5 MB: 0.51 ms). Each inverse
+// stays on chip from the replica product to |.|^2, and the sum over blocks
+// stays in registers, so the only device-memory traffic per (p, f) is nb
+// spectrum rows in and one surface row out. A power-of-two n runs the
+// register FFT of fft_reg.cuh (2048: 3 passes, 2 conflict-free exchanges;
+// 16384: 4 passes, 3 exchanges, one 1024-thread block per SM, the note of
+// pcf_correlate.cuh says why).
 //
 // n: every length in [256, 16384] whose prime factors are all <= 127, as
 // v1 takes every multiple of 128 with a divisor <= 256 (3200 = 25*128 at
 // 3.2 MS/s GPS, 10368 = 81*128) and the RTL-SDR rates give 2400, 2560 and
-// 2800: a power of two runs the radix-2 FFT, any other n the mixed-radix
+// 2800: a power of two runs the register FFT, any other n the mixed-radix
 // one of fft_smem.cuh (radix-2 stages, then a direct radix-p stage per odd
 // prime factor).
 #include <cuda_runtime.h>
@@ -40,7 +43,7 @@
 
 namespace {
 
-template <bool MIXED>
+// Mixed-radix n: one block per (f, b), digit-reversed load, fft_mixed.
 __global__ void __launch_bounds__(gjt::kMaxThreads)
 caf_mix_forward_kernel(const float2* __restrict__ x,
                        const float2* __restrict__ osc,
@@ -56,24 +59,24 @@ caf_mix_forward_kernel(const float2* __restrict__ x,
   const float2* xb = x + static_cast<long long>(b) * n;
   const float2* of = osc + static_cast<long long>(f) * n;
   for (int t = threadIdx.x; t < n; t += blockDim.x)
-    buf[gjt::load_pos<MIXED>(t, plan)] = gjt::cmul(xb[t], of[t]);
+    buf[gjt::digit_rev(t, plan)] = gjt::cmul(xb[t], of[t]);
   __syncthreads();
-  gjt::fft_row<MIXED, false>(buf, tw_s, plan);
+  gjt::fft_mixed<false>(buf, tw_s, plan);
   float2* dst = Y + static_cast<long long>(blockIdx.x) * n;
   for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = buf[k];
 }
 
-template <bool MIXED>
 cudaError_t launch_mix_forward(const float2* x, const float2* osc, float2* Y,
                                const float2* tw, int F, int nb,
                                const gjt::FftPlan& plan, cudaStream_t s) {
+  if (gjt::is_pow2(plan.n))
+    return gjt::launch_reg_forward(x, osc, Y, tw, F * nb, nb, plan.n, s);
   const size_t smem = gjt::fft_smem_bytes(plan.n);
   cudaError_t err = gjt::allow_smem(
-      reinterpret_cast<const void*>(caf_mix_forward_kernel<MIXED>), smem);
+      reinterpret_cast<const void*>(caf_mix_forward_kernel), smem);
   if (err != cudaSuccess) return err;
-  caf_mix_forward_kernel<MIXED>
-      <<<F * nb, gjt::fft_threads(plan.n), smem, s>>>(x, osc, Y, tw, nb,
-                                                      plan);
+  caf_mix_forward_kernel<<<F * nb, gjt::fft_threads(plan.n), smem, s>>>(
+      x, osc, Y, tw, nb, plan);
   return cudaGetLastError();
 }
 
@@ -81,7 +84,8 @@ cudaError_t launch_mix_forward(const float2* x, const float2* osc, float2* Y,
 
 // x: (nb, n) complex64 blocks; osc: (F, n) complex64 phasor rows; Y:
 // (F*nb, n) complex64 scratch, rows ordered (f, b); rep: (P, n) complex64
-// natural-order conj replica spectra; tw: ((n+1)/2,) complex64; out: the
+// natural-order conj replica spectra; tw: the table of `build.twiddles(n)`
+// (two-level for a power of two, else half), complex64; out: the
 // (P, F, n) float32 surface. n in [256, 16384] with every prime factor
 // <= 127. Returns a cudaError_t (0 on success).
 extern "C" int gjt_caf_std(const void* x, const void* osc, void* Y,
@@ -95,9 +99,7 @@ extern "C" int gjt_caf_std(const void* x, const void* osc, void* Y,
   const float2* osc2 = static_cast<const float2*>(osc);
   float2* Y2 = static_cast<float2*>(Y);
   const float2* tw2 = static_cast<const float2*>(tw);
-  cudaError_t err = gjt::is_pow2(n)
-      ? launch_mix_forward<false>(x2, osc2, Y2, tw2, F, nb, plan, s)
-      : launch_mix_forward<true>(x2, osc2, Y2, tw2, F, nb, plan, s);
+  cudaError_t err = launch_mix_forward(x2, osc2, Y2, tw2, F, nb, plan, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(gjt::launch_correlate(
       Y2, static_cast<const float2*>(rep), tw2, static_cast<float*>(out), F,

@@ -3,14 +3,17 @@
 // One thread block transforms one n-point row held in shared memory, in
 // place, decimation in time. The row is written in digit-reversed order and
 // comes back in natural order:
-// - n a power of two: bit-reversed load (bitrev), then fft_radix2;
-// - any other n = 2^a * p_1 * ... * p_k with odd primes p_i <= kMaxRadix
-//   (FftPlan): mixed-radix digit-reversed load (digit_rev), then a radix-2
-//   stages and one radix-p stage per odd prime, ascending (fft_mixed).
+// - fft_radix2: the radix-2 stages of a bit-reversed row (bitrev); the
+//   Welch PSD (B2) transforms its power-of-two segments so;
+// - fft_mixed: any n = 2^a * p_1 * ... * p_k with odd primes p_i <=
+//   kMaxRadix (FftPlan) from a mixed-radix digit-reversed load (digit_rev):
+//   a radix-2 stages, then one radix-p stage per odd prime, ascending. B1
+//   and B3 take it at every n that is no power of two (their power-of-two
+//   rows take the register FFT of fft_reg.cuh).
 // The twiddle table tw[k] = exp(-2*pi*i*k/n), k < (n+1)/2, is float32
 // computed in float64 on the host and staged into shared memory by the
 // caller; `twiddle` reads the rest of the circle from its conjugate
-// symmetry, so the table stays half a row (n = 16384: 64 KB beside the
+// symmetry, so the table stays half a row (n = 16383: 64 KB beside the
 // 128 KB row).
 #pragma once
 
@@ -203,23 +206,6 @@ static __device__ void fft_mixed(float2* buf, const float2* tw,
       fft_radix_p<INVERSE, 0>(buf, tw, pl.n, Lp, p);
     }
     Lp *= p;
-  }
-}
-
-// A row's load position and transform, by layout: MIXED is the
-// digit-reversed mixed-radix FFT, else the power-of-two one.
-template <bool MIXED>
-static __device__ __forceinline__ int load_pos(int i, const FftPlan& pl) {
-  return MIXED ? digit_rev(i, pl) : static_cast<int>(bitrev(i, pl.log2p2));
-}
-
-template <bool MIXED, bool INVERSE>
-static __device__ __forceinline__ void fft_row(float2* buf, const float2* tw,
-                                               const FftPlan& pl) {
-  if (MIXED) {
-    fft_mixed<INVERSE>(buf, tw, pl);
-  } else {
-    fft_radix2<INVERSE>(buf, tw, pl.n, pl.log2p2);
   }
 }
 

@@ -1,8 +1,10 @@
-"""Explicit device handling.
+"""Explicit device handling, card first.
 
-The port never picks a device behind the caller's back: a function takes a
-`device` or derives it from its input tensor. A CPU tensor runs the plain
-PyTorch versions of the kernels; a CUDA tensor runs the kernels or raises.
+A function takes a `device` or derives it from its input tensor; where it
+is given neither, it runs on the card (`require_cuda`), and raises where
+there is none. The CPU is used only where the caller names it
+(`device="cpu"`, or a CPU tensor). A CPU tensor runs the plain PyTorch
+versions of the kernels; a CUDA tensor runs the kernels or raises.
 """
 from __future__ import annotations
 
@@ -10,8 +12,9 @@ import torch
 
 
 def as_device(device: torch.device | str | None) -> torch.device:
-    """torch.device from a device, a string, or None (the CPU)."""
-    return torch.device("cpu") if device is None else torch.device(device)
+    """torch.device from a device, a string, or None (the card: raises
+    RuntimeError where there is none)."""
+    return require_cuda() if device is None else torch.device(device)
 
 
 def require_cuda() -> torch.device:

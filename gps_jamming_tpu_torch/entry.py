@@ -15,8 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gps_jamming_tpu.config import DEFAULT_CONFIG as CFG
-
+from .config import DEFAULT_CONFIG as CFG
 from .device import as_device
 from .ops import caf, codes, cuda_pcf, iq, power, spectral
 
@@ -38,7 +37,8 @@ def _detect(x: torch.Tensor):
 
 
 def entry(device=None):
-    """(forward, (raw_i8,)) for one 128k-sample block on `device`.
+    """(forward, (raw_i8,)) for one 128k-sample block on `device` (None:
+    the card; raises RuntimeError where there is none).
 
     forward(raw_i8) takes (2n,) int8 interleaved I/Q (uint8 - 128) and
     returns (psd, pm, flags, surf).

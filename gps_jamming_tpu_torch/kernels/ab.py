@@ -1,0 +1,152 @@
+"""Kernels B1 and B3 of this tree against another checkout's, on one card,
+timed in turns: other, this, this, other.
+
+    python3 -m gps_jamming_tpu_torch.kernels.ab OTHER_ROOT
+
+OTHER_ROOT is the root of another checkout of the repo (for example the
+parent commit, unpacked by `git archive` into a directory that .gitignore
+lists). Its `gps_jamming_tpu_torch/kernels/build.py` is loaded by file path,
+so it builds its own csrc/ into its own _build/, and both libraries' C
+entry points (`gjt_pcf`, `gjt_caf_std`) get the same seeded inputs at the
+shapes of chip_smoke.py phases 3b-3d: B1 peak-only (32 PRN x 15 coarse x 6
+rows x 2 groups) at 2048, 2400 and 3200 lags; B3 (32 PRN x 71 bins x 10
+periods) at 2048, 2400, 3200 and 10368 lags, and Galileo E1B's 36 PRN at
+16384. Each reading is the median over `--reps` samples of CUDA-event time
+over `--inner` back-to-back calls, divided by `--inner`. Prints one line per
+shape, then one JSON object; needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from . import build
+
+SHAPES = (("B1 peak", 2048), ("B1 peak", 2400), ("B1 peak", 3200),
+          ("B3", 2048), ("B3", 2400), ("B3", 3200), ("B3", 10368),
+          ("B3", 16384))
+
+
+def _other_build(root: Path):
+    """The other checkout's `kernels.build`, its package loaded under the
+    name gjt_other so that its relative imports resolve in that tree."""
+    pkg_dir = root / "gps_jamming_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "gjt_other", pkg_dir / "__init__.py",
+        submodule_search_locations=[str(pkg_dir)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules["gjt_other"] = pkg
+    spec.loader.exec_module(pkg)
+    return importlib.import_module("gjt_other.kernels.build")
+
+
+def _cplx(shape, seed, dev):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    return torch.from_numpy(x.astype(np.complex64)).to(dev)
+
+
+def _call(mod, what: str, n: int, dev):
+    """A closure launching `what` at n through the library of build module
+    `mod`, with its own twiddle table; inputs are seeded, so both
+    libraries see the same ones."""
+    lib = mod.load()
+    # the parent of the register FFT has one (half) table for every n
+    tw = (mod.row_twiddles if hasattr(mod, "row_twiddles")
+          else mod.twiddles)(n, dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    if what == "B1 peak":
+        n_c, rows, groups, n_prn = 15, 6, 2, 32
+        y = _cplx((rows * groups, n), n, dev)
+        rep = _cplx((n_prn, n), n + 1, dev)
+        Y = torch.empty_like(y)
+        out = torch.empty((5, n_prn, n_c * rows), dtype=torch.float32,
+                          device=dev)
+
+        def fn():
+            return lib.gjt_pcf(y.data_ptr(), Y.data_ptr(), rep.data_ptr(),
+                               tw.data_ptr(), out.data_ptr(), rows, groups,
+                               n_c, n_prn, n, 1, -1, stream)
+    else:
+        n_f, nb, n_prn = 71, 10, (36 if n == 16384 else 32)
+        x = _cplx((nb, n), n + 2, dev)
+        osc = _cplx((n_f, n), n + 3, dev)
+        rep = _cplx((n_prn, n), n + 4, dev)
+        Y = torch.empty((n_f * nb, n), dtype=torch.complex64, device=dev)
+        out = torch.empty((n_prn, n_f, n), dtype=torch.float32, device=dev)
+
+        def fn():
+            return lib.gjt_caf_std(x.data_ptr(), osc.data_ptr(), Y.data_ptr(),
+                                   rep.data_ptr(), tw.data_ptr(),
+                                   out.data_ptr(), n_f, nb, n_prn, n, stream)
+    err = fn()
+    torch.cuda.synchronize()
+    if err:
+        raise RuntimeError(f"{what} n={n}: {torch.cuda.CudaError(err)}")
+    return fn, out
+
+
+def _median_ms(fn, reps: int, inner: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(inner):
+            fn()
+        e.record()
+        e.synchronize()
+        ts.append(s.elapsed_time(e) / inner)
+    return statistics.median(ts)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", type=Path, help="root of the other checkout")
+    ap.add_argument("--reps", type=int, default=15)
+    ap.add_argument("--inner", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("ab: no CUDA device")
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    mods = {"other": _other_build(args.other.resolve()), "this": build}
+    for m in mods.values():
+        m.build()
+    rows = []
+    for what, n in SHAPES:
+        inner = args.inner if n <= 4096 else max(args.inner // 3, 1)
+        calls = {k: _call(m, what, n, dev) for k, m in mods.items()}
+        diff = float((calls["this"][1] - calls["other"][1]).abs().max()
+                     / calls["other"][1].abs().max())
+        fns = {k: c[0] for k, c in calls.items()}
+        ms = [_median_ms(fns[k], args.reps, inner)
+              for k in ("other", "this", "this", "other")]
+        rows.append({"kernel": what, "n": n, "other_this_this_other_ms": ms,
+                     "change": (ms[1] + ms[2]) / (ms[0] + ms[3]) - 1.0,
+                     "max_rel_diff": diff})
+        print(f"{what} n={n}: other, this, this, other ms "
+              f"{', '.join(f'{t:.4f}' for t in ms)}; this/other "
+              f"{(ms[1] + ms[2]) / (ms[0] + ms[3]):.4f}; outputs differ by "
+              f"{diff:.2e} of their max; card {card}", flush=True)
+        del calls, fns
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "ab": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

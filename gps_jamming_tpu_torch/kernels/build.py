@@ -22,13 +22,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import fft_plan
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("welch_psd.cu", "pcf.cu", "caf_std.cu")
-HEADERS = ("fft_smem.cuh", "pcf_correlate.cuh")
+HEADERS = ("fft_smem.cuh", "fft_reg.cuh", "pcf_correlate.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-# The code-period lengths the shared-memory FFT of kernels B1 and B3 takes:
+# The code-period lengths the FFTs of kernels B1 and B3 take:
 # n in [FFT_MIN_N, FFT_MAX_N] with every prime factor <= FFT_MAX_RADIX. The
 # C gate (`row_plan`, csrc/pcf_correlate.cuh) gets them as -D defines, and
 # `cuda_pcf.supported` reads them here: one rule for both.
@@ -144,8 +146,20 @@ def check(err: int, name: str) -> None:
 @functools.lru_cache(maxsize=16)
 def twiddles(n: int, device) -> torch.Tensor:
     """((n+1)//2,) complex64 exp(-2*pi*i*k/n), computed in float64 on the
-    host: the half table of fft_smem.cuh (n/2 entries for even n). Cached
+    host: the half table of fft_smem.cuh (n/2 entries for even n), which
+    the Welch PSD (B2) and the mixed-radix rows of B1 and B3 read. Cached
     per (n, device); read-only."""
     k = np.arange((n + 1) // 2, dtype=np.float64)
     return torch.from_numpy(np.exp(-2j * np.pi * k / n).astype(
         np.complex64)).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def row_twiddles(n: int, device) -> torch.Tensor:
+    """The table kernels B1 and B3 take for an n-point row: for a power of
+    two the two-level table of the register FFT (csrc/fft_reg.cuh,
+    `fft_plan.twiddle_table`: n/64 coarse, then 64 fine entries, computed
+    in float64), else `twiddles(n)`. Cached per (n, device); read-only."""
+    if n & (n - 1):
+        return twiddles(n, device)
+    return torch.from_numpy(fft_plan.twiddle_table(n)).to(device)

@@ -12,8 +12,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gps_jamming_tpu.config import DetectorConfig
-
+from ..config import DetectorConfig
 from ..device import as_device
 from ..ops import iq as iq_ops
 from ..ops import power as power_ops
@@ -45,8 +44,8 @@ def power_profile_file(path: str, cfg: DetectorConfig,
 
     Reads `block_chunks` chunks at a time (16 MiB of bytes at the default
     32768-sample chunk), ingests them with the int8 'centered' convention
-    on `device`, and keeps the final partial chunk: the map equals
-    `power_profile` of the whole capture on the same bytes.
+    on `device` (None: the card), and keeps the final partial chunk: the
+    map equals `power_profile` of the whole capture on the same bytes.
     """
     device = as_device(device)
     chunk = cfg.power_chunk_samples

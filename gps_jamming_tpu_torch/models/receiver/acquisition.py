@@ -27,9 +27,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gps_jamming_tpu.config import AcquisitionConfig
-from gps_jamming_tpu.utils import constants as C
-
+from ...config import AcquisitionConfig
+from ...utils import constants as C
 from ...ops import caf as caf_ops
 from ...ops import codes as codes_ops
 from ...ops import corr as corr_ops

@@ -18,7 +18,7 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 
-from gps_jamming_tpu.utils import constants as C
+from ...utils import constants as C
 from .lnav import Ephemeris
 
 

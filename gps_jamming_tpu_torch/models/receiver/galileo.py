@@ -5,11 +5,8 @@ yet).
 E1B acquisition is the generic std or PCF search with E1B parameters:
 a 4092-chip primary code, BOC(1,1) to 8184 half-chips at 2.046 Mcps, a
 4 ms period. The primary codes are the Galileo OS SIS ICD memory codes,
-read from the JAX package's shipped table
-`gps_jamming_tpu/models/receiver/data/e1b_primary_codes.npz` by path:
-`gps_jamming_tpu/__init__.py` imports only its jax-free config, while
-`gps_jamming_tpu.models` imports jax, so the table is found from
-`gps_jamming_tpu.__file__` and never through that package.
+read from the port's own copy of the shipped table,
+`data/e1b_primary_codes.npz` beside this module.
 """
 from __future__ import annotations
 
@@ -18,18 +15,15 @@ import os
 
 import numpy as np
 
-import gps_jamming_tpu
-from gps_jamming_tpu.utils import constants as C
-
 from ...ops import codes as codes_ops
+from ...utils import constants as C
 
 CODE_LEN = C.GAL_E1B_CODE_LEN                  # 4092
 BOC_LEN = 2 * CODE_LEN                         # 8184 half-chips
 BOC_RATE = 2.046e6
 PERIOD_S = C.GAL_E1B_PERIOD_S                  # 4 ms
-ICD_TABLE_PATH = os.path.join(
-    os.path.dirname(gps_jamming_tpu.__file__), "models", "receiver", "data",
-    "e1b_primary_codes.npz")
+ICD_TABLE_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "data", "e1b_primary_codes.npz")
 
 # Per-PRN overrides loaded by `load_icd_codes`; they win over the table.
 _ICD_CODES: dict[int, np.ndarray] = {}

@@ -16,9 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gps_jamming_tpu.config import AcquisitionConfig
-from gps_jamming_tpu.utils import constants as C
-
+from ...config import AcquisitionConfig
+from ...utils import constants as C
 from ...ops import caf as caf_ops
 from ...ops import codes as codes_ops
 from . import acquisition as acq_mod

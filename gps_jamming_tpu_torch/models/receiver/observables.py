@@ -28,7 +28,7 @@ import dataclasses
 
 import numpy as np
 
-from gps_jamming_tpu.utils import constants as C
+from ...utils import constants as C
 from . import lnav
 
 PTIMING_S = 68.802e-3          # nominal transit offset (sdr.h:96)

@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from gps_jamming_tpu.utils import constants as C
+from ...utils import constants as C
 
 
 class PvtSolution(NamedTuple):

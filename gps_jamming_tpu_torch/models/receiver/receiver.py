@@ -25,9 +25,9 @@ import time
 import numpy as np
 import torch
 
-from gps_jamming_tpu.config import AcquisitionConfig, TrackingConfig
-from gps_jamming_tpu.utils import constants as C
-
+from ...config import AcquisitionConfig, TrackingConfig
+from ...device import as_device
+from ...utils import constants as C
 from ...ops import codes as codes_ops
 from . import acquisition as acq_mod
 from . import ephemeris as eph_mod
@@ -105,16 +105,20 @@ def run_receiver(x, sample_rate: float,
                  pvt_filter: str = "wls") -> ReceiverResult:
     """Run the complete GPS chain over a capture.
 
-    x: (n,) complex64 baseband at `sample_rate`, a tensor (which fixes the
-    device) or an array (run on the CPU). On a CUDA tensor acquisition and
-    tracking run on the card; decode and PVT run on the host. pvt_filter: 'wls' (blsFilter parity) or 'ekf' (pvt.PvtEkf,
-    seeded by the first WLS fix). Returns per-channel status and a PVT fix
-    series at the 200 ms cadence; fix_epochs are in milliseconds.
+    x: (n,) complex64 baseband at `sample_rate`, a tensor (which keeps its
+    device: a CPU tensor runs on the CPU) or an array (sent to the card;
+    raises RuntimeError where there is none). On a CUDA tensor acquisition
+    and tracking run on the card; decode and PVT run on the host.
+    pvt_filter: 'wls' (blsFilter parity) or 'ekf' (pvt.PvtEkf, seeded by
+    the first WLS fix). Returns per-channel status and a PVT fix series at
+    the 200 ms cadence; fix_epochs are in milliseconds.
     """
     acq_cfg = acq_cfg or AcquisitionConfig()
     trk_cfg = trk_cfg or TrackingConfig()
     su = _system_setup(system, sample_rate, acq_cfg)
-    xp = torch.as_tensor(x).to(torch.complex64)
+    xp = (x if isinstance(x, torch.Tensor)
+          else torch.as_tensor(x, device=as_device(None))).to(
+              torch.complex64)
     dev = xp.device
     n_code = su["n_code"]
     ids = su["ids"]

@@ -51,9 +51,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gps_jamming_tpu.config import TrackingConfig
-from gps_jamming_tpu.utils import constants as C
-
+from ...config import TrackingConfig
+from ...utils import constants as C
 from ...device import as_device
 from ...ops import codes as codes_ops
 
@@ -139,7 +138,7 @@ def init_state(n_ch: int, doppler_hz, code_phase_samples, sample_rate: float,
     sdrinit.c:391-399): the stored carr_freq is offset + Doppler.
 
     device: where the state lives; None takes doppler_hz's device when it
-    is a tensor, else the CPU.
+    is a tensor, else the card (`device.as_device`).
     """
     if device is None:
         device = (doppler_hz.device if isinstance(doppler_hz, torch.Tensor)

@@ -14,9 +14,8 @@ import functools
 import numpy as np
 import torch
 
-from gps_jamming_tpu.utils import constants as C
-
 from ..device import as_device
+from ..utils import constants as C
 
 # IS-GPS-200 G2 phase-selector tap pairs (1-indexed) for PRN 1..32.
 _GPS_G2_TAPS = [

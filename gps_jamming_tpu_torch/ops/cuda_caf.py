@@ -33,8 +33,8 @@ LAUNCHES = 0
 
 
 def supported(n: int) -> bool:
-    """The code-period lengths of kernel B1's shared-memory FFT
-    (`cuda_pcf.supported`): n in [256, 16384], prime factors <= 127."""
+    """The code-period lengths of kernel B1's FFTs (`cuda_pcf.supported`):
+    n in [256, 16384], prime factors <= 127."""
     return cuda_pcf.supported(n)
 
 
@@ -101,7 +101,7 @@ def caf_accumulate_fused(blocks: torch.Tensor, replica: torch.Tensor, freqs,
                     device=blocks.device)
     out = torch.empty((n_prn, n_freq, n), dtype=torch.float32,
                       device=blocks.device)
-    tw = build.twiddles(n, blocks.device)
+    tw = build.row_twiddles(n, blocks.device)
     lib = build.load()
     with torch.cuda.device(blocks.device):
         err = lib.gjt_caf_std(

@@ -31,10 +31,11 @@ LAUNCHES = 0
 
 
 def supported(n: int) -> bool:
-    """Code-period lengths the kernels' shared-memory FFT takes
-    (`build.FFT_*`, the rule of the C gate): 256 to 16384 samples whose
-    prime factors are all <= 127. Every power of two, v1's n1*128 sizes up
-    to 16384, and the RTL-SDR rates' 2400, 2560, 2800 and 3200."""
+    """Code-period lengths kernels B1 and B3 take (`build.FFT_*`, the rule
+    of the C gate): 256 to 16384 samples whose prime factors are all <=
+    127. Every power of two (the register FFT, csrc/fft_reg.cuh), v1's
+    n1*128 sizes up to 16384, and the RTL-SDR rates' 2400, 2560, 2800 and
+    3200 (the mixed-radix shared-memory FFT, csrc/fft_smem.cuh)."""
     if not build.FFT_MIN_N <= n <= build.FFT_MAX_N:
         return False
     for p in range(2, build.FFT_MAX_RADIX + 1):
@@ -154,7 +155,7 @@ def pcf_search(y: torch.Tensor, replica: torch.Tensor, n_c: int,
     else:
         out = torch.empty((5, n_prn, n_c * n_rows), dtype=torch.float32,
                           device=y.device)
-    tw = build.twiddles(n, y.device)
+    tw = build.row_twiddles(n, y.device)
     lib = build.load()
     with torch.cuda.device(y.device):
         err = lib.gjt_pcf(

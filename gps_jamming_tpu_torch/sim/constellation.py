@@ -26,8 +26,7 @@ from typing import Sequence
 
 import numpy as np
 
-from gps_jamming_tpu.utils import constants as C
-
+from ..utils import constants as C
 from ..models.receiver import ephemeris as eph_mod
 from ..models.receiver import lnav, pvt
 from ..ops import codes as codes_ops

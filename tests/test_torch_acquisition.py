@@ -12,12 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from gps_jamming_tpu.config import AcquisitionConfig
+from gps_jamming_tpu.config import AcquisitionConfig as JAcquisitionConfig
 from gps_jamming_tpu.models.receiver import acquisition as jacq
 from gps_jamming_tpu.ops import caf as jcaf
 from gps_jamming_tpu.ops import codes as jcodes
 from gps_jamming_tpu.ops import cplx, pallas_caf
 from gps_jamming_tpu_torch import convert
+from gps_jamming_tpu_torch.config import AcquisitionConfig
 from gps_jamming_tpu_torch.models.receiver import acquisition as tacq
 from gps_jamming_tpu_torch.ops import caf as tcaf
 from gps_jamming_tpu_torch.ops import codes as tcodes
@@ -28,7 +29,8 @@ torch.set_num_threads(2)
 FS = 2.048e6
 N = 2048
 N_PRN = 8
-CFG = AcquisitionConfig()
+CFG = AcquisitionConfig()             # the port's config
+JCFG = JAcquisitionConfig()           # the JAX package's, same defaults
 
 
 def _block(prn=3, code_phase=700, doppler_hz=2350.0, seed=21, code=None,
@@ -68,10 +70,11 @@ def test_acquire_all_pcf_matches_jax():
     planes = _replica_planes()
     want = jacq.acquire_all(
         cplx.CArray(jnp.asarray(x.real.copy()), jnp.asarray(x.imag.copy())),
-        cplx.CArray(jnp.asarray(planes[0]), jnp.asarray(planes[1])), FS, CFG,
+        cplx.CArray(jnp.asarray(planes[0]), jnp.asarray(planes[1])), FS,
+        JCFG,
         method="pcf")
     got = tacq.acquire_all(torch.from_numpy(x),
-                           convert.replica_from_jax(planes), FS, CFG,
+                           convert.replica_from_jax(planes, "cpu"), FS, CFG,
                            method="pcf")
     _assert_same_result(got, want)
     assert got.acquired.tolist() == [p == 2 for p in range(N_PRN)]
@@ -81,7 +84,7 @@ def test_acquire_all_pcf_matches_jax():
 
 def test_acquire_all_auto_resolves_to_pcf_for_gps():
     x = torch.from_numpy(_block(seed=22))
-    rep = convert.replica_from_jax(_replica_planes())
+    rep = convert.replica_from_jax(_replica_planes(), "cpu")
     a = tacq.acquire_all(x, rep, FS, CFG, method="auto")
     b = tacq.acquire_all(x, rep, FS, CFG, method="pcf")
     for f in a._fields:
@@ -100,22 +103,22 @@ def test_acquisition_tests_match_jax_on_the_same_inputs():
     stats = pallas_caf.caf_accumulate_pcf_fused(
         jb, cplx.CArray(*planes), FS, precision="f32", interpret=True,
         stats_excl=excl)
-    freqs = jcaf.pcf_doppler_hz(FS, N, CFG.doppler_max_hz)
-    want = jacq.acquisition_test(surf, jnp.asarray(freqs), FS, CFG, 5e-3)
-    got = tacq.acquisition_test(convert.surface_from_jax(surf),
+    freqs = jcaf.pcf_doppler_hz(FS, N, JCFG.doppler_max_hz)
+    want = jacq.acquisition_test(surf, jnp.asarray(freqs), FS, JCFG, 5e-3)
+    got = tacq.acquisition_test(convert.surface_from_jax(surf, "cpu"),
                                 torch.from_numpy(freqs), FS, CFG, 5e-3)
     _assert_same_result(got, want)
     want = jacq.acquisition_test_from_stats(stats, jnp.asarray(freqs), N,
-                                            CFG, 5e-3)
-    got = tacq.acquisition_test_from_stats(convert.stats_from_jax(stats),
-                                           torch.from_numpy(freqs), N, CFG,
-                                           5e-3)
+                                            JCFG, 5e-3)
+    got = tacq.acquisition_test_from_stats(
+        convert.stats_from_jax(stats, "cpu"), torch.from_numpy(freqs), N,
+        CFG, 5e-3)
     _assert_same_result(got, want)
     assert bool(got.acquired[4]) and int(got.code_phase[4]) == 100
     # the port's own stats path gives the same decision
     own = tacq.acquisition_test_from_stats(
         cuda_pcf.caf_accumulate_pcf_fused(
-            torch.from_numpy(x), convert.replica_from_jax(planes), FS,
+            torch.from_numpy(x), convert.replica_from_jax(planes, "cpu"), FS,
             stats_excl=excl), torch.from_numpy(freqs), N, CFG, 5e-3)
     _assert_same_result(own, want)
 
@@ -128,10 +131,11 @@ def test_std_search_and_bad_exclusion_raise():
     planes = _replica_planes()
     want = jacq.acquire_all(
         _jax_blocks(x),
-        cplx.CArray(jnp.asarray(planes[0]), jnp.asarray(planes[1])), FS, CFG,
+        cplx.CArray(jnp.asarray(planes[0]), jnp.asarray(planes[1])), FS,
+        JCFG,
         method="std")
     got = tacq.acquire_all(torch.from_numpy(x),
-                           convert.replica_from_jax(planes), FS, CFG,
+                           convert.replica_from_jax(planes, "cpu"), FS, CFG,
                            method="std")
     _assert_same_result(got, want)
     assert got.acquired.tolist() == [p == 5 for p in range(N_PRN)]
@@ -139,7 +143,7 @@ def test_std_search_and_bad_exclusion_raise():
     assert float(got.doppler_hz[5]) == -3400.0          # the 200 Hz grid
     with pytest.raises(ValueError):
         tacq.acquire_all(torch.from_numpy(x),
-                         convert.replica_from_jax(planes), FS, CFG,
+                         convert.replica_from_jax(planes, "cpu"), FS, CFG,
                          method="fft")
     with pytest.raises(ValueError):
         tacq.exclusion_half_width(N, AcquisitionConfig(exclude_chips=600.0))
@@ -166,7 +170,7 @@ def test_auto_resolving_to_std_runs_the_std_search():
     x = torch.from_numpy((rng.standard_normal((2, N))
                           + 1j * rng.standard_normal((2, N))).astype(
         np.complex64))
-    rep = convert.replica_from_jax(_replica_planes())[:2]
+    rep = convert.replica_from_jax(_replica_planes(), "cpu")[:2]
     # 2 GPS periods: 180 PCF rows against 71 * 2 = 142 std rows
     assert not tcaf.pcf_profitable(N, 2, FS, CFG.doppler_max_hz, 71)
     a = tacq.acquire_all(x, rep, FS, CFG, method="auto")
@@ -184,10 +188,11 @@ def test_sbas_std_acquisition_matches_jax():
     planes = (re[:8], im[:8])
     want = jacq.acquire_all(
         _jax_blocks(x),
-        cplx.CArray(jnp.asarray(planes[0]), jnp.asarray(planes[1])), FS, CFG,
+        cplx.CArray(jnp.asarray(planes[0]), jnp.asarray(planes[1])), FS,
+        JCFG,
         method="std")
     got = tacq.acquire_all(torch.from_numpy(x),
-                           convert.replica_from_jax(planes), FS, CFG,
+                           convert.replica_from_jax(planes, "cpu"), FS, CFG,
                            method="std")
     _assert_same_result(got, want)
     assert got.acquired.tolist() == [p == 4 for p in range(8)]
@@ -242,5 +247,5 @@ def test_replica_conversion_round_trip():
     assert t.dtype == torch.complex64
     np.testing.assert_array_equal(t.real.numpy(), want.re)
     np.testing.assert_array_equal(t.imag.numpy(), want.im)
-    t2 = convert.replica_from_jax((want.re, want.im))
+    t2 = convert.replica_from_jax((want.re, want.im), "cpu")
     assert torch.equal(t, t2)

@@ -64,7 +64,7 @@ def test_pcf_surface_matches_xla(n, nb, nprn):
         _jax_blocks(x), cplx.CArray(jnp.asarray(planes[0]),
                                     jnp.asarray(planes[1])), FS))
     got = tcaf.caf_accumulate_pcf(torch.from_numpy(x),
-                                  convert.replica_from_jax(planes), FS)
+                                  convert.replica_from_jax(planes, "cpu"), FS)
     assert tuple(got.shape) == want.shape
     _surf_close(got.numpy(), want)
 
@@ -76,7 +76,7 @@ def test_kernel_plain_surface_matches_pallas_interpret():
     jb, jrep = _jax_blocks(x), cplx.CArray(*planes)
     want = np.asarray(pallas_caf.caf_accumulate_pcf_fused(
         jb, jrep, FS, precision="f32", interpret=True))
-    xt, rep = torch.from_numpy(x), convert.replica_from_jax(planes)
+    xt, rep = torch.from_numpy(x), convert.replica_from_jax(planes, "cpu")
     before = cuda_pcf.LAUNCHES
     got = cuda_pcf.caf_accumulate_pcf_fused(xt, rep, FS)
     assert cuda_pcf.LAUNCHES == before          # no kernel on the CPU
@@ -95,7 +95,7 @@ def _stats_pair(seed, excl):
     want = [np.asarray(s) for s in pallas_caf.caf_accumulate_pcf_fused(
         jb, jrep, FS, precision="f32", interpret=True, stats_excl=excl)]
     got = [s.numpy() for s in cuda_pcf.caf_accumulate_pcf_fused(
-        torch.from_numpy(x), convert.replica_from_jax(planes), FS,
+        torch.from_numpy(x), convert.replica_from_jax(planes, "cpu"), FS,
         stats_excl=excl)]
     top2 = np.sort(surf, axis=-1)[..., -2:]
     assert ((top2[..., 1] - top2[..., 0]) > 1e-5 * top2[..., 1]).all()

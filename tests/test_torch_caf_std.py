@@ -63,7 +63,8 @@ def test_std_search_matches_jax(kind):
     want = _jax_std(kind, x, planes, freqs)
     before = cuda_caf.LAUNCHES
     got = tcaf.caf_accumulate(torch.from_numpy(x),
-                              convert.replica_from_jax(planes), freqs, FS)
+                              convert.replica_from_jax(planes, "cpu"),
+                              freqs, FS)
     assert cuda_caf.LAUNCHES == before          # no kernel on the CPU
     assert got.dtype == torch.float32
     assert tuple(got.shape) == want.shape == (3, 5, 256)
@@ -80,7 +81,8 @@ def test_std_search_at_gps_width_matches_xla():
     freqs = jcaf.doppler_bins(7000.0, 200.0)
     want = _jax_std("xla", x, planes, freqs)
     got = cuda_caf.caf_accumulate_reference(
-        torch.from_numpy(x), convert.replica_from_jax(planes), freqs, FS)
+        torch.from_numpy(x), convert.replica_from_jax(planes, "cpu"), freqs,
+        FS)
     assert tuple(got.shape) == want.shape == (4, 71, 2048)
     assert _rel_err(got.numpy(), want) < 1e-4
 
@@ -100,7 +102,8 @@ def test_std_search_at_rtl_rates_matches_xla(n):
     rep = cplx.CArray(jnp.asarray(planes[0]), jnp.asarray(planes[1]))
     want = np.asarray(jcaf.caf_accumulate(_jb(x), rep, freqs, fs))
     got = tcaf.caf_accumulate(torch.from_numpy(x),
-                              convert.replica_from_jax(planes), freqs, fs)
+                              convert.replica_from_jax(planes, "cpu"),
+                              freqs, fs)
     assert tuple(got.shape) == want.shape == (3, 71, n)
     assert _rel_err(got.numpy(), want) < 1e-4
 
@@ -118,7 +121,7 @@ def test_pcf_surface_at_rtl_rates_matches_xla(n):
     rep = cplx.CArray(jnp.asarray(planes[0]), jnp.asarray(planes[1]))
     want = np.asarray(jcaf.caf_accumulate_pcf(_jb(x), rep, fs))
     got = tcaf.caf_accumulate_pcf(torch.from_numpy(x),
-                                  convert.replica_from_jax(planes), fs)
+                                  convert.replica_from_jax(planes, "cpu"), fs)
     assert tuple(got.shape) == want.shape
     assert _rel_err(got.numpy(), want) < 1e-4
 
@@ -130,7 +133,7 @@ def test_caf_surface_matches_jax(batched):
     rep = cplx.CArray(jnp.asarray(planes[0]), jnp.asarray(planes[1]))
     want = np.asarray(jcaf.caf_surface(_jb(x), rep, jnp.asarray(freqs), FS))
     got = tcaf.caf_surface(torch.from_numpy(x),
-                           convert.replica_from_jax(planes), freqs, FS)
+                           convert.replica_from_jax(planes, "cpu"), freqs, FS)
     assert tuple(got.shape) == want.shape
     assert _rel_err(got.numpy(), want) < 1e-4
 
@@ -176,8 +179,8 @@ def test_pcf_fdma_surface_matches_xla(channels):
     offs = jglo.channel_offsets_hz(channels=channels)
     want = np.asarray(jcaf.caf_accumulate_pcf_fdma(_jb(x), rep, offs, fs))
     got = tcaf.caf_accumulate_pcf_fdma(torch.from_numpy(x),
-                                       convert.replica_from_jax(rep), offs,
-                                       fs)
+                                       convert.replica_from_jax(rep, "cpu"),
+                                       offs, fs)
     assert tuple(got.shape) == want.shape == (len(channels), 90, n)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
                                atol=1e-4 * want.max())

@@ -9,10 +9,11 @@ there without the conftest:
 Tolerances: the surface and the PSD rtol 1e-3, atol 1e-4 * max (float32
 FFTs of different factorizations, sums in another order); stats max and
 sums rtol 1e-3; the arg-lag exact on rows whose top two values differ by
-more than 1e-4 relative. B1 and B3 are held at power-of-two n and at the
-mixed-radix n of GPS at 2.4 and 3.2 MS/s (2400, 3200), v1's 81*128 = 10368,
-an odd n (3^7) and one with a generic-radix stage (4*127), to the same
-tolerances.
+more than 1e-4 relative. B1 (all three modes) and B3 are held at every
+power of two from 256 to 16384 (the register FFT of csrc/fft_reg.cuh, each
+of its variants) and at the mixed-radix n of GPS at 2.4 and 3.2 MS/s (2400,
+3200), v1's 81*128 = 10368, an odd n (3^7) and one with a generic-radix
+stage (4*127), to the same tolerances.
 """
 import numpy as np
 import pytest
@@ -75,7 +76,9 @@ def test_welch_dispatch_on_cuda(dev):
 @pytest.mark.parametrize("n,nb,nprn", [(2048, 10, 32), (256, 4, 5),
                                        (16384, 4, 3), (2400, 10, 32),
                                        (3200, 10, 32), (10368, 4, 3),
-                                       (3 ** 7, 4, 5), (4 * 127, 4, 5)])
+                                       (3 ** 7, 4, 5), (4 * 127, 4, 5),
+                                       (512, 4, 5), (1024, 4, 5),
+                                       (4096, 4, 4), (8192, 4, 3)])
 def test_pcf_kernel_matches_plain(dev, n, nb, nprn):
     blocks = _cplx((nb, n), seed=n, dev=dev)
     rep = _cplx((nprn, n), seed=n + 1, dev=dev)
@@ -101,6 +104,30 @@ def test_pcf_kernel_matches_plain(dev, n, nb, nprn):
         _assert_close(got[4][same], want[4][same], 1e-3, 0.0)
 
 
+@pytest.mark.parametrize("n", [256, 2048, 16384, 2400])
+def test_pcf_stats_ties_take_the_lowest_lag(dev, n):
+    """Rows whose surface is flat (a zero replica row: every lag ties at
+    exactly 0) report the lowest lag, 0, as kernel B1's contract says;
+    rows with a signal beside them keep their own peak."""
+    blocks = _cplx((4, n), seed=n + 7, dev=dev)
+    rep = _cplx((4, n), seed=n + 8, dev=dev)
+    rep[1] = 0
+    rep[3] = 0
+    y = cuda_pcf.pcf_prologue(blocks, FS)
+    args = (y, rep, 3, 6, 2)
+    ref = cuda_pcf.pcf_search_reference(*args)
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 1e-4 * top2[..., 0]
+    assert not bool(clear[[1, 3]].any()) and bool(clear[[0, 2]].all())
+    for excl in (4, -1):
+        got = cuda_pcf.pcf_search(*args, stats_excl=excl)
+        want = cuda_pcf.surface_stats(ref, excl)
+        assert bool((got[1][[1, 3]] == 0).all())
+        assert bool((want[1][[1, 3]] == 0).all())
+        assert bool((got[0][[1, 3]] == 0).all())
+        assert torch.equal(got[1][clear], want[1][clear])
+
+
 def test_pcf_dispatch_on_cuda(dev):
     """caf_accumulate_pcf on a CUDA tensor is kernel B1; sizes the kernel
     does not take raise instead of falling back."""
@@ -122,11 +149,12 @@ def test_pcf_dispatch_on_cuda(dev):
     (256, 3, 5, 7, FS), (2048, 10, 32, 71, FS), (8192, 4, 6, 71, 4.096e6),
     (16384, 10, 4, 71, 4.096e6), (2400, 10, 32, 71, 2.4e6),
     (3200, 10, 32, 71, 3.2e6), (10368, 4, 4, 71, 10.368e6),
-    (3 ** 7, 3, 5, 7, FS), (4 * 127, 3, 5, 7, FS)])
+    (3 ** 7, 3, 5, 7, FS), (4 * 127, 3, 5, 7, FS), (512, 3, 5, 7, FS),
+    (1024, 4, 5, 15, FS), (4096, 4, 4, 15, 4.096e6)])
 def test_caf_std_kernel_matches_plain(dev, n, nb, nprn, nf, fs):
     """Kernel B3 against its plain version: the GPS shape, Galileo E1B's
-    16384 lags (one 192 KB block per SM), the sizes between, and the
-    mixed-radix n (GPS at 2.4 and 3.2 MS/s, 81*128, 3^7, 4*127)."""
+    16384 lags (one 1024-thread block per SM), every power of two between,
+    and the mixed-radix n (GPS at 2.4 and 3.2 MS/s, 81*128, 3^7, 4*127)."""
     from gps_jamming_tpu_torch.ops import caf
     blocks = _cplx((nb, n), seed=n + 2, dev=dev)
     rep = _cplx((nprn, n), seed=n + 3, dev=dev)
@@ -149,7 +177,7 @@ def test_caf_std_dispatch_on_cuda(dev):
     detect_acquire_step(method='std') on CUDA tensors each launch kernel B3
     once, as does caf_accumulate at the mixed-radix n = 3200 (3.2 MS/s);
     a size the kernel does not take raises instead of falling back."""
-    from gps_jamming_tpu.config import AcquisitionConfig
+    from gps_jamming_tpu_torch.config import AcquisitionConfig
     from gps_jamming_tpu_torch import entry
     from gps_jamming_tpu_torch.models.receiver import acquisition as acq
     from gps_jamming_tpu_torch.ops import caf
@@ -214,7 +242,7 @@ def test_tracker_on_cuda_matches_cpu(dev):
     and the port apart (tests/test_torch_tracking.py): carr_freq within
     0.05 Hz, code_rem within 1e-3 chips (chip_smoke.py phase 5b's limits),
     equal prompt-I signs after the 800 ms pull-in."""
-    from gps_jamming_tpu.config import TrackingConfig
+    from gps_jamming_tpu_torch.config import TrackingConfig
     from gps_jamming_tpu_torch.models.receiver import tracking
     from gps_jamming_tpu_torch.ops import codes
     n_ep, lags, dopps = 1000, (300, 1111), (3000.0, -1234.0)

@@ -75,7 +75,8 @@ def test_detect_acquire_step_std_matches_jax_chain():
 
     want = [np.asarray(a) for a in jax.jit(block_step)(jnp.asarray(raw))]
     got = [a.numpy() for a in tentry.detect_acquire_step(
-        torch.from_numpy(raw), convert.replica_from_jax(rep), method="std")]
+        torch.from_numpy(raw), convert.replica_from_jax(rep, "cpu"),
+        method="std")]
     assert got[3].shape == want[3].shape == (8,)
     np.testing.assert_allclose(got[0], want[0], rtol=1e-4,
                                atol=1e-4 * want[0].max())
@@ -122,7 +123,10 @@ def test_require_cuda_raises_without_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         tdevice.require_cuda()
-    assert tdevice.as_device(None) == torch.device("cpu")
+    # card first: no device named is the card, so it raises too
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tdevice.as_device(None)
+    assert tdevice.as_device("cpu") == torch.device("cpu")
 
 
 def test_kernel_loader_raises_without_nvcc():

@@ -15,12 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from gps_jamming_tpu.config import AcquisitionConfig
+from gps_jamming_tpu.config import AcquisitionConfig as JAcquisitionConfig
 from gps_jamming_tpu.models.receiver import acquisition as jacq
 from gps_jamming_tpu.models.receiver import lnav as jlnav
 from gps_jamming_tpu.models.receiver import receiver as jrx
 from gps_jamming_tpu.ops import codes as jcodes
 from gps_jamming_tpu.ops import cplx
+from gps_jamming_tpu_torch.config import AcquisitionConfig
 from gps_jamming_tpu_torch.models.receiver import acquisition as tacq
 from gps_jamming_tpu_torch.models.receiver import receiver as trx
 from gps_jamming_tpu_torch.ops import codes as tcodes
@@ -45,9 +46,10 @@ def capture():
 def both(capture):
     x, _ = capture
     cfg = AcquisitionConfig(method="pcf")
+    jcfg = JAcquisitionConfig(method="pcf")
     return (trx.run_receiver(torch.from_numpy(x), FS, acq_cfg=cfg,
                              max_channels=6),
-            jrx.run_receiver(x, FS, acq_cfg=cfg, max_channels=6))
+            jrx.run_receiver(x, FS, acq_cfg=jcfg, max_channels=6))
 
 
 def test_receiver_acquires_as_jax(both, capture):

@@ -13,13 +13,15 @@ peak power within rtol 1e-4.
   simulator as the fixture generator, searched over four channels to keep
   the CPU's std intermediates small.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from gps_jamming_tpu.config import AcquisitionConfig
+from gps_jamming_tpu.config import AcquisitionConfig as JAcquisitionConfig
 from gps_jamming_tpu.models.receiver import acquisition as jacq
 from gps_jamming_tpu.models.receiver import galileo as jgal
 from gps_jamming_tpu.models.receiver import glonass as jglo
@@ -27,6 +29,7 @@ from gps_jamming_tpu.ops import codes as jcodes
 from gps_jamming_tpu.ops import cplx
 from gps_jamming_tpu.sim import glo as sim_glo
 from gps_jamming_tpu_torch import convert
+from gps_jamming_tpu_torch.config import AcquisitionConfig
 from gps_jamming_tpu_torch.models.receiver import acquisition as tacq
 from gps_jamming_tpu_torch.models.receiver import galileo as tgal
 from gps_jamming_tpu_torch.models.receiver import glonass as tglo
@@ -51,6 +54,7 @@ GAL_FS = 4.096e6
 GAL_N = 16384                  # 4 ms
 GAL_PRNS = range(1, 9)
 GAL_CFG = AcquisitionConfig(doppler_step_hz=150.0, doppler_max_hz=4500.0)
+J_GAL_CFG = JAcquisitionConfig(**dataclasses.asdict(GAL_CFG))
 
 
 def _e1b_blocks():
@@ -78,9 +82,10 @@ def test_galileo_acquisition_matches_jax(method):
     want = jacq.acquire_all(
         _jax_blocks(x),
         cplx.CArray(jnp.asarray(planes[0]), jnp.asarray(planes[1])), GAL_FS,
-        GAL_CFG, **kw)
+        J_GAL_CFG, **kw)
     got = tacq.acquire_all(torch.from_numpy(x),
-                           convert.replica_from_jax(planes), GAL_FS, GAL_CFG,
+                           convert.replica_from_jax(planes, "cpu"), GAL_FS,
+                           GAL_CFG,
                            **kw)
     _assert_same_result(got, want)
     assert got.acquired.tolist() == [p in (4, 7) for p in GAL_PRNS]
@@ -92,6 +97,7 @@ GLO_FS = 10e6
 GLO_N = 10000                  # 1 ms
 GLO_CHANNELS = (-3, 0, 4, 6)
 GLO_CFG = AcquisitionConfig(doppler_step_hz=250.0)
+J_GLO_CFG = JAcquisitionConfig(**dataclasses.asdict(GLO_CFG))
 
 
 def _glo_blocks():
@@ -107,7 +113,7 @@ def _glo_blocks():
 @pytest.mark.parametrize("method", ["pcf", "std"])
 def test_glonass_acquisition_matches_jax(method):
     x = _glo_blocks()
-    want = jglo.acquire_all(_jax_blocks(x), GLO_FS, GLO_CFG,
+    want = jglo.acquire_all(_jax_blocks(x), GLO_FS, J_GLO_CFG,
                             channels=GLO_CHANNELS, method=method)
     got = tglo.acquire_all(torch.from_numpy(x), GLO_FS, GLO_CFG,
                            channels=GLO_CHANNELS, method=method)

@@ -1,0 +1,148 @@
+"""The port stands alone and runs card first.
+
+- Self-contained: importing every module of `gps_jamming_tpu_torch` loads
+  nothing of the JAX package `gps_jamming_tpu`; the port's own config,
+  constants and Galileo E1B code table equal the JAX package's.
+- Card first: with no CUDA device, the entry points that are given no
+  device (`entry.entry()`, `detector.power_profile_file`, `run_receiver` on
+  a numpy array) raise RuntimeError; named "cpu", or given a CPU tensor,
+  they run.
+"""
+import dataclasses
+import enum
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import gps_jamming_tpu_torch
+from gps_jamming_tpu import config as jconfig
+from gps_jamming_tpu.utils import constants as jconstants
+from gps_jamming_tpu_torch import config as tconfig
+from gps_jamming_tpu_torch import entry
+from gps_jamming_tpu_torch.models import detector
+from gps_jamming_tpu_torch.models.receiver import receiver
+from gps_jamming_tpu_torch.utils import constants as tconstants
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FS = 2.048e6
+
+
+def _port_modules() -> list[str]:
+    return sorted(m.name for m in pkgutil.walk_packages(
+        gps_jamming_tpu_torch.__path__, "gps_jamming_tpu_torch."))
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    mods = _port_modules()
+    assert "gps_jamming_tpu_torch.config" in mods
+    assert "gps_jamming_tpu_torch.models.receiver.tracking" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "from gps_jamming_tpu_torch.models.receiver import galileo\n"
+            "galileo.e1b_code(1)\n"
+            "bad = sorted(m for m in sys.modules if m == 'gps_jamming_tpu' "
+            "or m.startswith('gps_jamming_tpu.'))\n"
+            "assert not bad, bad\n"
+            "print(len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) > len(mods)
+
+
+def _plain(v):
+    """asdict values with enums by their value (the two packages' enums
+    are distinct classes)."""
+    if isinstance(v, dict):
+        return {k: _plain(x) for k, x in v.items()}
+    if isinstance(v, enum.Enum):
+        return (type(v).__name__, v.value)
+    return v
+
+
+def test_config_defaults_equal_the_jax_package():
+    got = dataclasses.asdict(tconfig.DEFAULT_CONFIG)
+    want = dataclasses.asdict(jconfig.DEFAULT_CONFIG)
+    assert list(got) == list(want)
+    for section in want:
+        assert list(got[section]) == list(want[section]), section
+        for field in want[section]:
+            assert _plain(got[section][field]) == \
+                _plain(want[section][field]), (section, field)
+    for system in jconfig.GnssSystem:
+        t = tconfig.FrameworkConfig.for_system(tconfig.GnssSystem(
+            system.value))
+        j = jconfig.FrameworkConfig.for_system(system)
+        assert _plain(dataclasses.asdict(t)) == _plain(dataclasses.asdict(j))
+    assert tconfig.DEFAULT_CONFIG.acquisition.n_doppler == \
+        jconfig.DEFAULT_CONFIG.acquisition.n_doppler == 71
+
+
+def test_constants_equal_the_jax_package():
+    names = [n for n in dir(jconstants) if n.isupper()]
+    assert names == [n for n in dir(tconstants) if n.isupper()]
+    for n in names:
+        assert getattr(tconstants, n) == getattr(jconstants, n), n
+
+
+def test_e1b_table_is_the_ports_own_copy_and_equals_the_jax_packages():
+    from gps_jamming_tpu_torch.models.receiver import galileo
+    path = os.path.realpath(galileo.ICD_TABLE_PATH)
+    assert path.startswith(os.path.realpath(
+        os.path.dirname(gps_jamming_tpu_torch.__file__)))
+    want_path = os.path.join(REPO, "gps_jamming_tpu", "models", "receiver",
+                             "data", "e1b_primary_codes.npz")
+    with np.load(path) as got, np.load(want_path) as want:
+        assert sorted(got.files) == sorted(want.files)
+        for k in want.files:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _capture_bin(tmp_path, n=3 * 32768 + 100):
+    rng = np.random.default_rng(41)
+    raw = rng.integers(100, 156, 2 * n, dtype=np.uint8)
+    path = tmp_path / "cap.bin"
+    raw.tofile(path)
+    return str(path)
+
+
+def test_entry_defaults_to_the_card(no_card):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.entry()
+    fwd, (raw,) = entry.entry(device="cpu")
+    assert raw.device.type == "cpu"
+    psd, pm, flags, surf = fwd(raw)
+    assert surf.device.type == "cpu" and tuple(surf.shape) == (32, 90, 2048)
+
+
+def test_power_profile_file_defaults_to_the_card(no_card, tmp_path):
+    path = _capture_bin(tmp_path)
+    cfg = tconfig.DEFAULT_CONFIG.detector
+    with pytest.raises(RuntimeError, match="CUDA"):
+        detector.power_profile_file(path, cfg)
+    prof = detector.power_profile_file(path, cfg, device="cpu")
+    assert prof.power_map.device.type == "cpu"
+    assert tuple(prof.power_map.shape) == (4,)
+
+
+def test_run_receiver_sends_an_array_to_the_card(no_card):
+    rng = np.random.default_rng(42)
+    x = (rng.standard_normal(10 * 2048)
+         + 1j * rng.standard_normal(10 * 2048)).astype(np.complex64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        receiver.run_receiver(x, FS)
+    res = receiver.run_receiver(torch.from_numpy(x), FS)
+    assert len(res.channels) == 32
+    assert not res.fixes

@@ -30,10 +30,11 @@ import numpy as np
 import pytest
 import torch
 
-from gps_jamming_tpu.config import TrackingConfig
+from gps_jamming_tpu.config import TrackingConfig as JTrackingConfig
 from gps_jamming_tpu.models.receiver import tracking as jtrk
 from gps_jamming_tpu.ops import cplx
 from gps_jamming_tpu_torch import convert
+from gps_jamming_tpu_torch.config import TrackingConfig
 from gps_jamming_tpu_torch.models.receiver import galileo, glonass
 from gps_jamming_tpu_torch.models.receiver import tracking as ttrk
 from gps_jamming_tpu_torch.ops import codes
@@ -77,7 +78,7 @@ def _states(name, seed):
         noise_ema=rng.uniform(1, 2, 2), sig_ema=rng.uniform(100, 200, 2))
     f = {k: v.astype(np.float32) for k, v in f.items()}
     js = jtrk.TrackState(**{k: jnp.asarray(v) for k, v in f.items()})
-    return js, convert.track_state_from_jax(js)
+    return js, convert.track_state_from_jax(js, "cpu")
 
 
 def _cx(shape, seed):
@@ -123,7 +124,7 @@ def test_init_state_matches_jax(name):
     want = jtrk.init_state(2, dopp, lag, fs, **{
         k: (np.asarray(v, np.float32) if isinstance(v, tuple) else v)
         for k, v in kw.items()})
-    got = ttrk.init_state(2, dopp, lag, fs, **kw)
+    got = ttrk.init_state(2, dopp, lag, fs, device="cpu", **kw)
     for f in ttrk.TrackState._fields:
         g, w = getattr(got, f), np.asarray(getattr(want, f))
         assert g.dtype == torch.float32
@@ -196,7 +197,7 @@ def test_discriminators_match_jax():
     js = js._replace(**{f: jnp.concatenate([getattr(js, f),
                                             getattr(js, f)[:1]])
                         for f in js._fields})
-    ts = convert.track_state_from_jax(js)
+    ts = convert.track_state_from_jax(js, "cpu")
     want = jtrk._discriminators(jnp.asarray(ci), jnp.asarray(cq), js, 4,
                                 1e-3)
     got = ttrk._discriminators(torch.from_numpy(ci), torch.from_numpy(cq),
@@ -225,14 +226,14 @@ def _two_sats(n_ms, lags, dopps, prns=(7, 21), noise_std=0.5, seed=7,
 def _run_both(x, mode, lags, n_epochs=None):
     """The JAX and the port tracker over x, two channels, in one of the
     run modes; returns (jax outputs, port outputs, port final state)."""
-    cfg = TrackingConfig()
+    cfg, jcfg = TrackingConfig(), JTrackingConfig()
     table = np.stack([codes.gps_ca_code(p) for p in (7, 21)])
     dopp = np.array([2950.0, -1230.0], np.float32)      # handover errors
     lag0 = np.asarray(lags if mode == "plain" else (0, 0), np.float32)
-    _, jrun, _ = jtrk.make_tracker(table, FS, cfg)
+    _, jrun, _ = jtrk.make_tracker(table, FS, jcfg)
     _, trun, n_epoch = ttrk.make_tracker(table, FS, cfg)
     jst = jtrk.init_state(2, dopp, lag0, FS)
-    tst = ttrk.init_state(2, dopp, lag0, FS)
+    tst = ttrk.init_state(2, dopp, lag0, FS, device="cpu")
     kw_j, kw_t = {}, {}
     if mode in ("offsets", "start_epoch", "table_arg"):
         offs = np.asarray(lags, np.int32)
@@ -249,7 +250,7 @@ def _run_both(x, mode, lags, n_epochs=None):
         carr = np.full(2, L1, np.float32)
         offz = np.zeros(2, np.float32)
         placeholder = np.ones_like(tab)
-        _, jrun, _ = jtrk.make_tracker(placeholder, FS, cfg)
+        _, jrun, _ = jtrk.make_tracker(placeholder, FS, jcfg)
         _, trun, _ = ttrk.make_tracker(placeholder, FS, cfg)
         kw_j.update(table_arg=jnp.asarray(tab), carrier_arg=jnp.asarray(carr),
                     offset_arg=jnp.asarray(offz))
@@ -306,7 +307,7 @@ def test_step_matches_run():
     x = torch.from_numpy(_two_sats(20, lags=(0,), dopps=(500.0,),
                                    prns=(7,)))
     step, run, n_epoch = ttrk.make_tracker(table, FS, cfg)
-    st = ttrk.init_state(1, [480.0], [0.0], FS)
+    st = ttrk.init_state(1, [480.0], [0.0], FS, device="cpu")
     _, outs = run(st, x)
     for e in range(20):
         st, o = step(st, (x[e * n_epoch:(e + 1) * n_epoch], e))
@@ -349,7 +350,8 @@ def _track(sats, n_ms, dopp_init, lags, noise_std=0.0, seed=0):
     _, run, n_epoch = ttrk.make_tracker(table, FS, TrackingConfig())
     assert n_epoch == 2048
     st = ttrk.init_state(len(sats), np.asarray(dopp_init, np.float32),
-                         np.asarray(lags, np.float32), FS)
+                         np.asarray(lags, np.float32), FS,
+                         device="cpu")
     return run(st, _scene(sats, n_ms, noise_std, seed))
 
 
