@@ -13,7 +13,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 2. build the CUDA kernels from gps_jamming_tpu_torch/csrc/;
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes, with CUDA-event median times of both: (a) the Welch PSD
-   on one 512k-sample block; (b) the PCF search at 32 PRN x 2048 lags x 10
+   on one 512k-sample block at nperseg 1024 (the main path's), 1536 (a
+   mixed-radix size) and 16384, each bitwise repeatable, and one launch
+   and one device kernel per call (LAUNCHES and torch.profiler); (b) the PCF search at 32 PRN x 2048 lags x 10
    code periods in surface, stats and peak-only modes; (c) the std search
    at the GPS shape (32 PRN x 71 bins x 10 x 2048) and the Galileo E1B
    shape (36 PRN x 71 bins x 10 x 16384 at 4.096 MS/s); (d) B1 in its
@@ -94,6 +96,7 @@ GLO_N = 10000                     # one 1 ms code period
 GLO_CH = 2                        # FDMA frequency number
 GLO_CODE_PHASE = 3210             # samples
 GLO_DOPPLER_HZ = 1800.0
+B2_NPERSEG = (1024, 1536, 16384)  # main path; mixed radix; the largest
 MIXED_RATES = (2.4e6, 3.2e6)      # GPS at RTL-SDR rates: n = 2400, 3200
 MIXED_CODE_FRAC = 0.6             # PRN 7's code phase, fraction of n
 V1_N = 10368                      # 81 * 128, a v1 size of the JAX package
@@ -326,6 +329,32 @@ def read_launches() -> dict:
             "caf_std": cuda_caf.LAUNCHES}
 
 
+def b2_kernels_per_call(call, calls: int) -> str:
+    """Fails unless `calls` calls of B2's wrapper add `calls` to its
+    LAUNCHES and torch.profiler sees exactly one device kernel per call,
+    B2's own."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gps_jamming_tpu_torch.ops import cuda_psd
+    call()
+    torch.cuda.synchronize()
+    before = cuda_psd.LAUNCHES
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    launches = cuda_psd.LAUNCHES - before
+    kern = {ev.key: ev.count for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA}
+    n_dev = sum(kern.values())
+    n_welch = sum(c for k, c in kern.items() if "welch" in k)
+    fail_unless(launches == calls and n_dev == calls and n_welch == calls,
+                f"B2: {calls} calls made {launches} counted launches and "
+                f"{n_dev} device kernels ({kern})")
+    return f"1 launch, 1 device kernel ({', '.join(kern)})"
+
+
 def host_ms(fn, reps: int = 3) -> float:
     """Median host milliseconds of fn() ending in a synchronise, after one
     warm-up call."""
@@ -525,29 +554,46 @@ def main() -> int:
     replica = codes.gps_replica_table(FS, N_CODE, dev)
     kernels = []
 
-    # 3a. kernel B2 vs plain on one clean 512k block
-    got = cuda_psd.welch_psd_fused(x0, FS, 1024)
-    ref = cuda_psd.welch_psd_reference(x0, FS, 1024)
-    ok, abs_err, rel = close(got, ref, 1e-3, 1e-4 * float(ref.max()))
-    ms, plain_ms = time_pair(lambda: cuda_psd.welch_psd_fused(x0, FS, 1024),
-                             lambda: cuda_psd.welch_psd_reference(x0, FS,
-                                                                  1024))
-    print(f"B2 welch_psd n={N_BLOCK}: max_abs_err {abs_err:.3e} "
-          f"max_rel_err {rel:.3e} (rtol 1e-3, atol 1e-4*max); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    fail_unless(ok, "B2 disagrees with its plain version")
-    # per segment: the FFT, then detrend, window, |.|^2 and the sum
-    segs = (N_BLOCK - 1024) // 512 + 1
-    b2 = with_bound({"ms": ms}, fft_flops(segs, 1024) + 10.0 * segs * 1024,
-                    8.0 * N_BLOCK + 4.0 * 1024)
-    print(f"B2: bound {b2['bound_ms']:.4f} ms ({b2['bound_by']}), share of "
-          f"bound {b2['bound_share']:.3f}", flush=True)
+    # 3a. kernel B2 vs plain on one clean 512k block at the main path's
+    # nperseg 1024, a mixed-radix 1536 and the largest, 16384: errors,
+    # bitwise repeatability, times; then one launch per call
+    b2 = {}
+    for nps in B2_NPERSEG:
+        got = cuda_psd.welch_psd_fused(x0, FS, nps)
+        ref = cuda_psd.welch_psd_reference(x0, FS, nps)
+        ok, abs_err, rel = close(got, ref, 1e-3, 1e-4 * float(ref.max()))
+        fail_unless(ok, f"B2 at nperseg {nps} disagrees with its plain "
+                        f"version (max_abs_err {abs_err:.3e})")
+        again = cuda_psd.welch_psd_fused(x0, FS, nps)
+        fail_unless(bool(torch.equal(got, again)),
+                    f"B2 at nperseg {nps}: two calls differ")
+        ms, plain_ms = time_pair(
+            lambda: cuda_psd.welch_psd_fused(x0, FS, nps),
+            lambda: cuda_psd.welch_psd_reference(x0, FS, nps))
+        # per segment: the FFT, then detrend, window, |.|^2 and the sum
+        segs = (N_BLOCK - nps) // (nps // 2) + 1
+        b2[nps] = with_bound({"max_abs_err": abs_err, "max_rel_err": rel,
+                              "ms": ms, "plain_ms": plain_ms},
+                             fft_flops(segs, nps) + 10.0 * segs * nps,
+                             8.0 * N_BLOCK + 4.0 * nps)
+        print(f"B2 welch_psd n={N_BLOCK} nperseg={nps}: max_abs_err "
+              f"{abs_err:.3e} max_rel_err {rel:.3e} (rtol 1e-3, atol "
+              f"1e-4*max), bitwise repeatable; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; bound {b2[nps]['bound_ms']:.4f} ms "
+              f"({b2[nps]['bound_by']}), share of bound "
+              f"{b2[nps]['bound_share']:.3f}", flush=True)
+    b2_calls = b2_kernels_per_call(lambda: cuda_psd.welch_psd_fused(
+        x0, FS, 1024), 5)
+    print(f"B2: {b2_calls} per call (LAUNCHES and torch.profiler)",
+          flush=True)
     kernels.append({"name": "welch_psd", "route": "cuda",
                     "source": "gps_jamming_tpu_torch/csrc/welch_psd.cu",
                     "replaces": "gps_jamming_tpu/ops/pallas_psd.py:99",
-                    "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-                    **{k: b2[k] for k in ("bound_ms", "bound_by",
-                                          "bound_share")}})
+                    "max_abs_err": b2[1024]["max_abs_err"],
+                    **{k: b2[1024][k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "bound_share")},
+                    "sizes": {str(k): v for k, v in b2.items()}})
 
     # 3b. kernel B1 vs plain, three modes, 32 PRN x 2048 x 10 periods
     blocks = x0[: 10 * N_CODE].reshape(10, N_CODE)

@@ -2,7 +2,8 @@
 // for the correlate stage of kernels B1 and B3 and their forward kernels.
 //
 // n = T * P: each of the T threads holds P points in registers (P = 8 for
-// n <= 512, else 16; RegShape). Every power of two n is its own template
+// n <= 512, else 16; RegShape). B1 and B3 take n >= 256; the Welch PSD (B2)
+// also 64 and 128. Every power of two n is its own template
 // instantiation, so n, T, the radices, the strides and every register and
 // address offset are compile-time constants. The transform is a Stockham
 // autosort of
@@ -56,8 +57,8 @@ static __host__ __device__ constexpr int reg_buffers(int n) {
 // per thread, T threads.
 template <int N>
 struct RegShape {
-  static_assert(N >= 256 && N <= 16384 && (N & (N - 1)) == 0,
-                "a power of two in [256, 16384]");
+  static_assert(N >= 64 && N <= 16384 && (N & (N - 1)) == 0,
+                "a power of two in [64, 16384]");
   static constexpr int P = N <= 512 ? 8 : 16;
   static constexpr int T = N / P;
   static constexpr int kBuffers = reg_buffers(N);
@@ -72,6 +73,35 @@ constexpr int kRadix = N / NS >= RegShape<N>::P ? RegShape<N>::P : N / NS;
 static __host__ __device__ __forceinline__ int reg_tw_len(int n) {
   return (n >> kFineBits) + kFine;
 }
+
+// Who runs a row: its thread index t < T and the barrier of its threads.
+// BlockRow: the whole block (B1, B3). GroupRow<T>: the G = blockDim / T
+// groups of T consecutive threads each run their own row (B2), each with
+// its own barrier, so that one group's exchange does not stall the others:
+// a masked __syncwarp below a warp, else the named barrier 1 + group.
+struct BlockRow {
+  static __device__ __forceinline__ int t() { return threadIdx.x; }
+  static __device__ __forceinline__ void sync() { __syncthreads(); }
+};
+
+template <int T>
+struct GroupRow {
+  static_assert((T & (T - 1)) == 0 && T >= 8 && T <= 1024, "T: 8 to 1024");
+  static __device__ __forceinline__ int t() { return threadIdx.x & (T - 1); }
+  static __device__ __forceinline__ int group() { return threadIdx.x / T; }
+  // the lanes of this thread's group within its warp
+  static __device__ __forceinline__ unsigned mask() {
+    return T >= 32 ? 0xffffffffu
+                   : ((1u << (T & 31)) - 1u) << (threadIdx.x & 31 & ~(T - 1));
+  }
+  static __device__ __forceinline__ void sync() {
+    if constexpr (T < 32) {
+      __syncwarp(mask());
+    } else {
+      asm volatile("bar.sync %0, %1;" ::"r"(1 + group()), "n"(T) : "memory");
+    }
+  }
+};
 
 // Shared-memory slot of fine entry l < 64: l XOR its two high bits. A
 // pass's half-warp reads the fine entries at a stride of 1-32; the XOR
@@ -173,14 +203,14 @@ static __device__ __forceinline__ float2 reg_twiddle(const float2* tab,
 // The butterflies of the pass of radix R after earlier radices of product
 // NS on the thread's registers: twiddles (NS > 1), then the R-point DFTs.
 // Leaves X[r] of butterfly u in v[u*R + brev(r)].
-template <int N, int NS, int R, bool INV>
+template <int N, int NS, int R, bool INV, class Row>
 static __device__ __forceinline__ void reg_butterflies(
     float2 (&v)[RegShape<N>::P], const float2* tab) {
   constexpr int P = RegShape<N>::P, T = RegShape<N>::T;
 #pragma unroll
   for (int u = 0; u < P / R; ++u) {
     if constexpr (NS > 1) {
-      const int m = (threadIdx.x + u * T) & (NS - 1);
+      const int m = (Row::t() + u * T) & (NS - 1);
       const float2 w = reg_twiddle<N, INV>(tab, m * (N / (NS * R)));
       float2 wr = w;
 #pragma unroll
@@ -194,13 +224,13 @@ static __device__ __forceinline__ void reg_butterflies(
 }
 
 // A pass's outputs into the exchange buffer at their Stockham places.
-template <int N, int NS, int R>
+template <int N, int NS, int R, class Row>
 static __device__ __forceinline__ void reg_store(
     const float2 (&v)[RegShape<N>::P], float2* buf) {
   constexpr int P = RegShape<N>::P, T = RegShape<N>::T;
 #pragma unroll
   for (int u = 0; u < P / R; ++u) {
-    const int i = threadIdx.x + u * T;
+    const int i = Row::t() + u * T;
     const int m = i & (NS - 1);
     const int base = (i - m) * R + m;
 #pragma unroll
@@ -210,7 +240,7 @@ static __device__ __forceinline__ void reg_store(
 }
 
 // The next pass's inputs (radix R): v[u*R + r] = in[t + u*T + r*N/R].
-template <int N, int R>
+template <int N, int R, class Row>
 static __device__ __forceinline__ void reg_load(float2 (&v)[RegShape<N>::P],
                                                 const float2* buf) {
   constexpr int P = RegShape<N>::P, T = RegShape<N>::T;
@@ -218,18 +248,18 @@ static __device__ __forceinline__ void reg_load(float2 (&v)[RegShape<N>::P],
   for (int u = 0; u < P / R; ++u)
 #pragma unroll
     for (int r = 0; r < R; ++r)
-      v[u * R + r] = buf[reg_slot<P>(threadIdx.x + u * T + r * (N / R))];
+      v[u * R + r] = buf[reg_slot<P>(Row::t() + u * T + r * (N / R))];
 }
 
 // The passes from the one after earlier radices of product NS to the end.
 // The last leaves its outputs in registers, in natural order: v[j] =
 // X[t + j*T]. Every other stores, waits, and loads the next one's inputs.
-template <int N, int NS, bool INV>
+template <int N, int NS, bool INV, class Row>
 static __device__ __forceinline__ void reg_passes(
     float2 (&v)[RegShape<N>::P], float2* buf0, float2* buf1,
     const float2* tab, int& phase) {
   constexpr int P = RegShape<N>::P, R = kRadix<N, NS>;
-  reg_butterflies<N, NS, R, INV>(v, tab);
+  reg_butterflies<N, NS, R, INV, Row>(v, tab);
   if constexpr (NS * R == N) {
     float2 o[P];
 #pragma unroll
@@ -241,11 +271,11 @@ static __device__ __forceinline__ void reg_passes(
     for (int j = 0; j < P; ++j) v[j] = o[j];
   } else {
     float2* buf = (phase++ & 1) ? buf1 : buf0;
-    reg_store<N, NS, R>(v, buf);
-    __syncthreads();
-    reg_load<N, kRadix<N, NS * R>>(v, buf);
-    if constexpr (RegShape<N>::kBuffers == 1) __syncthreads();
-    reg_passes<N, NS * R, INV>(v, buf0, buf1, tab, phase);
+    reg_store<N, NS, R, Row>(v, buf);
+    Row::sync();
+    reg_load<N, kRadix<N, NS * R>, Row>(v, buf);
+    if constexpr (RegShape<N>::kBuffers == 1) Row::sync();
+    reg_passes<N, NS * R, INV, Row>(v, buf0, buf1, tab, phase);
   }
 }
 
@@ -254,13 +284,14 @@ static __device__ __forceinline__ void reg_passes(
 // alternate between buf0 and buf1 (`phase` counts them across calls);
 // with one buffer each load is followed by a barrier, so the next store
 // cannot overwrite points still to be read. tab: the two-level table in
-// shared memory, visible to every thread.
-template <int N, bool INV>
+// shared memory, visible to every thread. Row: who runs the row (BlockRow
+// or a GroupRow<T> with T = RegShape<N>::T).
+template <int N, bool INV, class Row = BlockRow>
 static __device__ __forceinline__ void reg_fft(float2 (&v)[RegShape<N>::P],
                                                float2* buf0, float2* buf1,
                                                const float2* tab,
                                                int& phase) {
-  reg_passes<N, 1, INV>(v, buf0, buf1, tab, phase);
+  reg_passes<N, 1, INV, Row>(v, buf0, buf1, tab, phase);
 }
 
 // Copies the two-level table into shared memory, the fine entries at

@@ -1,135 +1,429 @@
 // Fused Welch PSD (kernel B2 of the port).
 //
 // Replaces the TPU kernel gps_jamming_tpu/ops/pallas_psd.py:_make_kernel
-// (launched by _run and welch_psd_fused). Per segment: complex-mean
-// detrend -> Hann window -> nperseg-point FFT -> |X[k]|^2, summed over all
-// segments, then scaled by 1/(fs * sum(w^2)) / n_segs.
+// (launched by _run and welch_psd_fused). Per segment of nperseg = N
+// samples at hop N/2: complex-mean detrend -> periodic Hann window ->
+// N-point FFT -> |X[k]|^2, summed over all segments, then scaled by
+// 1/(fs * sum(w^2)) / n_segs. Natural FFT order out.
 //
 // What bounds it: memory. A 512k-sample block is 4 MB of complex64 in for a
-// 4 KB result, and the FFT work (~5 n log2 nperseg flops) is small beside
-// it. The design reads every segment straight from device memory at offset
-// seg*hop (the 50 % overlap is a second read of the same lines, served from
-// L2), keeps the window, twiddles and the segment in shared memory and the
-// running |X|^2 in registers, so nothing but the input and one
-// (n_tiles, nperseg) partial table touches device memory. The TPU's
-// even/odd two-framing exists only because BlockSpecs cannot overlap; it is
-// not needed here.
-//
-// Deterministic: each block sums its tile of consecutive segments into a
-// row of `partial`; a second launch adds the rows in a fixed order and
-// applies the scale. No atomics.
+// 4 KB result (1.3 us at 3.35 TB/s); the FFTs (5 N log2 N flops per
+// segment) take 0.8 us at 67 TFLOP/s. So the design keeps everything but
+// the input and a few partial rows out of device memory, and keeps the SM
+// busy with several segments at once:
+// - A power of two N (64..16384) runs the register FFT of fft_reg.cuh:
+//   thread t of a segment's T = N/P threads loads x[s*hop + t + j*T]
+//   straight into register j (natural order, coalesced, no scatter), and
+//   the last pass leaves bin t + j*T in register j, so each thread sums
+//   |X|^2 for its fixed bins in registers across all its segments.
+// - A block holds G = 256/T groups of T threads (1024: 4 x 64; G = 1 from
+//   4096 up), each walking its own run of consecutive segments with its own
+//   exchange buffers and named barrier (GroupRow), so one segment's
+//   exchange does not idle the SM. The second half of segment s is the
+//   first half of segment s+1: registers P/2..P-1 (raw samples) carry over
+//   as registers 0..P/2-1, so each sample of a run is read once (up to
+//   8192; at 16384 the 1024 threads' 64 registers hold no spare half, and
+//   the overlap is read again, from L2).
+// - The detrend is applied after the FFT, by linearity: the periodic Hann
+//   window's DFT has three nonzero bins, W[0] = N/2 and W[1] = W[N-1] =
+//   -N/4, so with S the segment's sum (mean m = S/N) the detrended
+//   spectrum is X[k] - m W[k]: X[0] - S/2, X[1] + S/4, X[N-1] + S/4. S is
+//   summed alongside the load by warp shuffles (and, above a warp, one
+//   slot per warp in shared memory, read after the FFT's barriers): no
+//   block-wide barrier before the transform.
+// - One launch, deterministic, no float atomics. Blocks come in clusters
+//   of 8: each block sums its groups' rows in a fixed order into its
+//   shared memory; block r of a cluster then sums slice r (N/8 bins) of the
+//   8 blocks' rows through distributed shared memory into the cluster's
+//   partial row in device memory; the last cluster to finish slice r (an
+//   integer ticket per slice, after __threadfence) sums slice r of every
+//   cluster's row in cluster order, applies the scale and resets its
+//   ticket for the next call. The tile count depends on N and the number
+//   of segments only, so the sum order, and the result, is the same on
+//   every card and every call.
+// - The 16 mixed-radix nperseg of the TPU kernel (384 = 3*128 ... 14336 =
+//   7*2048) run the shared-memory FFT of fft_smem.cuh, one segment per
+//   block at a time, with the same cluster epilogue.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "fft_reg.cuh"
 #include "fft_smem.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxPerThread = 8;
+constexpr int kCluster = 8;          // blocks per cluster = final-sum slices
+constexpr int kBlockThreads = 256;   // threads per block below 4096
+constexpr int kMixedPer = 16;        // values per thread, mixed-radix path
 
-__global__ void __launch_bounds__(gjt::kMaxThreads)
-welch_partial_kernel(const float2* __restrict__ x,
-                     const float* __restrict__ win,
-                     const float2* __restrict__ tw,
-                     float* __restrict__ partial, int nperseg, int log2n,
-                     int hop, int n_segs, int segs_per_tile, int detrend) {
-  extern __shared__ float2 smem[];
-  float2* buf = smem;                 // nperseg
-  float2* tw_s = smem + nperseg;      // nperseg / 2
-  float* red = reinterpret_cast<float*>(tw_s + (nperseg >> 1));  // 32
-  const int T = blockDim.x;
-  const int per = nperseg / T;
-  gjt::stage_twiddles(tw_s, tw, nperseg);
+// The layout of an N-point (power of two) Welch block.
+template <int N>
+struct WelchShape {
+  using S = gjt::RegShape<N>;
+  static constexpr int P = S::P, T = S::T;
+  static constexpr int G = T >= kBlockThreads ? 1 : kBlockThreads / T;
+  static constexpr int kThreads = G * T;
+  // the overlapped half carried in registers (not at 16384: see above)
+  static constexpr bool kKeep = N <= 8192;
+  // the |X|^2 sums in shared memory (at 16384 they spill from registers)
+  static constexpr bool kAccSmem = N == 16384;
+  static constexpr int kWarps = T >= 32 ? T / 32 : 1;   // warps per group
+  using Row = std::conditional_t<G == 1, gjt::BlockRow, gjt::GroupRow<T>>;
+};
 
-  float acc[kMaxPerThread];
+// Shared memory of an N-point Welch block: the groups' exchange buffers,
+// the twiddle table, the detrend sums (2 parities x G x warps), the block's
+// partial row (N floats) and the last-cluster flag.
+template <int N>
+size_t welch_smem_bytes() {
+  using W = WelchShape<N>;
+  return sizeof(float2) * (static_cast<size_t>(W::G) * W::S::kBuffers * N +
+                           gjt::reg_tw_len(N) + 2 * W::G * W::kWarps) +
+         sizeof(float) * N + 16;
+}
+
+static __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+
+// The end of every block: part_s holds the block's row (N floats, summed
+// over its segments); see the note at the top. Every thread calls it.
+static __device__ void welch_finish(const float* part_s, float* partial,
+                                    unsigned* ticket, float* out, int n,
+                                    float scale, int* flag_s) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n_clusters = gridDim.x / kCluster;
+  const int c = blockIdx.x / kCluster;
+  const int lo = rank * n / kCluster, hi = (rank + 1) * n / kCluster;
+  cluster.sync();                        // every block's row is complete
+  for (int k = lo + threadIdx.x; k < hi; k += blockDim.x) {
+    float s = 0.f;
 #pragma unroll
-  for (int j = 0; j < kMaxPerThread; ++j) acc[j] = 0.f;
+    for (int b = 0; b < kCluster; ++b)
+      s += cluster.map_shared_rank(part_s, b)[k];
+    partial[static_cast<long long>(c) * n + k] = s;
+  }
+  cluster.sync();                        // no block leaves while read
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    *flag_s = atomicAdd(ticket + rank, 1u) == static_cast<unsigned>(
+                                                  n_clusters - 1);
+  __syncthreads();
+  if (!*flag_s) return;
+  __threadfence();
+  for (int k = lo + threadIdx.x; k < hi; k += blockDim.x) {
+    float s = 0.f;
+    for (int cc = 0; cc < n_clusters; ++cc)
+      s += __ldcg(partial + static_cast<long long>(cc) * n + k);
+    out[k] = s * scale;
+  }
+  if (threadIdx.x == 0) ticket[rank] = 0u;   // ready for the next call
+}
 
-  const int seg0 = blockIdx.x * segs_per_tile;
-  const int seg1 = min(seg0 + segs_per_tile, n_segs);
-  for (int seg = seg0; seg < seg1; ++seg) {
-    const float2* xs = x + static_cast<long long>(seg) * hop;
-    float2 v[kMaxPerThread];
+// Power-of-two N: groups of T threads, the register FFT.
+template <int N>
+__global__ void __cluster_dims__(kCluster, 1, 1)
+__launch_bounds__(WelchShape<N>::kThreads)
+welch_reg_kernel(const float2* __restrict__ x, const float* __restrict__ win,
+                 const float2* __restrict__ tab, float* __restrict__ partial,
+                 unsigned* __restrict__ ticket, float* __restrict__ out,
+                 int n_segs, int seg_run, int detrend, float scale) {
+  using W = WelchShape<N>;
+  using Row = typename W::Row;
+  constexpr int P = W::P, T = W::T, G = W::G, kHop = N / 2;
+  extern __shared__ float2 smem[];
+  const int g = G == 1 ? 0 : static_cast<int>(threadIdx.x) / T;
+  const int t = Row::t();
+  float2* buf0 = smem + g * (W::S::kBuffers * N);
+  float2* buf1 = W::S::kBuffers == 2 ? buf0 + N : buf0;
+  float2* tab_s = smem + G * W::S::kBuffers * N;
+  float2* sums_s = tab_s + gjt::reg_tw_len(N);           // [2][G][kWarps]
+  float* part_s = reinterpret_cast<float*>(sums_s + 2 * G * W::kWarps);
+  int* flag_s = reinterpret_cast<int*>(part_s + N);
+  gjt::stage_reg_twiddles(tab_s, tab, N);
+
+  float acc[W::kAccSmem ? 1 : P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    if constexpr (W::kAccSmem) {
+      part_s[t + j * T] = 0.f;            // G == 1: part_s is the sums
+    } else {
+      acc[j] = 0.f;
+    }
+  }
+  __syncthreads();                        // the table is staged
+
+  const int run = blockIdx.x * G + g;
+  const int s0 = min(run * seg_run, n_segs);
+  const int s1 = min(s0 + seg_run, n_segs);
+  float2 keep[W::kKeep ? P / 2 : 1];
+  int phase = 0;
+  for (int s = s0; s < s1; ++s) {
+    const float2* xs = x + static_cast<long long>(s) * kHop + t;
+    float2 v[P];
+#pragma unroll
+    for (int j = P / 2; j < P; ++j) v[j] = xs[j * T];
+    if constexpr (W::kKeep) {
+      if (s > s0) {
+#pragma unroll
+        for (int j = 0; j < P / 2; ++j) v[j] = keep[j];
+      } else {
+#pragma unroll
+        for (int j = 0; j < P / 2; ++j) v[j] = xs[j * T];
+      }
+#pragma unroll
+      for (int j = 0; j < P / 2; ++j) keep[j] = v[j + P / 2];
+    } else {
+#pragma unroll
+      for (int j = 0; j < P / 2; ++j) v[j] = xs[j * T];
+    }
+    // the segment's sum S, for the detrend after the transform
+    float2 sum = make_float2(0.f, 0.f);
+    if (detrend) {
+#pragma unroll
+      for (int j = 0; j < P; ++j) sum = cadd(sum, v[j]);
+      if constexpr (T < 32) {
+        const unsigned mask = gjt::GroupRow<T>::mask();
+#pragma unroll
+        for (int off = T / 2; off > 0; off >>= 1) {
+          sum.x += __shfl_xor_sync(mask, sum.x, off);
+          sum.y += __shfl_xor_sync(mask, sum.y, off);
+        }
+      } else {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          sum.x += __shfl_xor_sync(0xffffffffu, sum.x, off);
+          sum.y += __shfl_xor_sync(0xffffffffu, sum.y, off);
+        }
+        if ((t & 31) == 0)
+          sums_s[((s & 1) * G + g) * W::kWarps + (t >> 5)] = sum;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const float w = __ldg(win + t + j * T);
+      v[j] = make_float2(v[j].x * w, v[j].y * w);
+    }
+    gjt::reg_fft<N, false, Row>(v, buf0, buf1, tab_s, phase);
+    if (detrend) {
+      // bin 0 is thread 0's register 0, bin 1 thread 1's, bin N-1 thread
+      // T-1's register P-1; the FFT's barriers ordered the sums' slots
+      if constexpr (T >= 32) {
+        if (t <= 1 || t == T - 1) {
+          sum = make_float2(0.f, 0.f);
+#pragma unroll
+          for (int w = 0; w < W::kWarps; ++w)
+            sum = cadd(sum, sums_s[((s & 1) * G + g) * W::kWarps + w]);
+        }
+      }
+      if (t == 0) {
+        v[0].x -= 0.5f * sum.x;
+        v[0].y -= 0.5f * sum.y;
+      } else if (t == 1) {
+        v[0].x += 0.25f * sum.x;
+        v[0].y += 0.25f * sum.y;
+      }
+      if (t == T - 1) {
+        v[P - 1].x += 0.25f * sum.x;
+        v[P - 1].y += 0.25f * sum.y;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const float e = v[j].x * v[j].x + v[j].y * v[j].y;
+      if constexpr (W::kAccSmem) {
+        part_s[t + j * T] += e;
+      } else {
+        acc[j] += e;
+      }
+    }
+  }
+
+  // the block's row: the groups' sums in group order
+  __syncthreads();                        // every exchange buffer is free
+  if constexpr (G > 1) {
+    float* rows = reinterpret_cast<float*>(smem);        // G x N
+#pragma unroll
+    for (int j = 0; j < P; ++j) rows[g * N + t + j * T] = acc[j];
+    __syncthreads();
+    for (int k = threadIdx.x; k < N; k += W::kThreads) {
+      float s = 0.f;
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg) s += rows[gg * N + k];
+      part_s[k] = s;
+    }
+  } else if constexpr (!W::kAccSmem) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) part_s[t + j * T] = acc[j];
+  }
+  __syncthreads();
+  welch_finish(part_s, partial, ticket, out, N, scale, flag_s);
+}
+
+// Mixed-radix N: one segment per block at a time, digit-reversed load into
+// shared memory, fft_mixed; thread t owns the bins t + j*T < N.
+__global__ void __cluster_dims__(kCluster, 1, 1)
+__launch_bounds__(gjt::kMaxThreads)
+welch_mixed_kernel(const float2* __restrict__ x, const float* __restrict__ win,
+                   const float2* __restrict__ tw, float* __restrict__ partial,
+                   unsigned* __restrict__ ticket, float* __restrict__ out,
+                   gjt::FftPlan plan, int n_segs, int seg_run, int detrend,
+                   float scale) {
+  const int n = plan.n, hop = n / 2, T = blockDim.x;
+  const int per = (n + T - 1) / T;
+  extern __shared__ float2 smem[];
+  float2* buf = smem;                                      // n
+  float2* tw_s = buf + n;                                  // tw_len(n)
+  float* red = reinterpret_cast<float*>(tw_s + gjt::tw_len(n));   // 32
+  float* part_s = red + 32;                                // n
+  int* flag_s = reinterpret_cast<int*>(part_s + n);
+  gjt::stage_twiddles(tw_s, tw, n);
+  float acc[kMixedPer];
+#pragma unroll
+  for (int j = 0; j < kMixedPer; ++j) acc[j] = 0.f;
+  __syncthreads();
+  const int s0 = min(static_cast<int>(blockIdx.x) * seg_run, n_segs);
+  const int s1 = min(s0 + seg_run, n_segs);
+  for (int s = s0; s < s1; ++s) {
+    const float2* xs = x + static_cast<long long>(s) * hop;
+    float2 v[kMixedPer];
     float sr = 0.f, si = 0.f;
 #pragma unroll
-    for (int j = 0; j < kMaxPerThread; ++j) {
-      if (j < per) {
-        v[j] = xs[threadIdx.x + j * T];
+    for (int j = 0; j < kMixedPer; ++j) {
+      const int k = threadIdx.x + j * T;
+      if (j < per && k < n) {
+        v[j] = xs[k];
         sr += v[j].x;
         si += v[j].y;
       }
     }
     float mr = 0.f, mi = 0.f;
     if (detrend) {
-      mr = gjt::block_sum(sr, red) / static_cast<float>(nperseg);
-      mi = gjt::block_sum(si, red) / static_cast<float>(nperseg);
+      mr = gjt::block_sum(sr, red) / static_cast<float>(n);
+      mi = gjt::block_sum(si, red) / static_cast<float>(n);
     }
 #pragma unroll
-    for (int j = 0; j < kMaxPerThread; ++j) {
-      if (j < per) {
-        const int t = threadIdx.x + j * T;
-        const float w = win[t];
-        buf[gjt::bitrev(t, log2n)] =
+    for (int j = 0; j < kMixedPer; ++j) {
+      const int k = threadIdx.x + j * T;
+      if (j < per && k < n) {
+        const float w = __ldg(win + k);
+        buf[gjt::digit_rev(k, plan)] =
             make_float2((v[j].x - mr) * w, (v[j].y - mi) * w);
       }
     }
     __syncthreads();
-    gjt::fft_radix2<false>(buf, tw_s, nperseg, log2n);
+    gjt::fft_mixed<false>(buf, tw_s, plan);
 #pragma unroll
-    for (int j = 0; j < kMaxPerThread; ++j) {
-      if (j < per) {
-        const float2 b = buf[threadIdx.x + j * T];
+    for (int j = 0; j < kMixedPer; ++j) {
+      const int k = threadIdx.x + j * T;
+      if (j < per && k < n) {
+        const float2 b = buf[k];
         acc[j] += b.x * b.x + b.y * b.y;
       }
     }
     __syncthreads();
   }
-  float* row = partial + static_cast<long long>(blockIdx.x) * nperseg;
 #pragma unroll
-  for (int j = 0; j < kMaxPerThread; ++j)
-    if (j < per) row[threadIdx.x + j * T] = acc[j];
+  for (int j = 0; j < kMixedPer; ++j) {
+    const int k = threadIdx.x + j * T;
+    if (j < per && k < n) part_s[k] = acc[j];
+  }
+  __syncthreads();
+  welch_finish(part_s, partial, ticket, out, n, scale, flag_s);
 }
 
-__global__ void welch_reduce_kernel(const float* __restrict__ partial,
-                                    float* __restrict__ out, int n_tiles,
-                                    int nperseg, float scale) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= nperseg) return;
-  float s = 0.f;
-  for (int t = 0; t < n_tiles; ++t)
-    s += partial[static_cast<long long>(t) * nperseg + k];
-  out[k] = s * scale;
+// The 16 mixed-radix nperseg of the TPU kernel (pallas_psd.supported up
+// to 16384: 128 * 2^a * {3, 5, 7}).
+constexpr int kMixedSizes[] = {384,  640,  768,  896,  1280,  1536,
+                               1792, 2560, 3072, 3584, 5120,  6144,
+                               7168, 10240, 12288, 14336};
+
+bool mixed_size(int n) {
+  for (int m : kMixedSizes)
+    if (m == n) return true;
+  return false;
 }
+
+// Segments per run and blocks (a multiple of the cluster size, at most
+// max_tiles) for n_segs segments over groups of G runs per block: fixed by
+// the shape alone.
+void tiles(int n_segs, int G, int max_tiles, int* seg_run, int* n_tiles) {
+  *seg_run = (n_segs + max_tiles * G - 1) / (max_tiles * G);
+  const int runs = (n_segs + *seg_run - 1) / *seg_run;
+  const int blocks = (runs + G - 1) / G;
+  *n_tiles = (blocks + kCluster - 1) / kCluster * kCluster;
+}
+
+template <int N>
+cudaError_t launch_reg(const float2* x, const float* win, const float2* tab,
+                       float* partial, unsigned* ticket, float* out,
+                       int n_segs, int max_tiles, int detrend, float scale,
+                       cudaStream_t s) {
+  using W = WelchShape<N>;
+  int seg_run, n_tiles;
+  tiles(n_segs, W::G, max_tiles, &seg_run, &n_tiles);
+  const size_t smem = welch_smem_bytes<N>();
+  cudaError_t err = gjt::allow_smem(
+      reinterpret_cast<const void*>(welch_reg_kernel<N>), smem);
+  if (err != cudaSuccess) return err;
+  welch_reg_kernel<N><<<n_tiles, W::kThreads, smem, s>>>(
+      x, win, tab, partial, ticket, out, n_segs, seg_run, detrend, scale);
+  return cudaGetLastError();
+}
+
+#define GJT_WELCH_POW2(X) \
+  X(64) X(128) X(256) X(512) X(1024) X(2048) X(4096) X(8192) X(16384)
 
 }  // namespace
 
-// x: (n,) complex64; win: (nperseg,) float32; tw: (nperseg/2,) complex64;
-// partial: (n_tiles, nperseg) float32 scratch; out: (nperseg,) float32.
+// x: (n,) complex64 with n_segs = 1 + (n - nperseg) / (nperseg/2)
+// segments; win: (nperseg,) float32; tab: `build.row_twiddles(nperseg)`
+// (the two-level table of fft_reg.cuh for a power of two, else the half
+// table of fft_smem.cuh); partial: (max_tiles/8, nperseg) float32 scratch;
+// ticket: 8 uint32, zero before the first call (each call leaves them
+// zero); out: (nperseg,) float32. nperseg: a power of two in [64, 16384]
+// or one of kMixedSizes; max_tiles a positive multiple of 8. One launch.
 // Returns a cudaError_t (0 on success).
-extern "C" int gjt_welch_psd(const void* x, const void* win, const void* tw,
-                             void* partial, void* out, int nperseg, int hop,
-                             int n_segs, int segs_per_tile, int n_tiles,
+extern "C" int gjt_welch_psd(const void* x, const void* win, const void* tab,
+                             void* partial, void* ticket, void* out,
+                             int nperseg, int n_segs, int max_tiles,
                              int detrend, float scale, void* stream) {
-  if (nperseg < 64 || nperseg > 8192 || (nperseg & (nperseg - 1)) ||
-      n_segs < 1 || segs_per_tile < 1 ||
-      n_tiles * segs_per_tile < n_segs)
+  if (n_segs < 1 || max_tiles < kCluster || max_tiles % kCluster)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int threads = nperseg / 4;
-  if (threads < 32) threads = 32;
-  if (threads > gjt::kMaxThreads) threads = gjt::kMaxThreads;
-  const size_t smem = sizeof(float2) * (nperseg + nperseg / 2) +
-                      sizeof(float) * 32;
+  const float2* x2 = static_cast<const float2*>(x);
+  const float* w = static_cast<const float*>(win);
+  const float2* tb = static_cast<const float2*>(tab);
+  float* pt = static_cast<float*>(partial);
+  unsigned* tk = static_cast<unsigned*>(ticket);
+  float* o = static_cast<float*>(out);
+#define GJT_WELCH(NN)                                                    \
+  if (nperseg == NN)                                                     \
+    return static_cast<int>(launch_reg<NN>(x2, w, tb, pt, tk, o, n_segs, \
+                                           max_tiles, detrend, scale, s));
+  GJT_WELCH_POW2(GJT_WELCH)
+#undef GJT_WELCH
+  gjt::FftPlan plan;
+  if (!mixed_size(nperseg) || !gjt::make_plan(nperseg, &plan))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int seg_run, n_tiles;
+  tiles(n_segs, 1, max_tiles, &seg_run, &n_tiles);
+  const size_t smem = sizeof(float2) * (nperseg + gjt::tw_len(nperseg)) +
+                      sizeof(float) * (32 + nperseg) + 16;
   cudaError_t err = gjt::allow_smem(
-      reinterpret_cast<const void*>(welch_partial_kernel), smem);
+      reinterpret_cast<const void*>(welch_mixed_kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  welch_partial_kernel<<<n_tiles, threads, smem, s>>>(
-      static_cast<const float2*>(x), static_cast<const float*>(win),
-      static_cast<const float2*>(tw), static_cast<float*>(partial), nperseg,
-      gjt::ilog2(nperseg), hop, n_segs, segs_per_tile, detrend);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  welch_reduce_kernel<<<(nperseg + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out), n_tiles,
-      nperseg, scale);
+  // about 8 values per thread, whole warps, at most 1024 threads
+  const int threads = (nperseg / 8 + 31) / 32 * 32 < gjt::kMaxThreads
+                          ? (nperseg / 8 + 31) / 32 * 32
+                          : gjt::kMaxThreads;
+  welch_mixed_kernel<<<n_tiles, threads, smem, s>>>(
+      x2, w, tb, pt, tk, o, plan, n_segs, seg_run, detrend, scale);
   return static_cast<int>(cudaGetLastError());
 }

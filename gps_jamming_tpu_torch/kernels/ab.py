@@ -1,19 +1,24 @@
-"""Kernels B1 and B3 of this tree against another checkout's, on one card,
-timed in turns: other, this, this, other.
+"""Kernels B1, B2 and B3 of this tree against another checkout's, on one
+card, timed in turns: other, this, this, other.
 
-    python3 -m gps_jamming_tpu_torch.kernels.ab OTHER_ROOT
+    python3 -m gps_jamming_tpu_torch.kernels.ab OTHER_ROOT [--b2-tiles 64,256]
 
 OTHER_ROOT is the root of another checkout of the repo (for example the
 parent commit, unpacked by `git archive` into a directory that .gitignore
 lists). Its `gps_jamming_tpu_torch/kernels/build.py` is loaded by file path,
 so it builds its own csrc/ into its own _build/, and both libraries' C
-entry points (`gjt_pcf`, `gjt_caf_std`) get the same seeded inputs at the
-shapes of chip_smoke.py phases 3b-3d: B1 peak-only (32 PRN x 15 coarse x 6
-rows x 2 groups) at 2048, 2400 and 3200 lags; B3 (32 PRN x 71 bins x 10
-periods) at 2048, 2400, 3200 and 10368 lags, and Galileo E1B's 36 PRN at
-16384. Each reading is the median over `--reps` samples of CUDA-event time
-over `--inner` back-to-back calls, divided by `--inner`. Prints one line per
-shape, then one JSON object; needs a CUDA device.
+entry points (`gjt_welch_psd`, `gjt_pcf`, `gjt_caf_std`, each called with
+the signature its own tree declares) get the same seeded inputs at the
+shapes of chip_smoke.py phases 3a-3d: B2 on a 512k-sample block at
+nperseg 1024 and 1536; B1 peak-only (32 PRN x 15 coarse x 6 rows x 2
+groups) at 2048, 2400, 2560, 2800 and 3200 lags; B3 (32 PRN x 71 bins x 10
+periods) at 2048, 2400, 2560, 2800, 3200 and 10368 lags, and Galileo E1B's
+36 PRN at 16384. A shape the other tree's kernel refuses is timed on this
+tree alone. `--b2-tiles` also times this tree's B2 at 1024 with other
+tile caps (the wrapper's `_TILES`). Each reading is the median over
+`--reps` samples of CUDA-event time over `--inner` back-to-back calls,
+divided by `--inner`. Prints one line per shape, then one JSON object;
+needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -30,9 +35,12 @@ import torch
 
 from . import build
 
-SHAPES = (("B1 peak", 2048), ("B1 peak", 2400), ("B1 peak", 3200),
-          ("B3", 2048), ("B3", 2400), ("B3", 3200), ("B3", 10368),
-          ("B3", 16384))
+SHAPES = (("B2", 1024), ("B2", 1536),
+          ("B1 peak", 2048), ("B1 peak", 2400), ("B1 peak", 2560),
+          ("B1 peak", 2800), ("B1 peak", 3200),
+          ("B3", 2048), ("B3", 2400), ("B3", 2560), ("B3", 2800),
+          ("B3", 3200), ("B3", 10368), ("B3", 16384))
+B2_SAMPLES = 1 << 19
 
 
 def _other_build(root: Path):
@@ -54,16 +62,52 @@ def _cplx(shape, seed, dev):
     return torch.from_numpy(x.astype(np.complex64)).to(dev)
 
 
-def _call(mod, what: str, n: int, dev):
+def _b2(mod, lib, n: int, dev, stream, tiles: int = 128):
+    """Kernel B2 at nperseg n on B2_SAMPLES samples, through `mod`'s C
+    signature: 13 arguments (PR 1-4: a partial row per tile, then a reduce
+    launch) or 12 (one launch, cluster partials and slice tickets)."""
+    x = _cplx(B2_SAMPLES, n, dev)
+    win = torch.from_numpy((0.5 - 0.5 * np.cos(
+        2.0 * np.pi * np.arange(n) / n)).astype(np.float32)).to(dev)
+    n_segs = 1 + (B2_SAMPLES - n) // (n // 2)
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    scale = 1.0 / n_segs
+    if len(mod._SIGNATURES["gjt_welch_psd"]) == 13:
+        per_tile = -(-n_segs // 256)
+        n_tiles = -(-n_segs // per_tile)
+        tw = mod.twiddles(n, dev)
+        partial = torch.empty((n_tiles, n), dtype=torch.float32, device=dev)
+
+        def fn():
+            return lib.gjt_welch_psd(
+                x.data_ptr(), win.data_ptr(), tw.data_ptr(),
+                partial.data_ptr(), out.data_ptr(), n, n // 2, n_segs,
+                per_tile, n_tiles, 1, scale, stream)
+        return fn, out
+    tab = mod.row_twiddles(n, dev)
+    partial = torch.empty((tiles // 8, n), dtype=torch.float32, device=dev)
+    ticket = torch.zeros(8, dtype=torch.int32, device=dev)
+
+    def fn():
+        return lib.gjt_welch_psd(
+            x.data_ptr(), win.data_ptr(), tab.data_ptr(), partial.data_ptr(),
+            ticket.data_ptr(), out.data_ptr(), n, n_segs, tiles, 1, scale,
+            stream)
+    return fn, out
+
+
+def _call(mod, what: str, n: int, dev, tiles: int = 128):
     """A closure launching `what` at n through the library of build module
     `mod`, with its own twiddle table; inputs are seeded, so both
-    libraries see the same ones."""
+    libraries see the same ones. Raises if the kernel refuses n."""
     lib = mod.load()
     # the parent of the register FFT has one (half) table for every n
     tw = (mod.row_twiddles if hasattr(mod, "row_twiddles")
           else mod.twiddles)(n, dev)
     stream = torch.cuda.current_stream().cuda_stream
-    if what == "B1 peak":
+    if what == "B2":
+        fn, out = _b2(mod, lib, n, dev, stream, tiles)
+    elif what == "B1 peak":
         n_c, rows, groups, n_prn = 15, 6, 2, 32
         y = _cplx((rows * groups, n), n, dev)
         rep = _cplx((n_prn, n), n + 1, dev)
@@ -115,6 +159,10 @@ def main() -> int:
     ap.add_argument("other", type=Path, help="root of the other checkout")
     ap.add_argument("--reps", type=int, default=15)
     ap.add_argument("--inner", type=int, default=10)
+    ap.add_argument("--only", default="",
+                    help="time only the kernels whose name starts so")
+    ap.add_argument("--b2-tiles", default="",
+                    help="comma-separated tile caps for this tree's B2")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab: no CUDA device")
@@ -127,9 +175,18 @@ def main() -> int:
     for m in mods.values():
         m.build()
     rows = []
-    for what, n in SHAPES:
+    for what, n in (sh for sh in SHAPES if sh[0].startswith(args.only)):
         inner = args.inner if n <= 4096 else max(args.inner // 3, 1)
-        calls = {k: _call(m, what, n, dev) for k, m in mods.items()}
+        calls = {"this": _call(build, what, n, dev)}
+        try:
+            calls["other"] = _call(mods["other"], what, n, dev)
+        except RuntimeError as e:
+            ms = _median_ms(calls["this"][0], args.reps, inner)
+            rows.append({"kernel": what, "n": n, "this_ms": ms,
+                         "other": str(e)})
+            print(f"{what} n={n}: this {ms:.4f} ms; the other tree refuses "
+                  f"it ({e}); card {card}", flush=True)
+            continue
         diff = float((calls["this"][1] - calls["other"][1]).abs().max()
                      / calls["other"][1].abs().max())
         fns = {k: c[0] for k, c in calls.items()}
@@ -144,6 +201,13 @@ def main() -> int:
               f"{diff:.2e} of their max; card {card}", flush=True)
         del calls, fns
         torch.cuda.empty_cache()
+    for tiles in (int(t) for t in args.b2_tiles.split(",") if t):
+        fn, out = _call(build, "B2", 1024, dev, tiles)
+        ms = _median_ms(fn, args.reps, args.inner)
+        rows.append({"kernel": "B2 tiles", "n": 1024, "tiles": tiles,
+                     "this_ms": ms})
+        print(f"B2 n=1024 with at most {tiles} tiles: {ms:.4f} ms; card "
+              f"{card}", flush=True)
     print(json.dumps({"card": card, "ab": rows}))
     return 0
 

@@ -42,7 +42,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "gjt_welch_psd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "gjt_welch_psd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       ctypes.c_float, _P],
     "gjt_pcf": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gjt_caf_std": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -4,7 +4,8 @@ its plain version.
 Replaces gps_jamming_tpu/ops/pallas_psd.py (`welch_psd_fused` -> `_run` ->
 `_make_kernel`). Same contract: two-sided Welch PSD of a 1-D complex64
 signal, 50 % overlap, periodic Hann window, per-segment detrend, density
-scaling, natural FFT order.
+scaling, natural FFT order; every nperseg the TPU kernel takes up to 16384
+(and 64), in one launch.
 
 A CPU tensor takes the plain version (`welch_psd_reference`); a CUDA tensor
 launches the kernel or raises.
@@ -22,14 +23,23 @@ from ..kernels import build
 # Kernel launches made by `welch_psd_fused` (one per call on a CUDA tensor).
 LAUNCHES = 0
 
-# Target number of segment tiles (thread blocks); fixed, so the reduction
-# order, and with it the result, does not depend on the card.
-_TILES = 256
+# The most thread blocks (segment tiles) of one launch, a multiple of the
+# kernel's cluster of 8; the tiles follow from (nperseg, segments) alone, so
+# the reduction order, and with it the result, does not depend on the card.
+_TILES = 128
+_CLUSTER = 8
+
+# The mixed-radix nperseg of the TPU kernel up to 16384
+# (`pallas_psd.supported`: 128 * 2^a * {3, 5, 7}); the C gate of
+# csrc/welch_psd.cu lists the same sizes.
+MIXED_NPERSEG = (384, 640, 768, 896, 1280, 1536, 1792, 2560, 3072, 3584,
+                 5120, 6144, 7168, 10240, 12288, 14336)
 
 
 def supported(nperseg: int) -> bool:
-    """Power-of-two nperseg in [64, 8192]."""
-    return 64 <= nperseg <= 8192 and nperseg & (nperseg - 1) == 0
+    """A power of two in [64, 16384] or one of MIXED_NPERSEG."""
+    return (64 <= nperseg <= 16384 and nperseg & (nperseg - 1) == 0) \
+        or nperseg in MIXED_NPERSEG
 
 
 def welch_psd_reference(x: torch.Tensor, sample_rate: float,
@@ -50,6 +60,19 @@ def _window(nperseg: int, device: torch.device) -> tuple[torch.Tensor, float]:
             float(np.sum(w.astype(np.float64) ** 2)))
 
 
+@functools.lru_cache(maxsize=16)
+def _scratch(nperseg: int, device: torch.device,
+             stream: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's scratch, kept per (nperseg, device, stream): the
+    clusters' partial rows and the 8 slice tickets, which the kernel leaves
+    at zero after every call (so calls on one stream may reuse them; another
+    stream gets its own)."""
+    partial = torch.empty((_TILES // _CLUSTER, nperseg), dtype=torch.float32,
+                          device=device)
+    ticket = torch.zeros(_CLUSTER, dtype=torch.int32, device=device)
+    return partial, ticket
+
+
 def welch_psd_fused(x: torch.Tensor, sample_rate: float, nperseg: int = 1024,
                     detrend: bool = True) -> torch.Tensor:
     """Welch PSD of a 1-D complex64 signal -> (nperseg,) float32."""
@@ -59,28 +82,26 @@ def welch_psd_fused(x: torch.Tensor, sample_rate: float, nperseg: int = 1024,
     if x.device.type != "cuda":
         raise ValueError(f"welch_psd_fused: unsupported device {x.device}")
     if not supported(nperseg):
-        raise ValueError(f"welch_psd_fused: nperseg {nperseg} is not a "
-                         "power of two in [64, 8192]")
+        raise ValueError(f"welch_psd_fused: nperseg {nperseg} is neither a "
+                         "power of two in [64, 16384] nor one of "
+                         f"{MIXED_NPERSEG}")
     check_tensor(x, "x", torch.complex64, (None,))
     n = x.shape[0]
     if n < nperseg:
         raise ValueError(f"welch_psd_fused: {n} samples < nperseg {nperseg}")
-    hop = nperseg // 2
-    n_segs = 1 + (n - nperseg) // hop
-    per_tile = -(-n_segs // _TILES)
-    n_tiles = -(-n_segs // per_tile)
+    n_segs = 1 + (n - nperseg) // (nperseg // 2)
     win, wsum2 = _window(nperseg, x.device)
-    tw = build.twiddles(nperseg, x.device)
-    partial = torch.empty((n_tiles, nperseg), dtype=torch.float32,
-                          device=x.device)
+    tab = build.row_twiddles(nperseg, x.device)
     out = torch.empty(nperseg, dtype=torch.float32, device=x.device)
     scale = 1.0 / (sample_rate * wsum2) / n_segs
     lib = build.load()
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        partial, ticket = _scratch(nperseg, x.device, stream)
         err = lib.gjt_welch_psd(
-            x.data_ptr(), win.data_ptr(), tw.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), nperseg, hop, n_segs, per_tile, n_tiles,
-            int(detrend), scale, torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), win.data_ptr(), tab.data_ptr(), partial.data_ptr(),
+            ticket.data_ptr(), out.data_ptr(), nperseg, n_segs, _TILES,
+            int(detrend), scale, stream)
     build.check(err, "gjt_welch_psd")
     LAUNCHES += 1
     return out

@@ -26,9 +26,11 @@ def welch_psd(x: torch.Tensor, sample_rate: float, nperseg: int = 1024,
               overlap_frac: float = 0.5, detrend: bool = True) -> torch.Tensor:
     """Welch PSD of complex64 x (..., n) -> float32 (..., nperseg).
 
-    On a CUDA tensor, a 1-D input with 50 % overlap, n >= 2*nperseg and a
-    power-of-two nperseg takes the fused kernel (`cuda_psd.welch_psd_fused`),
-    where the JAX package takes its Pallas kernel.
+    On a CUDA tensor, a 1-D input with 50 % overlap, n >= 2*nperseg and an
+    nperseg the kernel takes (`cuda_psd.supported`: every size the JAX
+    package's Pallas kernel takes up to 16384) runs the fused kernel
+    (`cuda_psd.welch_psd_fused`), where the JAX package runs its Pallas
+    kernel.
     """
     if (x.is_cuda and x.dim() == 1 and overlap_frac == 0.5
             and x.shape[-1] >= 2 * nperseg and cuda_psd.supported(nperseg)):

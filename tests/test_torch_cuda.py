@@ -7,7 +7,9 @@ there without the conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: the surface and the PSD rtol 1e-3, atol 1e-4 * max (float32
-FFTs of different factorizations, sums in another order); stats max and
+FFTs of different factorizations, sums in another order; B2's detrend
+after the FFT adds at most about 1e-4 of a bin at a DC offset 25 times
+the noise); stats max and
 sums rtol 1e-3; the arg-lag exact on rows whose top two values differ by
 more than 1e-4 relative. B1 (all three modes) and B3 are held at every
 power of two from 256 to 16384 (the register FFT of csrc/fft_reg.cuh, each
@@ -45,11 +47,23 @@ def _assert_close(got, ref, rtol, atol):
     assert not bool(bad.any()), f"max abs err {float(err.max()):.3e}"
 
 
-@pytest.mark.parametrize("nperseg,n", [(1024, 1 << 19), (1024, 100_000),
-                                       (64, 5000), (8192, 40_000)])
+# Kernel B2 at every nperseg it takes (the powers of two from 64 to 16384
+# and the TPU kernel's 16 mixed-radix sizes), over about 9 segments and a
+# small DC offset, plus the main path's 512k-sample block, a ragged tail,
+# and a DC offset of 30 + 20j: 25 times the noise, where the detrend after
+# the FFT (X[k] - m W[k] at bins 0, 1 and N-1) cancels the most.
+WELCH_CASES = (
+    [(1 << k, (9 << k) // 2 + 77, 0.3 - 0.2j) for k in range(6, 15)]
+    + [(m, 9 * m // 2 + 77, 0.3 - 0.2j) for m in cuda_psd.MIXED_NPERSEG]
+    + [(1024, 1 << 19, 0.3 - 0.2j), (1024, 100_000, 0.3 - 0.2j),
+       (1024, 1 << 19, 30 + 20j), (64, 5000, 30 + 20j),
+       (1536, 100_000, 30 + 20j), (16384, 300_000, 30 + 20j)])
+
+
+@pytest.mark.parametrize("nperseg,n,dc", WELCH_CASES)
 @pytest.mark.parametrize("detrend", [True, False])
-def test_welch_kernel_matches_plain(dev, nperseg, n, detrend):
-    x = _cplx(n, seed=n, dev=dev) + (0.3 - 0.2j)      # a DC offset
+def test_welch_kernel_matches_plain(dev, nperseg, n, dc, detrend):
+    x = _cplx(n, seed=n, dev=dev) + dc
     before = cuda_psd.LAUNCHES
     got = cuda_psd.welch_psd_fused(x, FS, nperseg, detrend)
     torch.cuda.synchronize()
@@ -58,19 +72,36 @@ def test_welch_kernel_matches_plain(dev, nperseg, n, detrend):
     _assert_close(got, ref, 1e-3, 1e-4 * float(ref.max()))
 
 
+@pytest.mark.parametrize("nperseg", [64, 1024, 1536, 16384])
+def test_welch_kernel_is_bitwise_repeatable(dev, nperseg):
+    """Fixed tiles and a fixed sum order, no float atomics: two calls give
+    the same bits, also with another size's call between them (the slice
+    tickets reset themselves)."""
+    x = _cplx(1 << 19, seed=nperseg, dev=dev) + (3 - 2j)
+    a = cuda_psd.welch_psd_fused(x, FS, nperseg)
+    cuda_psd.welch_psd_fused(x, FS, 256)
+    b = cuda_psd.welch_psd_fused(x, FS, nperseg)
+    assert torch.equal(a, b)
+
+
 def test_welch_dispatch_on_cuda(dev):
-    """welch_psd takes the kernel on a CUDA tensor where its gate holds,
-    and the kernel wrapper raises (never falls back) where it does not."""
+    """welch_psd takes the kernel on a CUDA tensor where its gate holds
+    (a power of two or a mixed-radix nperseg), and the kernel wrapper
+    raises (never falls back) where it does not."""
     x = _cplx(1 << 15, seed=1, dev=dev)
     before = cuda_psd.LAUNCHES
     spectral.welch_psd(x, FS, 1024)
     assert cuda_psd.LAUNCHES == before + 1
+    spectral.welch_psd(x, FS, 1536)
+    assert cuda_psd.LAUNCHES == before + 2
     spectral.welch_psd(x, FS, 1024, overlap_frac=0.25)   # plain path
-    assert cuda_psd.LAUNCHES == before + 1
-    with pytest.raises(ValueError):
-        cuda_psd.welch_psd_fused(x, FS, 1000)
+    assert cuda_psd.LAUNCHES == before + 2
+    for bad in (1000, 32768, 2400):
+        with pytest.raises(ValueError):
+            cuda_psd.welch_psd_fused(_cplx(1 << 16, seed=2, dev=dev), FS, bad)
     with pytest.raises(ValueError):
         cuda_psd.welch_psd_fused(x[::2], FS, 1024)        # not contiguous
+    assert cuda_psd.LAUNCHES == before + 2
 
 
 @pytest.mark.parametrize("n,nb,nprn", [(2048, 10, 32), (256, 4, 5),

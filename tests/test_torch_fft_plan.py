@@ -36,6 +36,20 @@ def test_schedule_matches_numpy_fft(n, inverse):
                                atol=2e-6 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("inverse", [True, False])
+def test_schedule_matches_numpy_fft_welch_sizes(n, inverse):
+    """The Welch PSD (B2) also runs the register FFT at 64 (8 x 8) and 128
+    (8 x 8 x 2), on groups of 8 and 16 threads."""
+    x = _row(n, n + inverse)
+    got = fft_plan.emulate(x, inverse=inverse)
+    want = np.fft.ifft(x.astype(np.complex128)) * n if inverse \
+        else np.fft.fft(x.astype(np.complex128))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-6 * np.abs(want).max())
+    assert fft_plan.threads(n) == n // 8
+
+
 @pytest.mark.parametrize("n", POW2)
 def test_schedule_shape_and_banks(n):
     p, t = fft_plan.points_per_thread(n), fft_plan.threads(n)

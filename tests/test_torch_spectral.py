@@ -91,4 +91,56 @@ def test_psd_db_shifted_matches_jax():
 def test_hann_window_is_the_reference_window():
     np.testing.assert_array_equal(tspec._hann(1024), jspec._hann(1024))
     assert cuda_psd.supported(1024) and cuda_psd.supported(64)
-    assert not cuda_psd.supported(1000) and not cuda_psd.supported(16384)
+    assert cuda_psd.supported(16384) and cuda_psd.supported(1536)
+    assert not cuda_psd.supported(1000) and not cuda_psd.supported(32768)
+
+
+@pytest.mark.parametrize("nperseg", [384, 1536])
+def test_kernel_plain_matches_pallas_interpret_mixed(nperseg):
+    """Kernel B2's CPU path at the TPU kernel's mixed-radix sizes (3*128,
+    3*512) vs the Pallas kernel in interpret mode, same tolerance."""
+    x = _signal(100_000, seed=nperseg)
+    want = np.asarray(pallas_psd.welch_psd_fused(
+        cplx.asarray(jnp.asarray(x)), FS, nperseg, interpret=True))
+    got = cuda_psd.welch_psd_fused(torch.from_numpy(x), FS, nperseg).numpy()
+    assert got.shape == (nperseg,)
+    _close(got, want)
+
+
+def test_kernel_takes_every_size_the_tpu_kernel_takes():
+    """Every nperseg up to 16384 that the Pallas kernel takes reaches kernel
+    B2 on a CUDA tensor (`cuda_psd.supported`, the gate of
+    `spectral.welch_psd`)."""
+    tpu = [n for n in range(1, 16385) if pallas_psd.supported(n)]
+    assert len(tpu) == 24
+    assert all(cuda_psd.supported(n) for n in tpu)
+    assert sorted(set(tpu) - {1 << k for k in range(7, 15)}) == \
+        list(cuda_psd.MIXED_NPERSEG)
+
+
+@pytest.mark.parametrize("n", [1024, 4096])
+def test_detrend_after_the_fft_by_linearity(n):
+    """Kernel B2 detrends after the transform: the periodic Hann window's
+    DFT is N/2 at bin 0 and -N/4 at bins 1 and N-1, so with S the segment's
+    sum, FFT(w (x - S/N)) = X - S/2 at bin 0 and X + S/4 at bins 1 and N-1,
+    and X elsewhere. Checked in float32 through the register FFT's schedule
+    (fft_plan.emulate) against the detrend-first spectrum in float64, at a
+    DC offset of 30 + 20j over 12 LSB noise, summed over 4 segments: within
+    1e-4 of each bin (the float32 cancellation at bins 0, 1, N-1 measures
+    about 5e-6)."""
+    from gps_jamming_tpu_torch.kernels import fft_plan
+    rng = np.random.default_rng(n)
+    w = tspec._hann(n)
+    got, want = np.zeros(n), np.zeros(n)
+    for _ in range(4):
+        x = (12.0 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+             + (30 + 20j)).astype(np.complex64)
+        s = x.sum(dtype=np.complex64)
+        X = fft_plan.emulate((x * w).astype(np.complex64))
+        X[0] -= np.complex64(0.5) * s
+        X[1] += np.complex64(0.25) * s
+        X[-1] += np.complex64(0.25) * s
+        got += np.abs(X.astype(np.complex128)) ** 2
+        x64 = x.astype(np.complex128)
+        want += np.abs(np.fft.fft((x64 - x64.mean()) * w)) ** 2
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=0)
