@@ -19,9 +19,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    code periods in surface, stats and peak-only modes; (c) the std search
    at the GPS shape (32 PRN x 71 bins x 10 x 2048) and the Galileo E1B
    shape (36 PRN x 71 bins x 10 x 16384 at 4.096 MS/s); (d) B1 in its
-   three modes and B3 at the mixed-radix n of GPS at 2.4 and 3.2 MS/s
-   (n = 2400, 3200; 32 PRN x 10 periods x +/-7 kHz), B3 alone at 81*128 =
-   10368, and the power-of-two times of (b) and (c) beside them;
+   three modes and B3 at the mixed-radix n of GPS at 2.4, 2.56, 2.8 and
+   3.2 MS/s (n = 2400, 2560, 2800, 3200; 32 PRN x 10 periods x +/-7 kHz;
+   the mixed-radix register FFT), B3 alone at 81*128 = 10368, and the
+   power-of-two times of (b) and (c) beside them;
 4. the main path: `entry.detect_acquire_step` over 8 consecutive 512k-sample
    blocks of a synthetic capture (noise, GPS PRN 7, a tone jammer in blocks
    3-5), then `acquire_all(method='pcf')` on the clean first 10 ms and
@@ -35,8 +36,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    followed by `refine_doppler`;
    (e) GLONASS FDMA acquisition of a seeded 4 ms capture at 10 MS/s, 'pcf'
    and 'std', against the CPU path; (f) GPS `acquire_all` 'pcf' (B1) and
-   'std' (B3) on seeded 10 ms captures at 2.4 and 3.2 MS/s, against the
-   known answer and the CPU path;
+   'std' (B3) on seeded 10 ms captures at 2.4, 2.56, 2.8 and 3.2 MS/s,
+   against the known answer and the CPU path;
 5. the GPS receiver: a geometry-true 20.8 s capture of a 24-satellite
    shell (`sim/constellation.py`, NumPy, the long pole of the run), scaled
    to RTL-SDR uint8 and written as a .bin, read back with
@@ -97,7 +98,8 @@ GLO_CH = 2                        # FDMA frequency number
 GLO_CODE_PHASE = 3210             # samples
 GLO_DOPPLER_HZ = 1800.0
 B2_NPERSEG = (1024, 1536, 16384)  # main path; mixed radix; the largest
-MIXED_RATES = (2.4e6, 3.2e6)      # GPS at RTL-SDR rates: n = 2400, 3200
+# GPS at the RTL-SDR rates: n = 2400, 2560, 2800, 3200
+MIXED_RATES = (2.4e6, 2.56e6, 2.8e6, 3.2e6)
 MIXED_CODE_FRAC = 0.6             # PRN 7's code phase, fraction of n
 V1_N = 10368                      # 81 * 128, a v1 size of the JAX package
 RX_SECONDS = 20.8                 # subframes 1-3 after a 1.3 s pull-in
@@ -627,8 +629,8 @@ def main() -> int:
                         "bound_share", "ifft_ms")},
                     "shapes": b3})
 
-    # 3d. B1 and B3 at the non-power-of-two n of GPS at 2.4 and 3.2 MS/s
-    # (the mixed-radix shared-memory FFT), and B3 alone at 81*128 = 10368
+    # 3d. B1 and B3 at the non-power-of-two n of GPS at the RTL-SDR rates
+    # (the mixed-radix register FFT), and B3 alone at 81*128 = 10368
     mixed = {}
     for fs_m in MIXED_RATES:
         n_m = int(round(fs_m * 1e-3))
@@ -902,7 +904,7 @@ def main() -> int:
           f"{glo['pcf']:.3f} ms, std {glo['std']:.3f} ms (host, "
           f"synchronised); agrees with the CPU path", flush=True)
 
-    # 4f. GPS acquisition at 2.4 and 3.2 MS/s: 'pcf' (B1 stats mode) and
+    # 4f. GPS acquisition at the RTL-SDR rates: 'pcf' (B1 stats mode) and
     # 'std' (B3), against the known answer and the CPU plain path
     for n_m, m in mixed.items():
         label = f"GPS {m['fs'] / 1e6:.1f} MS/s"

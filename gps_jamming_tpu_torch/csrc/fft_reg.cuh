@@ -86,8 +86,9 @@ struct BlockRow {
 
 template <int T>
 struct GroupRow {
-  static_assert((T & (T - 1)) == 0 && T >= 8 && T <= 1024, "T: 8 to 1024");
-  static __device__ __forceinline__ int t() { return threadIdx.x & (T - 1); }
+  static_assert(T <= 1024 && (T % 32 == 0 || (T >= 8 && (T & (T - 1)) == 0)),
+                "T: whole warps, or a power of two below a warp");
+  static __device__ __forceinline__ int t() { return threadIdx.x % T; }
   static __device__ __forceinline__ int group() { return threadIdx.x / T; }
   // the lanes of this thread's group within its warp
   static __device__ __forceinline__ unsigned mask() {

@@ -3,13 +3,13 @@
 // One thread block transforms one n-point row held in shared memory, in
 // place, decimation in time. The row is written in digit-reversed order and
 // comes back in natural order:
-// - fft_radix2: the radix-2 stages of a bit-reversed row (bitrev); the
-//   Welch PSD (B2) transforms its power-of-two segments so;
+// - fft_radix2: the radix-2 stages of a bit-reversed row (bitrev);
 // - fft_mixed: any n = 2^a * p_1 * ... * p_k with odd primes p_i <=
 //   kMaxRadix (FftPlan) from a mixed-radix digit-reversed load (digit_rev):
-//   a radix-2 stages, then one radix-p stage per odd prime, ascending. B1
-//   and B3 take it at every n that is no power of two (their power-of-two
-//   rows take the register FFT of fft_reg.cuh).
+//   a radix-2 stages (fft_radix2), then one radix-p stage per odd prime,
+//   ascending. B1 and B3 take it at every n that is neither a power of two
+//   nor a size of fft_reg_mixed.cuh's table (those rows take the register
+//   FFTs of fft_reg.cuh and fft_reg_mixed.cuh).
 // The twiddle table tw[k] = exp(-2*pi*i*k/n), k < (n+1)/2, is float32
 // computed in float64 on the host and staged into shared memory by the
 // caller; `twiddle` reads the rest of the circle from its conjugate
@@ -207,13 +207,6 @@ static __device__ void fft_mixed(float2* buf, const float2* tw,
     }
     Lp *= p;
   }
-}
-
-// log2 of a power of two (host side).
-static inline int ilog2(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
 }
 
 // Lets `fn` take `bytes` of dynamic shared memory: above 48 KB a kernel

@@ -38,6 +38,10 @@
 //   says the loads are already hidden, and at 16384 a second 128 KB row
 //   does not fit. So each group reads its Y row and the (L1-resident)
 //   replica row when it starts.
+// A size of fft_reg_mixed.cuh's table (2400, 2560, 2800, 3200, 10368, and
+// B2's mixed nperseg from 384 to 14336) takes pcf_correlate_mx_kernel<n>,
+// the same design on the mixed-radix register FFT: thread t owns the lags
+// i + r*BL of its last pass's butterflies i = t + u*T < BL.
 // Any other n in [256, 16384] whose prime factors are all <= 127
 // (row_plan) takes pcf_correlate_kernel, on the mixed-radix shared-memory
 // FFT of fft_smem.cuh.
@@ -49,6 +53,7 @@
 #include <cuda_runtime.h>
 
 #include "fft_reg.cuh"
+#include "fft_reg_mixed.cuh"
 #include "fft_smem.cuh"
 
 namespace gjt {
@@ -68,35 +73,34 @@ static __device__ __forceinline__ int wrap(int v, int n) {
   return v < 0 ? v + n : (v >= n ? v - n : v);
 }
 
-// The epilogue of a block whose thread owns acc[j] of lag k = t + j*T for
-// j < per and k < n: the surface row or the five statistics of `cell`.
-template <int NV>
-static __device__ void correlate_epilogue(const float (&acc)[NV], int per,
-                                          int n, long long cell,
-                                          long long n_cells, int stats,
-                                          int excl, float* out, float* red,
-                                          int* redi) {
-  const int T = blockDim.x;
+// The epilogue of a block whose thread owns acc[j] of lag lag[j] (lag[j]
+// >= n: no lag): the surface row or the five statistics of `cell`.
+// kAscending: lag[j] grows with j, so a strict '>' alone keeps the lowest
+// lag of a thread (the power-of-two and shared-memory kernels; the lag
+// compare of the mixed layout costs B1 5 % at 2048, measured on the H100).
+template <int NV, bool kAscending>
+static __device__ void correlate_epilogue(const float (&acc)[NV],
+                                          const int (&lag)[NV], int n,
+                                          long long cell, long long n_cells,
+                                          int stats, int excl, float* out,
+                                          float* red, int* redi) {
   if (!stats) {
     float* o = out + cell * n;
 #pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      const int k = threadIdx.x + j * T;
-      if (j < per && k < n) o[k] = acc[j];
-    }
+    for (int j = 0; j < NV; ++j)
+      if (lag[j] < n) o[lag[j]] = acc[j];
     return;
   }
 
-  // k = threadIdx.x + j*T increases with j, so a strict '>' keeps the
-  // lowest lag of this thread; block_max_arg keeps the lowest across threads
+  // the lowest lag wins ties, in this thread and (block_max_arg) across
   float bv = neg_inf();
   int ba = n;
 #pragma unroll
   for (int j = 0; j < NV; ++j) {
-    const int k = threadIdx.x + j * T;
-    if (j < per && k < n && acc[j] > bv) {
+    if (lag[j] < n &&
+        (acc[j] > bv || (!kAscending && acc[j] == bv && lag[j] < ba))) {
       bv = acc[j];
-      ba = k;
+      ba = lag[j];
     }
   }
   float mx;
@@ -108,8 +112,8 @@ static __device__ void correlate_epilogue(const float (&acc)[NV], int per,
     float exl = neg_inf(), tl = 0.f, wl = 0.f;
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
-      const int k = threadIdx.x + j * T;
-      if (j < per && k < n) {
+      const int k = lag[j];
+      if (k < n) {
         const int d = wrap(k - arg, n);
         const int dist = min(d, n - d);
         if (dist <= excl) {
@@ -213,10 +217,132 @@ pcf_correlate_reg_kernel(const float2* __restrict__ Y,
     }
   }
 
+  int lags[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) lags[j] = t + j * T;
   const long long n_rows = static_cast<long long>(n_c) * R;
-  correlate_epilogue<P>(sums, P, N, static_cast<long long>(p) * n_rows +
-                        c * R + r, static_cast<long long>(n_prn) * n_rows,
-                        stats, excl, out, red, redi);
+  correlate_epilogue<P, true>(
+      sums, lags, N, static_cast<long long>(p) * n_rows + c * R + r,
+      static_cast<long long>(n_prn) * n_rows, stats, excl, out, red, redi);
+}
+
+// Does the N-point mixed correlate kernel keep its sums in shared memory?
+// Above 512 threads a thread has at most 102 registers (65536 / 640) and
+// fewer; the row and the sums of 12288, 14336 and 10240 do not fit them.
+template <int N>
+static __host__ __device__ constexpr bool mx_acc_smem() {
+  using M = MixedShape<N>;
+  return M::T > 512 && 2 * M::P + M::UL * M::RL > 40;
+}
+
+// Blocks per SM the mixed correlate kernel asks ptxas for: as many as
+// 128 registers a thread leave room for. Left alone, ptxas gave 2400-3200
+// 166-225 registers, one or two 160-thread blocks per SM; capped, B1 and
+// B3 there ran 3-32 % faster on the H100 (A/B, PERF.md, PR 5).
+template <int N>
+static __host__ __device__ constexpr int mx_min_blocks() {
+  return 65536 / (MixedShape<N>::T * 128) > 1
+             ? 65536 / (MixedShape<N>::T * 128)
+             : 1;
+}
+
+// A size of the mixed table: the register mixed-radix FFT
+// (fft_reg_mixed.cuh). Block b = (p, c, r).
+template <int N>
+static __global__ void __launch_bounds__(MixedShape<N>::T, mx_min_blocks<N>())
+pcf_correlate_mx_kernel(const float2* __restrict__ Y,
+                        const float2* __restrict__ rep,
+                        const float2* __restrict__ tab,
+                        float* __restrict__ out, int R, int G, int n_c,
+                        int n_prn, int stats, int excl) {
+  using M = MixedShape<N>;
+  constexpr int T = M::T, R0 = M::R0, B0 = M::B0, RL = M::RL, BL = M::BL;
+  constexpr int PL = M::UL * RL;           // the last pass's points
+  constexpr bool kAccSmem = mx_acc_smem<N>();
+  const int b = blockIdx.x;
+  const int r = b % R;
+  const int c = (b / R) % n_c;
+  const int p = b / (R * n_c);
+  const int shift = c - n_c / 2;
+
+  extern __shared__ float2 smem[];
+  float2* buf0 = smem;
+  float2* buf1 = M::kBuffers == 2 ? smem + M::kBufLen : smem;
+  float2* tab_s = smem + M::kBuffers * M::kBufLen;
+  float* red = reinterpret_cast<float*>(tab_s + M::kTabLen);      // 32
+  int* redi = reinterpret_cast<int*>(red + 32);                    // 32
+  float* acc_s = reinterpret_cast<float*>(redi + 32);   // N (kAccSmem)
+  stage_mx_twiddles<N>(tab_s, tab);
+
+  const int t = threadIdx.x;
+  const float2* rp = rep + static_cast<long long>(p) * N;
+  const float2* yr = Y + static_cast<long long>(r) * G * N;
+  float2 v[M::P];
+  // the first pass's points of group row yg times the shifted replica
+  auto load = [&](const float2* yg) {
+#pragma unroll
+    for (int u = 0; u < M::U0; ++u) {
+      const int i = t + u * T;
+#pragma unroll
+      for (int q = 0; q < R0; ++q) {
+        const int k = i + q * B0;
+        if (M::U0 * T == B0 || i < B0) {
+          v[u * R0 + q] = cmul(yg[k], rp[wrap(k - shift, N)]);
+        } else {
+          v[u * R0 + q] = make_float2(0.f, 0.f);
+        }
+      }
+    }
+  };
+  // lag of the last pass's register u*RL + q (N: none)
+  int lags[PL];
+#pragma unroll
+  for (int u = 0; u < M::UL; ++u)
+#pragma unroll
+    for (int q = 0; q < RL; ++q)
+      lags[u * RL + q] =
+          M::UL * T == BL || t + u * T < BL ? t + u * T + q * BL : N;
+  float acc[kAccSmem ? 1 : PL];
+#pragma unroll
+  for (int j = 0; j < PL; ++j) {
+    if constexpr (kAccSmem) {
+      if (lags[j] < N) acc_s[lags[j]] = 0.f;
+    } else {
+      acc[j] = 0.f;
+    }
+  }
+  load(yr);
+  __syncthreads();                       // the table is staged
+
+  int phase = 0;
+  for (int g = 0; g < G; ++g) {
+    mx_fft<N, true>(v, buf0, buf1, tab_s, phase);
+#pragma unroll
+    for (int j = 0; j < PL; ++j) {
+      const float e = v[j].x * v[j].x + v[j].y * v[j].y;
+      if constexpr (kAccSmem) {
+        if (lags[j] < N) acc_s[lags[j]] += e;
+      } else {
+        acc[j] += e;
+      }
+    }
+    if (g + 1 < G) load(yr + static_cast<long long>(g + 1) * N);
+  }
+  // ifft's 1/n, squared
+  constexpr float kScale = 1.f / (static_cast<float>(N) * N);
+  float sums[PL];
+#pragma unroll
+  for (int j = 0; j < PL; ++j) {
+    if constexpr (kAccSmem) {
+      sums[j] = lags[j] < N ? acc_s[lags[j]] * kScale : 0.f;
+    } else {
+      sums[j] = acc[j] * kScale;
+    }
+  }
+  const long long n_rows = static_cast<long long>(n_c) * R;
+  correlate_epilogue<PL, false>(
+      sums, lags, N, static_cast<long long>(p) * n_rows + c * R + r,
+      static_cast<long long>(n_prn) * n_rows, stats, excl, out, red, redi);
 }
 
 // Any other n: the mixed-radix shared-memory FFT of fft_smem.cuh. A thread
@@ -269,9 +395,15 @@ pcf_correlate_kernel(const float2* __restrict__ Y,
     __syncthreads();
   }
 
+  int lags[kMaxPerThread];
+#pragma unroll
+  for (int j = 0; j < kMaxPerThread; ++j) {
+    const int k = threadIdx.x + j * T;
+    lags[j] = j < per && k < n ? k : n;
+  }
   const long long n_rows = static_cast<long long>(n_c) * R;
-  correlate_epilogue<kMaxPerThread>(
-      acc, per, n, static_cast<long long>(p) * n_rows + c * R + r,
+  correlate_epilogue<kMaxPerThread, true>(
+      acc, lags, n, static_cast<long long>(p) * n_rows + c * R + r,
       static_cast<long long>(n_prn) * n_rows, stats, excl, out, red, redi);
 }
 
@@ -300,7 +432,8 @@ static inline bool is_pow2(int n) { return (n & (n - 1)) == 0; }
 
 // Launches the correlate stage over R * n_c * P blocks; `plan` from
 // row_plan, checked by the caller. tw: the two-level table of fft_reg.cuh
-// for a power-of-two n, else the half table of fft_smem.cuh.
+// for a power-of-two n or a size of the mixed table, else the half table
+// of fft_smem.cuh.
 static inline cudaError_t launch_correlate(const float2* Y, const float2* rep,
                                            const float2* tw, float* out,
                                            int R, int G, int n_c, int P,
@@ -310,6 +443,19 @@ static inline cudaError_t launch_correlate(const float2* Y, const float2* rep,
   const int blocks = R * n_c * P;
   const size_t red = sizeof(float) * 32 + sizeof(int) * 32;
   cudaError_t err;
+#define GJT_CORR_MX(NN, ...)                                                 \
+  if (n == NN) {                                                             \
+    const size_t smem = mx_smem_bytes<NN>() + red +                          \
+                        (mx_acc_smem<NN>() ? sizeof(float) * NN : 0);        \
+    err = allow_smem(                                                        \
+        reinterpret_cast<const void*>(pcf_correlate_mx_kernel<NN>), smem);   \
+    if (err != cudaSuccess) return err;                                      \
+    pcf_correlate_mx_kernel<NN><<<blocks, MixedShape<NN>::T, smem, s>>>(     \
+        Y, rep, tw, out, R, G, n_c, P, stats, excl);                         \
+    return cudaGetLastError();                                               \
+  }
+  GJT_MIXED_SCHEDULES(GJT_CORR_MX)
+#undef GJT_CORR_MX
   if (!is_pow2(n)) {
     const size_t smem = fft_smem_bytes(n) + red;
     err = allow_smem(reinterpret_cast<const void*>(pcf_correlate_kernel),

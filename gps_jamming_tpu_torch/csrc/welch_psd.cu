@@ -11,19 +11,24 @@
 // segment) take 0.8 us at 67 TFLOP/s. So the design keeps everything but
 // the input and a few partial rows out of device memory, and keeps the SM
 // busy with several segments at once:
-// - A power of two N (64..16384) runs the register FFT of fft_reg.cuh:
-//   thread t of a segment's T = N/P threads loads x[s*hop + t + j*T]
-//   straight into register j (natural order, coalesced, no scatter), and
-//   the last pass leaves bin t + j*T in register j, so each thread sums
-//   |X|^2 for its fixed bins in registers across all its segments.
+// - Every N runs a register FFT: a power of two (64..16384) that of
+//   fft_reg.cuh, the 16 mixed-radix sizes of the TPU kernel (384 = 3*128
+//   ... 14336 = 7*2048) that of fft_reg_mixed.cuh. Both read their first
+//   pass's points x[s*hop + i + r*B0] (butterfly i = t + u*T, B0 = N/R0)
+//   straight from device memory into registers (natural order, coalesced,
+//   no scatter), and leave bin i + r*BL in register u*RL + r after the
+//   last pass, so each thread sums |X|^2 for its fixed bins in registers
+//   across all its segments (RowLayout below; a power of two is the case
+//   U0 = UL = 1, R0 = RL = P, B0 = BL = T).
 // - A block holds G = 256/T groups of T threads (1024: 4 x 64; G = 1 from
-//   4096 up), each walking its own run of consecutive segments with its own
-//   exchange buffers and named barrier (GroupRow), so one segment's
-//   exchange does not idle the SM. The second half of segment s is the
-//   first half of segment s+1: registers P/2..P-1 (raw samples) carry over
-//   as registers 0..P/2-1, so each sample of a run is read once (up to
-//   8192; at 16384 the 1024 threads' 64 registers hold no spare half, and
-//   the overlap is read again, from L2).
+//   256 threads up), each walking its own run of consecutive segments with
+//   its own exchange buffers and named barrier (GroupRow), so one
+//   segment's exchange does not idle the SM. The second half of segment s
+//   is the first half of segment s+1: the first pass's radix R0 is even,
+//   so registers u*R0 + R0/2.. (raw samples) carry over as u*R0 + 0..,
+//   and each sample of a run is read once (up to 512 threads; above, the
+//   threads' registers hold no spare half, and the overlap is read again,
+//   from L2).
 // - The detrend is applied after the FFT, by linearity: the periodic Hann
 //   window's DFT has three nonzero bins, W[0] = N/2 and W[1] = W[N-1] =
 //   -N/4, so with S the segment's sum (mean m = S/N) the detrended
@@ -41,38 +46,80 @@
 //   ticket for the next call. The tile count depends on N and the number
 //   of segments only, so the sum order, and the result, is the same on
 //   every card and every call.
-// - The 16 mixed-radix nperseg of the TPU kernel (384 = 3*128 ... 14336 =
-//   7*2048) run the shared-memory FFT of fft_smem.cuh, one segment per
-//   block at a time, with the same cluster epilogue.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
 #include "fft_reg.cuh"
-#include "fft_smem.cuh"
+#include "fft_reg_mixed.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kCluster = 8;          // blocks per cluster = final-sum slices
-constexpr int kBlockThreads = 256;   // threads per block below 4096
-constexpr int kMixedPer = 16;        // values per thread, mixed-radix path
+constexpr int kBlockThreads = 256;   // threads per block, up to T
 
-// The layout of an N-point (power of two) Welch block.
+// The register layout of an N-point segment row: T threads, P registers;
+// the first pass's U0 butterflies of radix R0 per thread over B0, the last
+// pass's UL of radix RL over BL; exchange buffers, table and the FFT.
+template <int N, bool kPow2 = (N & (N - 1)) == 0>
+struct RowLayout;
+
+template <int N>
+struct RowLayout<N, true> {
+  using S = gjt::RegShape<N>;
+  static constexpr int T = S::T, P = S::P;
+  static constexpr int U0 = 1, R0 = P, B0 = T, UL = 1, RL = P, BL = T;
+  static constexpr int kBuffers = S::kBuffers, kBufLen = N;
+  static constexpr int kTabLen = (N >> gjt::kFineBits) + gjt::kFine;
+  static __device__ __forceinline__ void stage(float2* tab_s,
+                                               const float2* tab) {
+    gjt::stage_reg_twiddles(tab_s, tab, N);
+  }
+  template <class Row>
+  static __device__ __forceinline__ void fft(float2 (&v)[P], float2* buf0,
+                                             float2* buf1, const float2* tab,
+                                             int& phase) {
+    gjt::reg_fft<N, false, Row>(v, buf0, buf1, tab, phase);
+  }
+};
+
+template <int N>
+struct RowLayout<N, false> {
+  using M = gjt::MixedShape<N>;
+  static constexpr int T = M::T, P = M::P;
+  static constexpr int U0 = M::U0, R0 = M::R0, B0 = M::B0;
+  static constexpr int UL = M::UL, RL = M::RL, BL = M::BL;
+  static constexpr int kBuffers = M::kBuffers, kBufLen = M::kBufLen;
+  static constexpr int kTabLen = M::kTabLen;
+  static __device__ __forceinline__ void stage(float2* tab_s,
+                                               const float2* tab) {
+    gjt::stage_mx_twiddles<N>(tab_s, tab);
+  }
+  template <class Row>
+  static __device__ __forceinline__ void fft(float2 (&v)[P], float2* buf0,
+                                             float2* buf1, const float2* tab,
+                                             int& phase) {
+    gjt::mx_fft<N, false, Row>(v, buf0, buf1, tab, phase);
+  }
+};
+
+// The layout of an N-point Welch block.
 template <int N>
 struct WelchShape {
-  using S = gjt::RegShape<N>;
-  static constexpr int P = S::P, T = S::T;
+  using L = RowLayout<N>;
+  static constexpr int T = L::T;
   static constexpr int G = T >= kBlockThreads ? 1 : kBlockThreads / T;
   static constexpr int kThreads = G * T;
-  // the overlapped half carried in registers (not at 16384: see above)
-  static constexpr bool kKeep = N <= 8192;
-  // the |X|^2 sums in shared memory (at 16384 they spill from registers)
-  static constexpr bool kAccSmem = N == 16384;
+  // the overlapped half carried in registers (not above 512 threads)
+  static constexpr bool kKeep = T <= 512;
+  // the |X|^2 sums in shared memory (above 512 threads they spill)
+  static constexpr bool kAccSmem = T > 512;
   static constexpr int kWarps = T >= 32 ? T / 32 : 1;   // warps per group
   using Row = std::conditional_t<G == 1, gjt::BlockRow, gjt::GroupRow<T>>;
+  static_assert(L::R0 % 2 == 0, "the first radix carries the half over");
 };
 
 // Shared memory of an N-point Welch block: the groups' exchange buffers,
@@ -81,8 +128,10 @@ struct WelchShape {
 template <int N>
 size_t welch_smem_bytes() {
   using W = WelchShape<N>;
-  return sizeof(float2) * (static_cast<size_t>(W::G) * W::S::kBuffers * N +
-                           gjt::reg_tw_len(N) + 2 * W::G * W::kWarps) +
+  using L = typename W::L;
+  return sizeof(float2) * (static_cast<size_t>(W::G) * L::kBuffers *
+                               L::kBufLen +
+                           L::kTabLen + 2 * W::G * W::kWarps) +
          sizeof(float) * N + 16;
 }
 
@@ -126,33 +175,47 @@ static __device__ void welch_finish(const float* part_s, float* partial,
   if (threadIdx.x == 0) ticket[rank] = 0u;   // ready for the next call
 }
 
-// Power-of-two N: groups of T threads, the register FFT.
+// Groups of T threads, the register FFT of RowLayout<N>.
 template <int N>
 __global__ void __cluster_dims__(kCluster, 1, 1)
 __launch_bounds__(WelchShape<N>::kThreads)
-welch_reg_kernel(const float2* __restrict__ x, const float* __restrict__ win,
-                 const float2* __restrict__ tab, float* __restrict__ partial,
-                 unsigned* __restrict__ ticket, float* __restrict__ out,
-                 int n_segs, int seg_run, int detrend, float scale) {
+welch_kernel(const float2* __restrict__ x, const float* __restrict__ win,
+             const float2* __restrict__ tab, float* __restrict__ partial,
+             unsigned* __restrict__ ticket, float* __restrict__ out,
+             int n_segs, int seg_run, int detrend, float scale) {
   using W = WelchShape<N>;
+  using L = typename W::L;
   using Row = typename W::Row;
-  constexpr int P = W::P, T = W::T, G = W::G, kHop = N / 2;
+  constexpr int T = L::T, G = W::G, kHop = N / 2;
+  constexpr int U0 = L::U0, R0 = L::R0, B0 = L::B0;
+  constexpr int UL = L::UL, RL = L::RL, BL = L::BL, PL = UL * RL;
+  constexpr bool kAll0 = U0 * T == B0, kAllL = UL * T == BL;
+  // the owners of bins 0, 1 (thread 0, 1, register 0) and N-1
+  constexpr int kTLast = (BL - 1) % T;
+  constexpr int kJLast = (BL - 1) / T * RL + RL - 1;
   extern __shared__ float2 smem[];
   const int g = G == 1 ? 0 : static_cast<int>(threadIdx.x) / T;
   const int t = Row::t();
-  float2* buf0 = smem + g * (W::S::kBuffers * N);
-  float2* buf1 = W::S::kBuffers == 2 ? buf0 + N : buf0;
-  float2* tab_s = smem + G * W::S::kBuffers * N;
-  float2* sums_s = tab_s + gjt::reg_tw_len(N);           // [2][G][kWarps]
+  float2* buf0 = smem + g * (L::kBuffers * L::kBufLen);
+  float2* buf1 = L::kBuffers == 2 ? buf0 + L::kBufLen : buf0;
+  float2* tab_s = smem + G * L::kBuffers * L::kBufLen;
+  float2* sums_s = tab_s + L::kTabLen;                   // [2][G][kWarps]
   float* part_s = reinterpret_cast<float*>(sums_s + 2 * G * W::kWarps);
   int* flag_s = reinterpret_cast<int*>(part_s + N);
-  gjt::stage_reg_twiddles(tab_s, tab, N);
+  L::stage(tab_s, tab);
 
-  float acc[W::kAccSmem ? 1 : P];
+  // bin of the last pass's register u*RL + q (N: none)
+  int bins[PL];
 #pragma unroll
-  for (int j = 0; j < P; ++j) {
+  for (int u = 0; u < UL; ++u)
+#pragma unroll
+    for (int q = 0; q < RL; ++q)
+      bins[u * RL + q] = kAllL || t + u * T < BL ? t + u * T + q * BL : N;
+  float acc[W::kAccSmem ? 1 : PL];
+#pragma unroll
+  for (int j = 0; j < PL; ++j) {
     if constexpr (W::kAccSmem) {
-      part_s[t + j * T] = 0.f;            // G == 1: part_s is the sums
+      if (bins[j] < N) part_s[bins[j]] = 0.f;   // G == 1: part_s is the sums
     } else {
       acc[j] = 0.f;
     }
@@ -162,32 +225,41 @@ welch_reg_kernel(const float2* __restrict__ x, const float* __restrict__ win,
   const int run = blockIdx.x * G + g;
   const int s0 = min(run * seg_run, n_segs);
   const int s1 = min(s0 + seg_run, n_segs);
-  float2 keep[W::kKeep ? P / 2 : 1];
+  float2 keep[W::kKeep ? U0 * R0 / 2 : 1];
   int phase = 0;
   for (int s = s0; s < s1; ++s) {
-    const float2* xs = x + static_cast<long long>(s) * kHop + t;
-    float2 v[P];
+    const float2* xs = x + static_cast<long long>(s) * kHop;
+    float2 v[L::P];
 #pragma unroll
-    for (int j = P / 2; j < P; ++j) v[j] = xs[j * T];
-    if constexpr (W::kKeep) {
-      if (s > s0) {
+    for (int u = 0; u < U0; ++u) {
+      const int i = t + u * T;
+      const bool ok = kAll0 || i < B0;
 #pragma unroll
-        for (int j = 0; j < P / 2; ++j) v[j] = keep[j];
+      for (int q = R0 / 2; q < R0; ++q)
+        v[u * R0 + q] = ok ? xs[i + q * B0] : make_float2(0.f, 0.f);
+      if constexpr (W::kKeep) {
+        if (s > s0) {
+#pragma unroll
+          for (int q = 0; q < R0 / 2; ++q) v[u * R0 + q] = keep[u * R0 / 2 + q];
+        } else {
+#pragma unroll
+          for (int q = 0; q < R0 / 2; ++q)
+            v[u * R0 + q] = ok ? xs[i + q * B0] : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+        for (int q = 0; q < R0 / 2; ++q)
+          keep[u * R0 / 2 + q] = v[u * R0 + q + R0 / 2];
       } else {
 #pragma unroll
-        for (int j = 0; j < P / 2; ++j) v[j] = xs[j * T];
+        for (int q = 0; q < R0 / 2; ++q)
+          v[u * R0 + q] = ok ? xs[i + q * B0] : make_float2(0.f, 0.f);
       }
-#pragma unroll
-      for (int j = 0; j < P / 2; ++j) keep[j] = v[j + P / 2];
-    } else {
-#pragma unroll
-      for (int j = 0; j < P / 2; ++j) v[j] = xs[j * T];
     }
     // the segment's sum S, for the detrend after the transform
     float2 sum = make_float2(0.f, 0.f);
     if (detrend) {
 #pragma unroll
-      for (int j = 0; j < P; ++j) sum = cadd(sum, v[j]);
+      for (int j = 0; j < U0 * R0; ++j) sum = cadd(sum, v[j]);
       if constexpr (T < 32) {
         const unsigned mask = gjt::GroupRow<T>::mask();
 #pragma unroll
@@ -206,16 +278,22 @@ welch_reg_kernel(const float2* __restrict__ x, const float* __restrict__ win,
       }
     }
 #pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const float w = __ldg(win + t + j * T);
-      v[j] = make_float2(v[j].x * w, v[j].y * w);
+    for (int u = 0; u < U0; ++u) {
+      const int i = t + u * T;
+      if (kAll0 || i < B0) {
+#pragma unroll
+        for (int q = 0; q < R0; ++q) {
+          const float w = __ldg(win + i + q * B0);
+          v[u * R0 + q] = make_float2(v[u * R0 + q].x * w, v[u * R0 + q].y * w);
+        }
+      }
     }
-    gjt::reg_fft<N, false, Row>(v, buf0, buf1, tab_s, phase);
+    L::template fft<Row>(v, buf0, buf1, tab_s, phase);
     if (detrend) {
-      // bin 0 is thread 0's register 0, bin 1 thread 1's, bin N-1 thread
-      // T-1's register P-1; the FFT's barriers ordered the sums' slots
+      // bins 0 and 1 are register 0 of threads 0 and 1, bin N-1 register
+      // kJLast of thread kTLast; the FFT's barriers ordered the sums' slots
       if constexpr (T >= 32) {
-        if (t <= 1 || t == T - 1) {
+        if (t <= 1 || t == kTLast) {
           sum = make_float2(0.f, 0.f);
 #pragma unroll
           for (int w = 0; w < W::kWarps; ++w)
@@ -229,16 +307,16 @@ welch_reg_kernel(const float2* __restrict__ x, const float* __restrict__ win,
         v[0].x += 0.25f * sum.x;
         v[0].y += 0.25f * sum.y;
       }
-      if (t == T - 1) {
-        v[P - 1].x += 0.25f * sum.x;
-        v[P - 1].y += 0.25f * sum.y;
+      if (t == kTLast) {
+        v[kJLast].x += 0.25f * sum.x;
+        v[kJLast].y += 0.25f * sum.y;
       }
     }
 #pragma unroll
-    for (int j = 0; j < P; ++j) {
+    for (int j = 0; j < PL; ++j) {
       const float e = v[j].x * v[j].x + v[j].y * v[j].y;
       if constexpr (W::kAccSmem) {
-        part_s[t + j * T] += e;
+        if (bins[j] < N) part_s[bins[j]] += e;
       } else {
         acc[j] += e;
       }
@@ -250,104 +328,22 @@ welch_reg_kernel(const float2* __restrict__ x, const float* __restrict__ win,
   if constexpr (G > 1) {
     float* rows = reinterpret_cast<float*>(smem);        // G x N
 #pragma unroll
-    for (int j = 0; j < P; ++j) rows[g * N + t + j * T] = acc[j];
+    for (int j = 0; j < PL; ++j)
+      if (bins[j] < N) rows[g * N + bins[j]] = acc[j];
     __syncthreads();
     for (int k = threadIdx.x; k < N; k += W::kThreads) {
-      float s = 0.f;
+      float sk = 0.f;
 #pragma unroll
-      for (int gg = 0; gg < G; ++gg) s += rows[gg * N + k];
-      part_s[k] = s;
+      for (int gg = 0; gg < G; ++gg) sk += rows[gg * N + k];
+      part_s[k] = sk;
     }
   } else if constexpr (!W::kAccSmem) {
 #pragma unroll
-    for (int j = 0; j < P; ++j) part_s[t + j * T] = acc[j];
+    for (int j = 0; j < PL; ++j)
+      if (bins[j] < N) part_s[bins[j]] = acc[j];
   }
   __syncthreads();
   welch_finish(part_s, partial, ticket, out, N, scale, flag_s);
-}
-
-// Mixed-radix N: one segment per block at a time, digit-reversed load into
-// shared memory, fft_mixed; thread t owns the bins t + j*T < N.
-__global__ void __cluster_dims__(kCluster, 1, 1)
-__launch_bounds__(gjt::kMaxThreads)
-welch_mixed_kernel(const float2* __restrict__ x, const float* __restrict__ win,
-                   const float2* __restrict__ tw, float* __restrict__ partial,
-                   unsigned* __restrict__ ticket, float* __restrict__ out,
-                   gjt::FftPlan plan, int n_segs, int seg_run, int detrend,
-                   float scale) {
-  const int n = plan.n, hop = n / 2, T = blockDim.x;
-  const int per = (n + T - 1) / T;
-  extern __shared__ float2 smem[];
-  float2* buf = smem;                                      // n
-  float2* tw_s = buf + n;                                  // tw_len(n)
-  float* red = reinterpret_cast<float*>(tw_s + gjt::tw_len(n));   // 32
-  float* part_s = red + 32;                                // n
-  int* flag_s = reinterpret_cast<int*>(part_s + n);
-  gjt::stage_twiddles(tw_s, tw, n);
-  float acc[kMixedPer];
-#pragma unroll
-  for (int j = 0; j < kMixedPer; ++j) acc[j] = 0.f;
-  __syncthreads();
-  const int s0 = min(static_cast<int>(blockIdx.x) * seg_run, n_segs);
-  const int s1 = min(s0 + seg_run, n_segs);
-  for (int s = s0; s < s1; ++s) {
-    const float2* xs = x + static_cast<long long>(s) * hop;
-    float2 v[kMixedPer];
-    float sr = 0.f, si = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMixedPer; ++j) {
-      const int k = threadIdx.x + j * T;
-      if (j < per && k < n) {
-        v[j] = xs[k];
-        sr += v[j].x;
-        si += v[j].y;
-      }
-    }
-    float mr = 0.f, mi = 0.f;
-    if (detrend) {
-      mr = gjt::block_sum(sr, red) / static_cast<float>(n);
-      mi = gjt::block_sum(si, red) / static_cast<float>(n);
-    }
-#pragma unroll
-    for (int j = 0; j < kMixedPer; ++j) {
-      const int k = threadIdx.x + j * T;
-      if (j < per && k < n) {
-        const float w = __ldg(win + k);
-        buf[gjt::digit_rev(k, plan)] =
-            make_float2((v[j].x - mr) * w, (v[j].y - mi) * w);
-      }
-    }
-    __syncthreads();
-    gjt::fft_mixed<false>(buf, tw_s, plan);
-#pragma unroll
-    for (int j = 0; j < kMixedPer; ++j) {
-      const int k = threadIdx.x + j * T;
-      if (j < per && k < n) {
-        const float2 b = buf[k];
-        acc[j] += b.x * b.x + b.y * b.y;
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < kMixedPer; ++j) {
-    const int k = threadIdx.x + j * T;
-    if (j < per && k < n) part_s[k] = acc[j];
-  }
-  __syncthreads();
-  welch_finish(part_s, partial, ticket, out, n, scale, flag_s);
-}
-
-// The 16 mixed-radix nperseg of the TPU kernel (pallas_psd.supported up
-// to 16384: 128 * 2^a * {3, 5, 7}).
-constexpr int kMixedSizes[] = {384,  640,  768,  896,  1280,  1536,
-                               1792, 2560, 3072, 3584, 5120,  6144,
-                               7168, 10240, 12288, 14336};
-
-bool mixed_size(int n) {
-  for (int m : kMixedSizes)
-    if (m == n) return true;
-  return false;
 }
 
 // Segments per run and blocks (a multiple of the cluster size, at most
@@ -361,18 +357,17 @@ void tiles(int n_segs, int G, int max_tiles, int* seg_run, int* n_tiles) {
 }
 
 template <int N>
-cudaError_t launch_reg(const float2* x, const float* win, const float2* tab,
-                       float* partial, unsigned* ticket, float* out,
-                       int n_segs, int max_tiles, int detrend, float scale,
-                       cudaStream_t s) {
+cudaError_t launch(const float2* x, const float* win, const float2* tab,
+                   float* partial, unsigned* ticket, float* out, int n_segs,
+                   int max_tiles, int detrend, float scale, cudaStream_t s) {
   using W = WelchShape<N>;
   int seg_run, n_tiles;
   tiles(n_segs, W::G, max_tiles, &seg_run, &n_tiles);
   const size_t smem = welch_smem_bytes<N>();
-  cudaError_t err = gjt::allow_smem(
-      reinterpret_cast<const void*>(welch_reg_kernel<N>), smem);
+  cudaError_t err =
+      gjt::allow_smem(reinterpret_cast<const void*>(welch_kernel<N>), smem);
   if (err != cudaSuccess) return err;
-  welch_reg_kernel<N><<<n_tiles, W::kThreads, smem, s>>>(
+  welch_kernel<N><<<n_tiles, W::kThreads, smem, s>>>(
       x, win, tab, partial, ticket, out, n_segs, seg_run, detrend, scale);
   return cudaGetLastError();
 }
@@ -380,16 +375,21 @@ cudaError_t launch_reg(const float2* x, const float* win, const float2* tab,
 #define GJT_WELCH_POW2(X) \
   X(64) X(128) X(256) X(512) X(1024) X(2048) X(4096) X(8192) X(16384)
 
+// The 16 mixed-radix nperseg of the TPU kernel (pallas_psd.supported up
+// to 16384: 128 * 2^a * {3, 5, 7}), each a size of fft_reg_mixed.cuh.
+#define GJT_WELCH_MIXED(X)                                                \
+  X(384) X(640) X(768) X(896) X(1280) X(1536) X(1792) X(2560) X(3072)    \
+  X(3584) X(5120) X(6144) X(7168) X(10240) X(12288) X(14336)
+
 }  // namespace
 
 // x: (n,) complex64 with n_segs = 1 + (n - nperseg) / (nperseg/2)
 // segments; win: (nperseg,) float32; tab: `build.row_twiddles(nperseg)`
-// (the two-level table of fft_reg.cuh for a power of two, else the half
-// table of fft_smem.cuh); partial: (max_tiles/8, nperseg) float32 scratch;
-// ticket: 8 uint32, zero before the first call (each call leaves them
-// zero); out: (nperseg,) float32. nperseg: a power of two in [64, 16384]
-// or one of kMixedSizes; max_tiles a positive multiple of 8. One launch.
-// Returns a cudaError_t (0 on success).
+// (the two-level table of fft_reg.cuh); partial: (max_tiles/8, nperseg)
+// float32 scratch; ticket: 8 uint32, zero before the first call (each
+// call leaves them zero); out: (nperseg,) float32. nperseg: a power of two
+// in [64, 16384] or a size of GJT_WELCH_MIXED; max_tiles a positive
+// multiple of 8. One launch. Returns a cudaError_t (0 on success).
 extern "C" int gjt_welch_psd(const void* x, const void* win, const void* tab,
                              void* partial, void* ticket, void* out,
                              int nperseg, int n_segs, int max_tiles,
@@ -405,25 +405,10 @@ extern "C" int gjt_welch_psd(const void* x, const void* win, const void* tab,
   float* o = static_cast<float*>(out);
 #define GJT_WELCH(NN)                                                    \
   if (nperseg == NN)                                                     \
-    return static_cast<int>(launch_reg<NN>(x2, w, tb, pt, tk, o, n_segs, \
-                                           max_tiles, detrend, scale, s));
+    return static_cast<int>(launch<NN>(x2, w, tb, pt, tk, o, n_segs,     \
+                                       max_tiles, detrend, scale, s));
   GJT_WELCH_POW2(GJT_WELCH)
+  GJT_WELCH_MIXED(GJT_WELCH)
 #undef GJT_WELCH
-  gjt::FftPlan plan;
-  if (!mixed_size(nperseg) || !gjt::make_plan(nperseg, &plan))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int seg_run, n_tiles;
-  tiles(n_segs, 1, max_tiles, &seg_run, &n_tiles);
-  const size_t smem = sizeof(float2) * (nperseg + gjt::tw_len(nperseg)) +
-                      sizeof(float) * (32 + nperseg) + 16;
-  cudaError_t err = gjt::allow_smem(
-      reinterpret_cast<const void*>(welch_mixed_kernel), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // about 8 values per thread, whole warps, at most 1024 threads
-  const int threads = (nperseg / 8 + 31) / 32 * 32 < gjt::kMaxThreads
-                          ? (nperseg / 8 + 31) / 32 * 32
-                          : gjt::kMaxThreads;
-  welch_mixed_kernel<<<n_tiles, threads, smem, s>>>(
-      x2, w, tb, pt, tk, o, plan, n_segs, seg_run, detrend, scale);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }

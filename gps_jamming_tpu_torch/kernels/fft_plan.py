@@ -1,11 +1,14 @@
-"""The pass schedule of the register FFT (`csrc/fft_reg.cuh`), in Python.
+"""The pass schedules of the register FFTs (`csrc/fft_reg.cuh`,
+`csrc/fft_reg_mixed.cuh`), in Python.
 
-The CUDA header fixes the schedule at compile time, one template
-instantiation per power of two; this module mirrors its index arithmetic
-so that the CPU tests can run the schedule in NumPy (`emulate`) and hold it
-against `np.fft`. Every rule here has a twin in `fft_reg.cuh`
-(`RegShape`, `kRadix`, `reg_slot`, the two-level `reg_twiddle` and its
-`fine_slot`).
+The CUDA headers fix each schedule at compile time, one template
+instantiation per size; this module mirrors their index arithmetic so that
+the CPU tests can run the schedules in NumPy (`emulate`, `emulate_mixed`)
+and hold them against `np.fft`. The mixed-radix sizes and their schedules
+are read from the header's table (`MIXED`), so both sides run one table.
+Every rule here has a twin in the headers (`RegShape`, `kRadix`,
+`reg_slot`, the two-level `reg_twiddle` and its `fine_slot`; `mx_slot`,
+`coarse_slot`, `split_radix`).
 
 A power-of-two n is split over T = n / P threads, P points each (P = 8 for
 n <= 512, else 16). The transform is a Stockham autosort of radix-P passes
@@ -20,6 +23,9 @@ fine twiddle entries sit at `fine_slot`, which does the same for the
 twiddle reads (`bank_ways` counts both).
 """
 from __future__ import annotations
+
+import re
+from pathlib import Path
 
 import numpy as np
 
@@ -55,9 +61,10 @@ def swizzle(a, p: int):
 
 
 def twiddle_table(n: int) -> np.ndarray:
-    """(n/64 + 64,) complex64: coarse exp(-2*pi*i*64*h/n), h < n/64, then
-    fine exp(-2*pi*i*l/n), l < 64; computed in float64, stored float32."""
-    coarse = np.exp(-2j * np.pi * np.arange(n >> FINE_BITS) * 64.0 / n)
+    """(ceil(n/64) + 64,) complex64: coarse exp(-2*pi*i*64*h/n), h <
+    ceil(n/64), then fine exp(-2*pi*i*l/n), l < 64; computed in float64,
+    stored float32."""
+    coarse = np.exp(-2j * np.pi * np.arange(-(-n >> FINE_BITS)) * 64.0 / n)
     fine = np.exp(-2j * np.pi * np.arange(1 << FINE_BITS) / n)
     return np.concatenate([coarse, fine]).astype(np.complex64)
 
@@ -68,26 +75,43 @@ def fine_slot(l):
     return l ^ (l >> 4)
 
 
-def _twiddle_addrs(e: int, n: int) -> tuple[int, int]:
+def coarse_slot(h):
+    """Shared-memory slot of coarse entry h of a mixed-radix row's table:
+    h XOR its next four bits (the power-of-two rows keep h)."""
+    return h ^ ((h >> 4) & 15)
+
+
+def _coarse_slots(n: int) -> int:
+    """Slots before the fine entries in shared memory: ceil(n/64), rounded
+    up to 16 for a mixed-radix row."""
+    n_coarse = -(-n >> FINE_BITS)
+    return -(-n_coarse // 16) * 16 if n in MIXED else n_coarse
+
+
+def _twiddle_addrs(e, n: int):
     """Shared-memory slots (coarse, fine) of exponent e's two entries."""
-    return e >> FINE_BITS, (n >> FINE_BITS) + fine_slot(e & 63)
+    c = e >> FINE_BITS
+    return (coarse_slot(c) if n in MIXED else c,
+            _coarse_slots(n) + fine_slot(e & 63))
 
 
-def stage_table(table: np.ndarray) -> np.ndarray:
-    """The table as the kernel stages it in shared memory: coarse entries
-    in place, fine entry l at its fine_slot."""
+def stage_table(table: np.ndarray, n: int) -> np.ndarray:
+    """The n-point table as the kernel stages it in shared memory: coarse
+    entry h at its slot (_twiddle_addrs), fine entry l at its fine_slot."""
     n_coarse = table.size - (1 << FINE_BITS)
-    staged = table.copy()
-    staged[n_coarse + fine_slot(np.arange(1 << FINE_BITS))] = \
+    staged = np.zeros(_coarse_slots(n) + (1 << FINE_BITS), np.complex64)
+    h = np.arange(n_coarse)
+    staged[coarse_slot(h) if n in MIXED else h] = table[:n_coarse]
+    staged[_coarse_slots(n) + fine_slot(np.arange(1 << FINE_BITS))] = \
         table[n_coarse:]
     return staged
 
 
-def _twiddle(staged: np.ndarray, e: int, n: int, inverse: bool):
+def _twiddle(staged: np.ndarray, e, n: int, inverse: bool):
     """exp(-+2*pi*i*e/n) as the kernel forms it from the staged table:
-    coarse * fine, float32."""
+    coarse * fine, float32 (e a scalar or an array)."""
     c, f = _twiddle_addrs(e, n)
-    w = np.complex64(staged[c] * staged[f])
+    w = (staged[c] * staged[f]).astype(np.complex64)
     return np.conj(w) if inverse else w
 
 
@@ -103,7 +127,7 @@ def emulate(x: np.ndarray, inverse: bool = False) -> np.ndarray:
     """The register FFT of a (n,) complex64 row by the kernel's schedule,
     index maps and twiddles, thread by thread, in float32 (no 1/n)."""
     n = x.size
-    tab = stage_table(twiddle_table(n))
+    tab = stage_table(twiddle_table(n), n)
     n_t, sign = threads(n), (1.0 if inverse else -1.0)
     p = points_per_thread(n)
     slot = np.array([swizzle(a, p) for a in range(n)])
@@ -138,7 +162,8 @@ def emulate(x: np.ndarray, inverse: bool = False) -> np.ndarray:
 def _ways(addrs) -> int:
     """Bank-pair ways of one half-warp's float2 slots: lanes reading the
     same slot share one access (a broadcast)."""
-    return int(max(np.bincount([a % 16 for a in set(addrs)])))
+    return int(max(np.bincount([int(a) % 16 for a in set(
+        np.asarray(list(addrs)).ravel().tolist())])))
 
 
 def bank_ways(n: int) -> int:
@@ -161,5 +186,139 @@ def bank_ways(n: int) -> int:
                              for t in lanes]
                     for which in (0, 1):
                         worst = max(worst, _ways(a[which] for a in addrs))
+        ns *= radix
+    return worst
+
+
+# --- The mixed-radix register FFT (csrc/fft_reg_mixed.cuh) ---------------
+#
+# Each size of the header's GJT_MIXED_SCHEDULES table: T threads, the
+# exchange swizzle (pad, shift) and the radices in pass order. A pass of
+# radix R has B = n/R butterflies; thread t runs i = t + u*T, u < ceil(B/T)
+# (idle past B); the index maps are those of the power-of-two schedule.
+
+
+def _read_schedules() -> dict[int, tuple[int, int, int, tuple[int, ...]]]:
+    """{n: (T, pad, shift, radices)} from csrc/fft_reg_mixed.cuh."""
+    text = (Path(__file__).resolve().parent.parent / "csrc"
+            / "fft_reg_mixed.cuh").read_text()
+    block = text[text.index("#define GJT_MIXED_SCHEDULES(X)"):]
+    block = block[:block.index("\n\n")]
+    out = {}
+    for args in re.findall(r"X\(([\d,\s]+)\)", block):
+        n, t, pad, shift, *rad = (int(a) for a in args.split(","))
+        out[n] = (t, pad, shift, tuple(rad))
+    return out
+
+
+MIXED = _read_schedules()
+
+
+def mixed_slot(a, n: int):
+    """Shared-memory float2 slot of exchange index a of an n-point row."""
+    _, pad, shift, _ = MIXED[n]
+    return a + (a >> shift) if pad else a ^ ((a >> shift) & 15)
+
+
+def butterflies_per_thread(n: int, radix: int) -> int:
+    return -(-(n // radix) // MIXED[n][0])
+
+
+def mixed_points(n: int) -> int:
+    """P: the most points a thread holds in any pass (its register array)."""
+    return max(butterflies_per_thread(n, r) * r for r in MIXED[n][3])
+
+
+def split_radix(r: int) -> int:
+    """A of a composite radix R = A*B: the largest power-of-two factor,
+    else the smallest odd prime factor."""
+    if r & -r > 1:
+        return r & -r
+    f = 3
+    while r % f:
+        f += 2
+    return f
+
+
+def _dft_nat(v: np.ndarray, radix: int, inverse: bool, tab: np.ndarray,
+             n: int) -> np.ndarray:
+    """The kernel's in-register radix-point DFT of the rows of v (k,
+    radix), natural order out: power-of-two and prime radices directly, a
+    composite A*B by B-point DFTs, the table's twiddles W_R^(n1*k2) and
+    A-point DFTs."""
+    sign = 1.0 if inverse else -1.0
+    if radix & (radix - 1) == 0 or radix in (3, 5, 7):
+        e = np.exp(sign * 2j * np.pi * np.outer(np.arange(radix),
+                                                np.arange(radix)) / radix)
+        return (v.astype(np.complex128) @ e.T).astype(np.complex64)
+    a = split_radix(radix)
+    b = radix // a
+    y = np.empty_like(v)
+    for n1 in range(a):                       # v[n1 + a*n2], over n2
+        y[:, n1 + a * np.arange(b)] = _dft_nat(v[:, n1 + a * np.arange(b)],
+                                               b, inverse, tab, n)
+    for n1 in range(1, a):
+        for k2 in range(1, b):
+            w = _twiddle(tab, (n1 * k2 % radix) * (n // radix), n, inverse)
+            y[:, n1 + a * k2] = (y[:, n1 + a * k2] * w).astype(np.complex64)
+    out = np.empty_like(v)
+    for k2 in range(b):                       # y[n1 + a*k2], over n1
+        out[:, k2 + b * np.arange(a)] = _dft_nat(y[:, np.arange(a) + a * k2],
+                                                 a, inverse, tab, n)
+    return out
+
+
+def emulate_mixed(x: np.ndarray, inverse: bool = False) -> np.ndarray:
+    """The mixed-radix register FFT of a (n,) complex64 row by the kernel's
+    schedule, index maps, twiddles (w^r by repeated products) and R-point
+    DFTs, every butterfly of a pass at once, in float32 (no 1/n)."""
+    n = x.size
+    tab = stage_table(twiddle_table(n), n)
+    slot = mixed_slot(np.arange(n), n)
+    buf = np.zeros(int(slot.max()) + 1, np.complex64)
+    buf[slot] = x
+    ns = 1
+    for radix in MIXED[n][3]:
+        b = n // radix
+        i = np.arange(b)
+        m = i % ns
+        v = buf[mixed_slot(i[:, None] + b * np.arange(radix)[None, :], n)]
+        if ns > 1:
+            w = _twiddle(tab, m * (n // (ns * radix)), n, inverse)
+            wr = w
+            for r in range(1, radix):
+                v[:, r] = (v[:, r] * wr).astype(np.complex64)
+                wr = (wr * w).astype(np.complex64)
+        v = _dft_nat(v, radix, inverse, tab, n)
+        nxt = np.zeros_like(buf)
+        out = ((i - m) * radix + m)[:, None] + ns * np.arange(radix)[None, :]
+        nxt[mixed_slot(out, n)] = v
+        buf, ns = nxt, ns * radix
+    return buf[slot]
+
+
+def bank_ways_mixed(n: int) -> int:
+    """bank_ways for a size of the mixed table: every pass's exchange
+    reads and writes and its twiddle reads, over the half-warps of lanes
+    that run a butterfly (the composite radices' own twiddles are one
+    address per pass, a broadcast)."""
+    n_t, worst, ns = MIXED[n][0], 1, 1
+    for radix in MIXED[n][3]:
+        b = n // radix
+        for u in range(butterflies_per_thread(n, radix)):
+            for t0 in range(0, n_t, 16):
+                i = np.arange(t0, t0 + 16) + u * n_t
+                i = i[i < b]
+                if i.size == 0:
+                    continue
+                m = i % ns
+                for r in range(radix):
+                    worst = max(worst,
+                                _ways(mixed_slot(i + r * b, n)),
+                                _ways(mixed_slot((i - m) * radix + m
+                                                 + r * ns, n)))
+                if ns > 1:
+                    c, f = _twiddle_addrs(m * (n // (ns * radix)), n)
+                    worst = max(worst, _ways(c), _ways(f))
         ns *= radix
     return worst

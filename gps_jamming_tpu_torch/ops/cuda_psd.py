@@ -31,7 +31,8 @@ _CLUSTER = 8
 
 # The mixed-radix nperseg of the TPU kernel up to 16384
 # (`pallas_psd.supported`: 128 * 2^a * {3, 5, 7}); the C gate of
-# csrc/welch_psd.cu lists the same sizes.
+# csrc/welch_psd.cu lists the same sizes, each a size of the mixed-radix
+# register FFT (csrc/fft_reg_mixed.cuh, `fft_plan.MIXED`).
 MIXED_NPERSEG = (384, 640, 768, 896, 1280, 1536, 1792, 2560, 3072, 3584,
                  5120, 6144, 7168, 10240, 12288, 14336)
 

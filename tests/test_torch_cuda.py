@@ -13,9 +13,11 @@ the noise); stats max and
 sums rtol 1e-3; the arg-lag exact on rows whose top two values differ by
 more than 1e-4 relative. B1 (all three modes) and B3 are held at every
 power of two from 256 to 16384 (the register FFT of csrc/fft_reg.cuh, each
-of its variants) and at the mixed-radix n of GPS at 2.4 and 3.2 MS/s (2400,
-3200), v1's 81*128 = 10368, an odd n (3^7) and one with a generic-radix
-stage (4*127), to the same tolerances.
+of its variants), at the mixed-radix n of GPS at 2.4, 2.56, 2.8 and 3.2
+MS/s (2400, 2560, 2800, 3200), v1's 81*128 = 10368 and some of B2's
+mixed sizes (the mixed-radix register FFT of csrc/fft_reg_mixed.cuh), and
+at an odd n (3^7) and one with a generic-radix stage (4*127), which keep
+the shared-memory FFT, to the same tolerances.
 """
 import numpy as np
 import pytest
@@ -109,7 +111,9 @@ def test_welch_dispatch_on_cuda(dev):
                                        (3200, 10, 32), (10368, 4, 3),
                                        (3 ** 7, 4, 5), (4 * 127, 4, 5),
                                        (512, 4, 5), (1024, 4, 5),
-                                       (4096, 4, 4), (8192, 4, 3)])
+                                       (4096, 4, 4), (8192, 4, 3),
+                                       (2560, 10, 32), (2800, 10, 32),
+                                       (1536, 4, 5), (14336, 4, 3)])
 def test_pcf_kernel_matches_plain(dev, n, nb, nprn):
     blocks = _cplx((nb, n), seed=n, dev=dev)
     rep = _cplx((nprn, n), seed=n + 1, dev=dev)
@@ -181,7 +185,9 @@ def test_pcf_dispatch_on_cuda(dev):
     (16384, 10, 4, 71, 4.096e6), (2400, 10, 32, 71, 2.4e6),
     (3200, 10, 32, 71, 3.2e6), (10368, 4, 4, 71, 10.368e6),
     (3 ** 7, 3, 5, 7, FS), (4 * 127, 3, 5, 7, FS), (512, 3, 5, 7, FS),
-    (1024, 4, 5, 15, FS), (4096, 4, 4, 15, 4.096e6)])
+    (1024, 4, 5, 15, FS), (4096, 4, 4, 15, 4.096e6),
+    (2560, 10, 32, 71, 2.56e6), (2800, 10, 32, 71, 2.8e6),
+    (384, 3, 5, 7, FS), (12288, 4, 3, 15, 12.288e6)])
 def test_caf_std_kernel_matches_plain(dev, n, nb, nprn, nf, fs):
     """Kernel B3 against its plain version: the GPS shape, Galileo E1B's
     16384 lags (one 1024-thread block per SM), every power of two between,

@@ -1,5 +1,5 @@
-"""The register FFT's pass schedule (kernels/fft_plan.py, the Python twin of
-csrc/fft_reg.cuh) run in NumPy.
+"""The register FFTs' pass schedules (kernels/fft_plan.py, the Python twin
+of csrc/fft_reg.cuh and csrc/fft_reg_mixed.cuh) run in NumPy.
 
 The CUDA kernel cannot run here, so this is the CPU check of its index
 arithmetic: for every power of two from 256 to 16384, the schedule's
@@ -7,7 +7,7 @@ Stockham passes (thread-owned butterflies, swizzled exchange slots, the
 two-level twiddles and their repeated products) reproduce np.fft.ifft * n
 and np.fft.fft within 2e-6 of the row's largest value (float32 sums of up
 to 16384 terms), and no exchange and no twiddle read has a shared-memory
-bank conflict.
+bank conflict; the same for every size of the mixed-radix table.
 """
 import numpy as np
 import pytest
@@ -63,15 +63,83 @@ def test_schedule_shape_and_banks(n):
 
 @pytest.mark.parametrize("n", [256, 2048, 16384, 2400, 3200, 10368])
 def test_row_twiddles(n):
-    """The two-level table for a power of two (each entry within 1e-7 of
-    float64, every exponent's product within 3e-7), the half table for a
-    mixed-radix n."""
+    """The two-level table for a power of two or a size of the mixed-radix
+    register FFT (ceil(n/64) coarse entries, every exponent's product
+    within 3e-7 of float64), the half table for any other n."""
     tab = build.row_twiddles(n, torch.device("cpu")).numpy()
-    if n & (n - 1):
+    if n & (n - 1) and n not in fft_plan.MIXED:
         assert tab.shape == ((n + 1) // 2,)
         return
-    assert tab.shape == (n // 64 + 64,)
+    n_c = -(-n // 64)
+    assert tab.shape == (n_c + 64,)
     e = np.arange(n)
-    w = tab[e >> 6].astype(np.complex64) * tab[n // 64 + (e & 63)]
+    w = tab[e >> 6].astype(np.complex64) * tab[n_c + (e & 63)]
     np.testing.assert_allclose(w, np.exp(-2j * np.pi * e / n), rtol=0,
                                atol=3e-7)
+
+
+@pytest.mark.parametrize("n", [4 * 127, 3 ** 7])
+def test_row_twiddles_half_table_off_the_mixed_table(n):
+    """An n of neither FFT (a prime factor above 7, or 3^7, not in the
+    table) keeps the half table of the shared-memory FFT."""
+    assert n not in fft_plan.MIXED
+    tab = build.row_twiddles(n, torch.device("cpu")).numpy()
+    np.testing.assert_allclose(
+        tab, np.exp(-2j * np.pi * np.arange((n + 1) // 2) / n), atol=1e-7)
+
+
+MIXED = sorted(fft_plan.MIXED)
+# sizes whose best schedule found leaves a 2-way access (PERF.md, PR 5)
+TWO_WAY = {896, 2400, 2800, 3200, 10368}
+
+
+@pytest.mark.parametrize("n", MIXED)
+@pytest.mark.parametrize("inverse", [True, False])
+def test_mixed_schedule_matches_numpy_fft(n, inverse):
+    """The mixed-radix register FFT's schedule (csrc/fft_reg_mixed.cuh's
+    table, read by fft_plan): index maps, two-level twiddles, their
+    repeated products and the composite radices' own twiddles, in float32,
+    within 2e-6 of the row's largest value (measured: at most 1.1e-6)."""
+    x = _row(n, n + 2 + inverse)
+    got = fft_plan.emulate_mixed(x, inverse=inverse)
+    want = np.fft.ifft(x.astype(np.complex128)) * n if inverse \
+        else np.fft.fft(x.astype(np.complex128))
+    assert got.dtype == np.complex64
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("n", MIXED)
+def test_mixed_schedule_shape_and_banks(n):
+    """Whole warps, radices of the kernel's DFTs whose product is n, an
+    even first radix (B2 carries the overlapped half over), at most 24
+    points per thread, every exchange slot distinct, and at most one
+    access per bank pair per half-warp (two at TWO_WAY)."""
+    t, _, _, rad = fft_plan.MIXED[n]
+    assert t % 32 == 0 and t <= 1024
+    assert int(np.prod(rad)) == n and rad[0] % 2 == 0
+    # every radix nests the kernel's DFTs: powers of two up to 16, 3, 5, 7
+    for r in rad:
+        while r > 16 or (r & (r - 1) and r not in (3, 5, 7)):
+            a = fft_plan.split_radix(r)
+            assert a in (2, 4, 8, 16, 3, 5, 7)
+            r //= a
+    assert 8 <= fft_plan.mixed_points(n) <= 24
+    slots = fft_plan.mixed_slot(np.arange(n), n)
+    assert len(set(slots.tolist())) == n
+    assert fft_plan.bank_ways_mixed(n) == (2 if n in TWO_WAY else 1)
+
+
+def test_mixed_table_covers_the_sizes_the_kernels_take():
+    """The table holds GPS at the RTL-SDR rates (2400, 2560, 2800, 3200),
+    v1's 81*128 and B2's 16 mixed nperseg; csrc/welch_psd.cu's gate lists
+    exactly B2's."""
+    import re
+    from gps_jamming_tpu_torch.ops import cuda_psd
+    assert {2400, 2560, 2800, 3200, 10368} <= set(fft_plan.MIXED)
+    assert set(cuda_psd.MIXED_NPERSEG) <= set(fft_plan.MIXED)
+    src = (build.CSRC / "welch_psd.cu").read_text()
+    block = src[src.index("#define GJT_WELCH_MIXED(X)"):]
+    block = block[:block.index("\n\n")]
+    assert tuple(int(v) for v in re.findall(r"X\((\d+)\)", block)) == \
+        cuda_psd.MIXED_NPERSEG
