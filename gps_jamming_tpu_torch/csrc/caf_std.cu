@@ -34,10 +34,9 @@
 // n: every length in [256, 16384] whose prime factors are all <= 127, as
 // v1 takes every multiple of 128 with a divisor <= 256 (3200 = 25*128 at
 // 3.2 MS/s GPS, 10368 = 81*128) and the RTL-SDR rates give 2400, 2560 and
-// 2800: a power of two runs the register FFT, these and every other size
-// of fft_reg_mixed.cuh's table the mixed-radix register FFT, any other n
-// the mixed-radix one of fft_smem.cuh (radix-2 stages, then a direct
-// radix-p stage per odd prime factor).
+// 2800: a power of two and these five (GJT_CORR_SIZES) run the register
+// FFT, any other n the mixed-radix one of fft_smem.cuh (radix-2 stages,
+// then a direct radix-p stage per odd prime factor).
 #include <cuda_runtime.h>
 
 #include "pcf_correlate.cuh"
@@ -70,10 +69,8 @@ caf_mix_forward_kernel(const float2* __restrict__ x,
 cudaError_t launch_mix_forward(const float2* x, const float2* osc, float2* Y,
                                const float2* tw, int F, int nb,
                                const gjt::FftPlan& plan, cudaStream_t s) {
-  if (gjt::is_pow2(plan.n))
+  if (gjt::corr_reg_size(plan.n))
     return gjt::launch_reg_forward(x, osc, Y, tw, F * nb, nb, plan.n, s);
-  if (gjt::mixed_size(plan.n))
-    return gjt::launch_mx_forward(x, osc, Y, tw, F * nb, nb, plan.n, s);
   const size_t smem = gjt::fft_smem_bytes(plan.n);
   cudaError_t err = gjt::allow_smem(
       reinterpret_cast<const void*>(caf_mix_forward_kernel), smem);
@@ -88,8 +85,8 @@ cudaError_t launch_mix_forward(const float2* x, const float2* osc, float2* Y,
 // x: (nb, n) complex64 blocks; osc: (F, n) complex64 phasor rows; Y:
 // (F*nb, n) complex64 scratch, rows ordered (f, b); rep: (P, n) complex64
 // natural-order conj replica spectra; tw: the table of
-// `build.row_twiddles(n)` (two-level for a power of two or a size of the
-// mixed table, else half), complex64; out: the
+// `build.row_twiddles(n)` (two-level for a size of GJT_CORR_SIZES, else
+// half), complex64; out: the
 // (P, F, n) float32 surface. n in [256, 16384] with every prime factor
 // <= 127. Returns a cudaError_t (0 on success).
 extern "C" int gjt_caf_std(const void* x, const void* osc, void* Y,

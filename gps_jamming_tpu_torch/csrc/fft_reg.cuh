@@ -1,40 +1,50 @@
-// Register-resident Stockham FFT of one power-of-two row per thread block,
-// for the correlate stage of kernels B1 and B3 and their forward kernels.
+// Register-resident Stockham FFT of one row, n = 2^a 3^b 5^c 7^d, for the
+// correlate stage and the forward rows of kernels B1 and B3 and for the
+// segments of kernel B2: the sizes of GJT_REG_SCHEDULES, one template
+// instantiation each (each kernel instantiates its own list of them). Any
+// other n keeps the shared-memory FFT of fft_smem.cuh.
 //
-// n = T * P: each of the T threads holds P points in registers (P = 8 for
-// n <= 512, else 16; RegShape). B1 and B3 take n >= 256; the Welch PSD (B2)
-// also 64 and 128. Every power of two n is its own template
-// instantiation, so n, T, the radices, the strides and every register and
-// address offset are compile-time constants. The transform is a Stockham
-// autosort of
-// radix-P passes and, where log2(n) is no multiple of log2(P), one last
-// pass of radix n / P^a (2, 4 or 8):
-// - a pass of radix R has n/R butterflies; thread t owns i = t + u*T,
-//   u < P/R. Butterfly i reads in[i + r*n/R] (r < R), multiplies point r
-//   by w^r, w = exp(+-2*pi*i * m / (Ns*R)), m = i % Ns, Ns the product of
-//   the earlier radices, runs the R-point DFT in registers (radix-2 steps
-//   with constant twiddles) and writes out[(i - m)*R + m + r*Ns];
-// - so input and output are in natural order: the first pass reads thread
-//   t's points x[t + j*T] straight from device memory (coalesced: the
-//   caller's replica product goes from global memory into registers), and
-//   the last pass leaves X[t + j*T] in register j (coalesced stores, and
-//   the statistics epilogue knows each register's lag). There is no
-//   bit-reversed scatter.
-// - Between passes the points go through shared memory at the float2 slot
-//   reg_slot(a) = a ^ ((a >> log2 P) & 15). Reads (consecutive i) and
-//   writes (stride R at Ns = 1, blocks of Ns after) of every pass then
-//   touch 16 distinct bank pairs per half-warp: no bank conflicts
-//   (kernels/fft_plan.py:bank_ways checks every n).
-// - 2048 = 16*16*8 takes 3 passes and 2 exchanges (11 radix-2 passes
-//   before), 16384 = 16*16*16*4 takes 4 passes and 3 exchanges (14).
-// - Twiddles: w = coarse[e >> 6] * fine[e & 63] (e = m*n/(Ns*R)) from a
-//   two-level table of n/64 + 64 entries (2.5 KB at 16384, built in float64
-//   on the host, stored as float32, staged in shared memory with the fine
-//   entries swizzled so that no read conflicts), then w^r by repeated
-//   products; no half-row twiddle table in shared memory.
+// The schedule of each size is a compile-time constant: T threads, the
+// exchange slot's swizzle, and the radices in pass order. A pass of radix R
+// has B = n/R butterflies; thread t runs butterflies i = t + u*T, u < U =
+// ceil(B/T) (a thread past B idles in its last one), and holds its U*R
+// points in registers v[u*R + r]. Butterfly i reads in[i + r*B], multiplies
+// point r by w^r (w = exp(-+2*pi*i*m/(Ns*R)), m = i % Ns, Ns the product of
+// the earlier radices), runs the R-point DFT in registers and writes
+// out[(i - m)*R + m + q*Ns]; so input and output are in natural order: the
+// first pass reads x[i + r*B0] from device memory into v[u*R0 + r]
+// (coalesced, no scatter), and the last pass leaves X[i + r*BL] in register
+// RegShape::out_reg(u, r) (BL = n/RL), so an epilogue knows each register's
+// lag. Every register index is a constant once the loops unroll (a run-time
+// index puts the register array in local memory).
+// - A power of two: P = 8 points per thread up to 512, else 16, T = n/P,
+//   radix-P passes, then the rest (2048 = 16*16*8: 3 passes, 2 exchanges;
+//   16384 = 16*16*16*4: 4 passes, 3), swizzled by the four bits above
+//   log2 P. The other sizes: per n a thread count, a swizzle and radices
+//   from {2..16, 3, 5, 7, and composites like 10, 12, 15, 20}, chosen by a
+//   search in Python over factorizations (idle lanes, passes, bank_ways).
+// - R-point DFTs: radix 2, 4, 8, 16 by radix-2 decimation in frequency
+//   with constant twiddles (then a bit reversal, a renaming of registers);
+//   3, 5 and 7 directly, pairing x_m with x_{R-m}, with constant roots; a
+//   composite R = A*B as B-point DFTs, the twiddles W_R^(n1*k2) (read from
+//   the row's table) and A-point DFTs, A the largest power-of-two factor of
+//   R, else its smallest prime.
+// - Exchanges go through shared memory at slot(a) = a ^ ((a >> s) & 15)
+//   or a + (a >> s) (the schedule's swizzle): kernels/fft_plan.py's
+//   bank_ways checks each with the twiddle reads: one access per bank pair
+//   per half-warp, or two at 896, 2400, 2800, 3200 and 10368 (the 5^2 and
+//   3^4 orders, and 896's and 2400's fine twiddles, which no swizzle of
+//   these kinds tried cleared).
+// - Twiddles: coarse[e >> 6] * fine[e & 63] from a two-level table of
+//   ceil(n/64) + 64 entries (2.5 KB at 16384, built in float64 on the host,
+//   stored as float32), staged in shared memory at swizzled slots, then w^r
+//   by repeated products; no half-row table.
+// - Two exchange buffers up to 4096 (one barrier per exchange), else one
+//   (two 128 KB rows of 16384 do not fit the SM's 227 KB, and 8192's 512
+//   threads fill the SM's registers alone).
 //
-// kernels/fft_plan.py mirrors this schedule and its index maps in Python,
-// and tests/test_torch_fft_plan.py runs them in NumPy against np.fft.
+// kernels/fft_plan.py reads the table below and runs each schedule in NumPy
+// (tests/test_torch_fft_plan.py, against np.fft).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,33 +56,126 @@ namespace gjt {
 constexpr int kFineBits = 6;
 constexpr int kFine = 1 << kFineBits;     // fine table entries
 
-// Exchange buffers of an n-point row: two up to 4096 (one barrier per
-// exchange), else one (two 128 KB rows of 16384 do not fit the SM's
-// 227 KB, and 8192's 512 threads fill the SM's registers alone).
-static __host__ __device__ constexpr int reg_buffers(int n) {
-  return n <= 4096 ? 2 : 1;
+// X(n, threads, pad, shift, radices...): pad 0 swizzles the exchange
+// slots by XOR, pad 1 pads one slot per 2^shift.
+#define GJT_REG_SCHEDULES(X)         \
+  X(64, 8, 0, 3, 8, 8)               \
+  X(128, 16, 0, 3, 8, 8, 2)          \
+  X(256, 32, 0, 3, 8, 8, 4)          \
+  X(512, 64, 0, 3, 8, 8, 8)          \
+  X(1024, 64, 0, 4, 16, 16, 4)       \
+  X(2048, 128, 0, 4, 16, 16, 8)      \
+  X(4096, 256, 0, 4, 16, 16, 16)     \
+  X(8192, 512, 0, 4, 16, 16, 16, 2)  \
+  X(16384, 1024, 0, 4, 16, 16, 16, 4) \
+  X(384, 32, 0, 2, 4, 12, 8)         \
+  X(640, 32, 0, 2, 4, 20, 8)         \
+  X(768, 32, 0, 3, 8, 8, 12)         \
+  X(896, 64, 0, 3, 8, 8, 14)         \
+  X(1280, 64, 0, 3, 8, 8, 20)        \
+  X(1536, 96, 1, 4, 16, 6, 16)       \
+  X(1792, 128, 1, 4, 16, 7, 16)      \
+  X(2400, 160, 0, 2, 8, 15, 20)      \
+  X(2560, 160, 1, 4, 8, 16, 20)      \
+  X(2800, 160, 0, 6, 20, 7, 20)      \
+  X(3072, 192, 1, 4, 16, 12, 16)     \
+  X(3200, 160, 0, 4, 8, 20, 20)      \
+  X(3584, 256, 1, 4, 16, 14, 16)     \
+  X(5120, 320, 1, 4, 16, 16, 20)     \
+  X(6144, 256, 0, 3, 8, 8, 8, 12)    \
+  X(7168, 512, 1, 4, 2, 16, 14, 16)  \
+  X(10240, 640, 1, 4, 8, 16, 5, 16)  \
+  X(10368, 864, 0, 2, 12, 12, 6, 12) \
+  X(12288, 768, 1, 4, 16, 3, 16, 16) \
+  X(14336, 896, 1, 4, 8, 16, 7, 16)
+
+template <int... Rs>
+struct Radices {};
+
+template <int N>
+struct RegSchedule;
+
+#define GJT_REG_DEF(NN, TT, PAD, SHIFT, ...)                  \
+  template <>                                                 \
+  struct RegSchedule<NN> {                                    \
+    static constexpr int T = TT, kPad = PAD, kShift = SHIFT;  \
+    using Rad = Radices<__VA_ARGS__>;                         \
+  };
+GJT_REG_SCHEDULES(GJT_REG_DEF)
+#undef GJT_REG_DEF
+
+// Butterflies per thread of a radix-R pass.
+template <int N, int T, int R>
+constexpr int kUse = (N / R + T - 1) / T;
+
+template <int N, int T, int... Rs>
+__host__ __device__ constexpr int max_points(Radices<Rs...>) {
+  int m = 0;
+  ((m = kUse<N, T, Rs> * Rs > m ? kUse<N, T, Rs> * Rs : m), ...);
+  return m;
 }
 
-// The shape of an N-point row (kernels/fft_plan.py has its twin): P points
-// per thread, T threads.
+template <int R, int... Rs>
+__host__ __device__ constexpr int first_radix(Radices<R, Rs...>) {
+  return R;
+}
+
+template <int... Rs>
+__host__ __device__ constexpr int last_radix(Radices<Rs...>) {
+  int l = 0;
+  ((l = Rs), ...);
+  return l;
+}
+
+template <int N>
+static __host__ __device__ __forceinline__ constexpr int reg_slot(int a) {
+  return RegSchedule<N>::kPad ? a + (a >> RegSchedule<N>::kShift)
+                              : a ^ ((a >> RegSchedule<N>::kShift) & 15);
+}
+
+// The shape of an N-point row: T threads, P registers (the most points of
+// any pass), the first pass (radix R0, B0 butterflies, U0 per thread) and
+// the last (RL, BL, UL).
 template <int N>
 struct RegShape {
-  static_assert(N >= 64 && N <= 16384 && (N & (N - 1)) == 0,
-                "a power of two in [64, 16384]");
-  static constexpr int P = N <= 512 ? 8 : 16;
-  static constexpr int T = N / P;
-  static constexpr int kBuffers = reg_buffers(N);
+  using Sc = RegSchedule<N>;
+  using Rad = typename Sc::Rad;
+  static constexpr int T = Sc::T;
+  static constexpr int P = max_points<N, T>(Rad{});
+  static constexpr int R0 = first_radix(Rad{}), B0 = N / R0;
+  static constexpr int U0 = kUse<N, T, R0>;
+  static constexpr int RL = last_radix(Rad{}), BL = N / RL;
+  static constexpr int UL = kUse<N, T, RL>;
+  // the last pass leaves the registers X[t + j*T]: every power of two
+  static constexpr bool kFullL = UL * T == BL;
+  // the lags of a thread's registers ascend with j
+  static constexpr bool kAscending = kFullL || UL == 1;
+  static constexpr int kBuffers = N <= 4096 ? 2 : 1;
+  // float2 slots: the XOR stays within each aligned 16 (N % 16 == 0)
+  static constexpr int kBufLen = Sc::kPad ? reg_slot<N>(N - 1) + 1 : N;
+  static constexpr int kCoarse = (N + kFine - 1) >> kFineBits;
+  // the table in shared memory: coarse slots rounded up to 16, then fine
+  static constexpr int kCoarseSlots = (kCoarse + 15) / 16 * 16;
+  static constexpr int kTabLen = kCoarseSlots + kFine;
+  static_assert(T <= 1024 && (T % 32 == 0 || (T >= 8 && (T & (T - 1)) == 0)),
+                "whole warps, or a power of two below a warp");
+  static_assert(Sc::kPad || N % 16 == 0, "an XOR swizzle needs N % 16 == 0");
+
+  // The register that holds X[i + r*BL] of the last pass's butterfly
+  // i = t + u*T after the transform.
+  static __host__ __device__ constexpr int out_reg(int u, int r) {
+    return kFullL ? u + r * UL : u * RL + r;
+  }
+  // The index X holds in register j < UL*RL of thread t (N: none).
+  static __device__ __forceinline__ int out_index(int t, int j) {
+    if constexpr (kFullL) {
+      return t + j * T;
+    } else {
+      const int i = t + (j / RL) * T;
+      return i < BL ? i + (j % RL) * BL : N;
+    }
+  }
 };
-
-// The radix of the pass after earlier radices of product NS: P while at
-// least P points per sub-transform remain, else the rest.
-template <int N, int NS>
-constexpr int kRadix = N / NS >= RegShape<N>::P ? RegShape<N>::P : N / NS;
-
-// Entries of the two-level table: n/64 coarse, then 64 fine.
-static __host__ __device__ __forceinline__ int reg_tw_len(int n) {
-  return (n >> kFineBits) + kFine;
-}
 
 // Who runs a row: its thread index t < T and the barrier of its threads.
 // BlockRow: the whole block (B1, B3). GroupRow<T>: the G = blockDim / T
@@ -107,20 +210,46 @@ struct GroupRow {
 // Shared-memory slot of fine entry l < 64: l XOR its two high bits. A
 // pass's half-warp reads the fine entries at a stride of 1-32; the XOR
 // spreads each stride over distinct bank pairs (4-way conflicts at 2048
-// and 16384 without it). The coarse reads never conflict.
+// and 16384 without it).
 static __device__ __forceinline__ int fine_slot(int l) { return l ^ (l >> 4); }
 
-template <int P>
-static __device__ __forceinline__ int reg_slot(int a) {
-  constexpr int kShift = P == 16 ? 4 : 3;
-  static_assert(P == 8 || P == 16, "P is 8 or 16");
-  return a ^ ((a >> kShift) & 15);
+// Shared-memory slot of coarse entry h of an N-point table. A mixed size:
+// h XOR its next four bits, which spreads the stride-4 coarse reads of
+// 12288's radix-3 pass over distinct bank pairs. A power of two: h, as no
+// pass's coarse reads conflict there, and a thread's twiddles of one pass
+// then sit at one address plus constants.
+template <int N>
+static __device__ __forceinline__ int coarse_slot(int h) {
+  if constexpr ((N & (N - 1)) == 0) {
+    return h;
+  } else {
+    return h ^ ((h >> 4) & 15);
+  }
+}
+
+// exp(-+2*pi*i*e/N) from the two-level table in shared memory.
+template <int N, bool INV>
+static __device__ __forceinline__ float2 reg_twiddle(const float2* tab,
+                                                     int e) {
+  float2 w = cmul(tab[coarse_slot<N>(e >> kFineBits)],
+                  tab[RegShape<N>::kCoarseSlots + fine_slot(e & (kFine - 1))]);
+  if (INV) w.y = -w.y;
+  return w;
+}
+
+// Copies an N-point row's two-level table (ceil(N/64) + 64 entries) into
+// shared memory at coarse_slot and fine_slot (no sync).
+template <int N>
+static __device__ __forceinline__ void stage_reg_twiddles(float2* tab_s,
+                                                          const float2* tab) {
+  constexpr int kC = RegShape<N>::kCoarse;
+  for (int k = threadIdx.x; k < kC + kFine; k += blockDim.x)
+    tab_s[k < kC ? coarse_slot<N>(k)
+                 : RegShape<N>::kCoarseSlots + fine_slot(k - kC)] = tab[k];
 }
 
 // The bits of r < 2^bits reversed, bits <= 4: closed form, so that an
-// unrolled loop's constant r folds to a constant register index (a loop or
-// a recursion here would leave the index to run time, and the register
-// array in local memory).
+// unrolled loop's constant r folds to a constant register index.
 static __host__ __device__ __forceinline__ constexpr int brev4(int r,
                                                                int bits) {
   return (((r & 1) << 3) | ((r & 2) << 1) | ((r & 4) >> 1) |
@@ -191,27 +320,136 @@ static __device__ __forceinline__ void dft_reg(float2* v) {
   dif_stages<R, R, INV>(v);
 }
 
-// exp(-+2*pi*i*e/N) from the two-level table in shared memory.
-template <int N, bool INV>
-static __device__ __forceinline__ float2 reg_twiddle(const float2* tab,
-                                                     int e) {
-  float2 w = cmul(tab[e >> kFineBits],
-                  tab[(N >> kFineBits) + fine_slot(e & (kFine - 1))]);
-  if (INV) w.y = -w.y;
-  return w;
+// (cos, sin)(2*pi*j/R) for R in {3, 5, 7} and 0 < j < R: constants once j
+// is.
+template <int R>
+static __device__ __forceinline__ float2 prime_root(int j) {
+  const int h = j <= R / 2 ? j : R - j;
+  const float sg = j <= R / 2 ? 1.f : -1.f;
+  float c, s;
+  if constexpr (R == 3) {
+    c = -0.5f;
+    s = 0.86602540378443865f;
+  } else if constexpr (R == 5) {
+    c = h == 1 ? 0.30901699437494742f : -0.80901699437494742f;
+    s = h == 1 ? 0.95105651629515357f : 0.58778525229247313f;
+  } else {
+    static_assert(R == 7, "a prime radix is 3, 5 or 7");
+    c = h == 1 ? 0.62348980185873353f
+               : (h == 2 ? -0.22252093395631440f : -0.90096886790241913f);
+    s = h == 1 ? 0.78183148246802981f
+               : (h == 2 ? 0.97492791218182361f : 0.43388373911755812f);
+  }
+  return make_float2(c, sg * s);
 }
 
-// The butterflies of the pass of radix R after earlier radices of product
-// NS on the thread's registers: twiddles (NS > 1), then the R-point DFTs.
-// Leaves X[r] of butterfly u in v[u*R + brev(r)].
+// In-register R-point DFT of v[0..R), R in {3, 5, 7}, natural order out:
+// y_q = x_0 + sum_m (x_m + x_{R-m}) cos(2 pi q m/R) -+ i (x_m - x_{R-m})
+// sin(2 pi q m/R), m = 1..R/2, and y_{R-q} with the sine's sign flipped.
+template <int R, bool INV>
+static __device__ __forceinline__ void dft_prime(float2* v) {
+  constexpr int H = R / 2;
+  float2 a[H], b[H], o[R];
+  o[0] = v[0];
+#pragma unroll
+  for (int m = 1; m <= H; ++m) {
+    a[m - 1] = make_float2(v[m].x + v[R - m].x, v[m].y + v[R - m].y);
+    b[m - 1] = make_float2(v[m].x - v[R - m].x, v[m].y - v[R - m].y);
+    o[0].x += a[m - 1].x;
+    o[0].y += a[m - 1].y;
+  }
+#pragma unroll
+  for (int q = 1; q <= H; ++q) {
+    float2 tq = v[0], uq = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int m = 1; m <= H; ++m) {
+      const float2 cs = prime_root<R>((q * m) % R);
+      tq.x += a[m - 1].x * cs.x;
+      tq.y += a[m - 1].y * cs.x;
+      uq.x += b[m - 1].x * cs.y;
+      uq.y += b[m - 1].y * cs.y;
+    }
+    const float2 lo = make_float2(tq.x + uq.y, tq.y - uq.x);
+    const float2 hi = make_float2(tq.x - uq.y, tq.y + uq.x);
+    o[q] = INV ? hi : lo;
+    o[R - q] = INV ? lo : hi;
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k) v[k] = o[k];
+}
+
+static __host__ __device__ constexpr bool pow2_radix(int r) {
+  return (r & (r - 1)) == 0;
+}
+
+// A of a composite R = A*B: its largest power-of-two factor, else its
+// smallest (odd) prime factor.
+static __host__ __device__ constexpr int split_radix(int r) {
+  if ((r & -r) > 1) return r & -r;
+  int f = 3;
+  while (r % f) f += 2;
+  return f;
+}
+
+// In-register R-point DFT of v[0..R), natural order out; composite
+// internal twiddles W_R^k = W_N^(k*N/R) from the row's table.
+template <int R, bool INV, int N>
+static __device__ __forceinline__ void dft_nat(float2* v, const float2* tab) {
+  if constexpr (pow2_radix(R)) {
+    dft_reg<R, INV>(v);
+    float2 o[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) o[k] = v[brev4(k, kLog2<R>)];
+#pragma unroll
+    for (int k = 0; k < R; ++k) v[k] = o[k];
+  } else if constexpr (R == 3 || R == 5 || R == 7) {
+    dft_prime<R, INV>(v);
+  } else {
+    constexpr int A = split_radix(R), B = R / A;
+    static_assert(A > 1 && B > 1, "a composite radix");
+    // x[n1 + A*n2]: B-point DFTs over n2 -> Y[n1][k2] at v[n1 + A*k2]
+#pragma unroll
+    for (int n1 = 0; n1 < A; ++n1) {
+      float2 s[B];
+#pragma unroll
+      for (int n2 = 0; n2 < B; ++n2) s[n2] = v[n1 + A * n2];
+      dft_nat<B, INV, N>(s, tab);
+#pragma unroll
+      for (int k2 = 0; k2 < B; ++k2) v[n1 + A * k2] = s[k2];
+    }
+#pragma unroll
+    for (int n1 = 1; n1 < A; ++n1)
+#pragma unroll
+      for (int k2 = 1; k2 < B; ++k2)
+        v[n1 + A * k2] = cmul(v[n1 + A * k2],
+                              reg_twiddle<N, INV>(tab, (n1 * k2 % R) * (N / R)));
+    // A-point DFTs over n1 -> X[k2 + B*k1]
+    float2 o[R];
+#pragma unroll
+    for (int k2 = 0; k2 < B; ++k2) {
+      float2 s[A];
+#pragma unroll
+      for (int n1 = 0; n1 < A; ++n1) s[n1] = v[n1 + A * k2];
+      dft_nat<A, INV, N>(s, tab);
+#pragma unroll
+      for (int k1 = 0; k1 < A; ++k1) o[k2 + B * k1] = s[k1];
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) v[k] = o[k];
+  }
+}
+
+// The butterflies of the radix-R pass after earlier radices of product NS:
+// twiddles (NS > 1), then the R-point DFTs.
 template <int N, int NS, int R, bool INV, class Row>
 static __device__ __forceinline__ void reg_butterflies(
     float2 (&v)[RegShape<N>::P], const float2* tab) {
-  constexpr int P = RegShape<N>::P, T = RegShape<N>::T;
+  constexpr int T = RegShape<N>::T, U = kUse<N, T, R>;
 #pragma unroll
-  for (int u = 0; u < P / R; ++u) {
+  for (int u = 0; u < U; ++u) {
     if constexpr (NS > 1) {
-      const int m = (Row::t() + u * T) & (NS - 1);
+      // unsigned: a power-of-two NS is a mask, not a signed remainder
+      const int m = static_cast<int>(static_cast<unsigned>(Row::t() + u * T) % NS);
       const float2 w = reg_twiddle<N, INV>(tab, m * (N / (NS * R)));
       float2 wr = w;
 #pragma unroll
@@ -220,7 +458,7 @@ static __device__ __forceinline__ void reg_butterflies(
         if (r + 1 < R) wr = cmul(wr, w);
       }
     }
-    dft_reg<R, INV>(v + u * R);
+    dft_nat<R, INV, N>(v + u * R, tab);
   }
 }
 
@@ -228,91 +466,115 @@ static __device__ __forceinline__ void reg_butterflies(
 template <int N, int NS, int R, class Row>
 static __device__ __forceinline__ void reg_store(
     const float2 (&v)[RegShape<N>::P], float2* buf) {
-  constexpr int P = RegShape<N>::P, T = RegShape<N>::T;
+  constexpr int T = RegShape<N>::T, B = N / R, U = kUse<N, T, R>;
 #pragma unroll
-  for (int u = 0; u < P / R; ++u) {
+  for (int u = 0; u < U; ++u) {
     const int i = Row::t() + u * T;
-    const int m = i & (NS - 1);
-    const int base = (i - m) * R + m;
+    if (U * T == B || i < B) {
+      const int m = static_cast<int>(static_cast<unsigned>(i) % NS);
+      const int base = (i - m) * R + m;
 #pragma unroll
-    for (int r = 0; r < R; ++r)
-      buf[reg_slot<P>(base + r * NS)] = v[u * R + brev4(r, kLog2<R>)];
+      for (int r = 0; r < R; ++r) buf[reg_slot<N>(base + r * NS)] = v[u * R + r];
+    }
   }
 }
 
-// The next pass's inputs (radix R): v[u*R + r] = in[t + u*T + r*N/R].
+// The next pass's inputs (radix R): v[u*R + r] = in[i + r*N/R], zero past
+// the pass's last butterfly.
 template <int N, int R, class Row>
 static __device__ __forceinline__ void reg_load(float2 (&v)[RegShape<N>::P],
                                                 const float2* buf) {
-  constexpr int P = RegShape<N>::P, T = RegShape<N>::T;
+  constexpr int T = RegShape<N>::T, B = N / R, U = kUse<N, T, R>;
 #pragma unroll
-  for (int u = 0; u < P / R; ++u)
+  for (int u = 0; u < U; ++u) {
+    const int i = Row::t() + u * T;
 #pragma unroll
-    for (int r = 0; r < R; ++r)
-      v[u * R + r] = buf[reg_slot<P>(Row::t() + u * T + r * (N / R))];
-}
-
-// The passes from the one after earlier radices of product NS to the end.
-// The last leaves its outputs in registers, in natural order: v[j] =
-// X[t + j*T]. Every other stores, waits, and loads the next one's inputs.
-template <int N, int NS, bool INV, class Row>
-static __device__ __forceinline__ void reg_passes(
-    float2 (&v)[RegShape<N>::P], float2* buf0, float2* buf1,
-    const float2* tab, int& phase) {
-  constexpr int P = RegShape<N>::P, R = kRadix<N, NS>;
-  reg_butterflies<N, NS, R, INV, Row>(v, tab);
-  if constexpr (NS * R == N) {
-    float2 o[P];
-#pragma unroll
-    for (int u = 0; u < P / R; ++u)
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        o[u + r * (P / R)] = v[u * R + brev4(r, kLog2<R>)];
-#pragma unroll
-    for (int j = 0; j < P; ++j) v[j] = o[j];
-  } else {
-    float2* buf = (phase++ & 1) ? buf1 : buf0;
-    reg_store<N, NS, R, Row>(v, buf);
-    Row::sync();
-    reg_load<N, kRadix<N, NS * R>, Row>(v, buf);
-    if constexpr (RegShape<N>::kBuffers == 1) Row::sync();
-    reg_passes<N, NS * R, INV, Row>(v, buf0, buf1, tab, phase);
+    for (int r = 0; r < R; ++r) {
+      if (U * T == B || i < B) {
+        v[u * R + r] = buf[reg_slot<N>(i + r * B)];
+      } else {
+        v[u * R + r] = make_float2(0.f, 0.f);
+      }
+    }
   }
 }
 
-// The whole transform of the row whose points x[t + j*T] are in v[j] on
-// entry; X[t + j*T] in v[j] on return (INV: inverse, no 1/n). Exchanges
-// alternate between buf0 and buf1 (`phase` counts them across calls);
-// with one buffer each load is followed by a barrier, so the next store
-// cannot overwrite points still to be read. tab: the two-level table in
-// shared memory, visible to every thread. Row: who runs the row (BlockRow
-// or a GroupRow<T> with T = RegShape<N>::T).
+// The passes from the one after earlier radices of product NS to the end.
+// Every pass but the last stores, waits, and loads the next one's inputs;
+// the last leaves its outputs in registers at RegShape::out_reg.
+template <int N, int NS, bool INV, class Row, int R, int... Rest>
+static __device__ __forceinline__ void reg_passes(
+    float2 (&v)[RegShape<N>::P], float2* buf0, float2* buf1,
+    const float2* tab, int& phase) {
+  using S = RegShape<N>;
+  reg_butterflies<N, NS, R, INV, Row>(v, tab);
+  if constexpr (sizeof...(Rest) > 0) {
+    float2* buf = (phase++ & 1) ? buf1 : buf0;
+    reg_store<N, NS, R, Row>(v, buf);
+    Row::sync();
+    reg_load<N, first_radix(Radices<Rest...>{}), Row>(v, buf);
+    if constexpr (S::kBuffers == 1) Row::sync();
+    reg_passes<N, NS * R, INV, Row, Rest...>(v, buf0, buf1, tab, phase);
+  } else if constexpr (S::kFullL && S::UL > 1) {
+    // a whole last pass: rename the registers so that v[j] = X[t + j*T]
+    float2 o[S::UL * R];
+#pragma unroll
+    for (int u = 0; u < S::UL; ++u)
+#pragma unroll
+      for (int r = 0; r < R; ++r) o[S::out_reg(u, r)] = v[u * R + r];
+#pragma unroll
+    for (int j = 0; j < S::UL * R; ++j) v[j] = o[j];
+  }
+}
+
+template <int N, bool INV, class Row, int... Rs>
+static __device__ __forceinline__ void reg_fft_sched(
+    float2 (&v)[RegShape<N>::P], float2* buf0, float2* buf1,
+    const float2* tab, int& phase, Radices<Rs...>) {
+  reg_passes<N, 1, INV, Row, Rs...>(v, buf0, buf1, tab, phase);
+}
+
+// The whole transform of the row whose points x[i + r*B0] are in
+// v[u*R0 + r] on entry (zero past B0); X[i + r*BL] in v[out_reg(u, r)] on
+// return (INV: inverse, no 1/n). Exchanges alternate between buf0 and buf1
+// (`phase` counts them across calls); with one buffer each load is
+// followed by a barrier, so the next store cannot overwrite points still
+// to be read. tab: the two-level table in shared memory, visible to every
+// thread. Row: who runs the row (BlockRow or a GroupRow<T>).
 template <int N, bool INV, class Row = BlockRow>
 static __device__ __forceinline__ void reg_fft(float2 (&v)[RegShape<N>::P],
                                                float2* buf0, float2* buf1,
-                                               const float2* tab,
-                                               int& phase) {
-  reg_passes<N, 1, INV, Row>(v, buf0, buf1, tab, phase);
+                                               const float2* tab, int& phase) {
+  reg_fft_sched<N, INV, Row>(v, buf0, buf1, tab, phase,
+                             typename RegShape<N>::Rad{});
 }
 
-// Copies the two-level table into shared memory, the fine entries at
-// their fine_slot (no sync).
-static __device__ __forceinline__ void stage_reg_twiddles(float2* tab_s,
-                                                          const float2* tab,
-                                                          int n) {
-  const int n_coarse = n >> kFineBits;
-  for (int k = threadIdx.x; k < reg_tw_len(n); k += blockDim.x)
-    tab_s[k < n_coarse ? k : n_coarse + fine_slot(k - n_coarse)] = tab[k];
+// The first pass's points of thread t: v[u*R0 + r] = at(i + r*B0) for its
+// butterflies i = t + u*T, zero past B0 (`at(k)` reads point k of the row).
+template <int N, class At>
+static __device__ __forceinline__ void reg_first(float2 (&v)[RegShape<N>::P],
+                                                 int t, At at) {
+  using S = RegShape<N>;
+#pragma unroll
+  for (int u = 0; u < S::U0; ++u) {
+    const int i = t + u * S::T;
+#pragma unroll
+    for (int r = 0; r < S::R0; ++r) {
+      if (S::U0 * S::T == S::B0 || i < S::B0) {
+        v[u * S::R0 + r] = at(i + r * S::B0);
+      } else {
+        v[u * S::R0 + r] = make_float2(0.f, 0.f);
+      }
+    }
+  }
 }
 
-// Every power of two the register FFT takes, one instantiation each.
-#define GJT_REG_SIZES(X) \
-  X(256) X(512) X(1024) X(2048) X(4096) X(8192) X(16384)
-
-// Exchange buffers and table of an n-point row, bytes.
-static inline size_t reg_smem_bytes(int n) {
-  return sizeof(float2) * (static_cast<size_t>(reg_buffers(n)) * n +
-                           reg_tw_len(n));
+// Exchange buffers and table of an N-point row, bytes.
+template <int N>
+static inline size_t reg_smem_bytes() {
+  using S = RegShape<N>;
+  return sizeof(float2) * (static_cast<size_t>(S::kBuffers) * S::kBufLen +
+                           S::kTabLen);
 }
 
 // Forward transform of rows: row b of x (nb rows per phasor row when osc is
@@ -325,49 +587,29 @@ reg_forward_kernel(const float2* __restrict__ x,
   using S = RegShape<N>;
   extern __shared__ float2 smem[];
   float2* buf0 = smem;
-  float2* buf1 = S::kBuffers == 2 ? smem + N : smem;
-  float2* tab_s = smem + S::kBuffers * N;
-  stage_reg_twiddles(tab_s, tab, N);
+  float2* buf1 = S::kBuffers == 2 ? smem + S::kBufLen : smem;
+  float2* tab_s = smem + S::kBuffers * S::kBufLen;
+  stage_reg_twiddles<N>(tab_s, tab);
   const int row = blockIdx.x, t = threadIdx.x;
   float2 v[S::P];
+  // one branch per row, not one per point
   if (osc != nullptr) {
-    const float2* xb = x + static_cast<long long>(row % nb) * N + t;
-    const float2* of = osc + static_cast<long long>(row / nb) * N + t;
-#pragma unroll
-    for (int j = 0; j < S::P; ++j) v[j] = cmul(xb[j * S::T], of[j * S::T]);
+    const float2* xb = x + static_cast<long long>(row % nb) * N;
+    const float2* of = osc + static_cast<long long>(row / nb) * N;
+    reg_first<N>(v, t, [&](int k) { return cmul(xb[k], of[k]); });
   } else {
-    const float2* src = x + static_cast<long long>(row) * N + t;
-#pragma unroll
-    for (int j = 0; j < S::P; ++j) v[j] = src[j * S::T];
+    const float2* xb = x + static_cast<long long>(row) * N;
+    reg_first<N>(v, t, [&](int k) { return xb[k]; });
   }
   __syncthreads();                       // the table is staged
   int phase = 0;
   reg_fft<N, false>(v, buf0, buf1, tab_s, phase);
-  float2* dst = Y + static_cast<long long>(row) * N + t;
+  float2* dst = Y + static_cast<long long>(row) * N;
 #pragma unroll
-  for (int j = 0; j < S::P; ++j) dst[j * S::T] = v[j];
-}
-
-// Launches reg_forward_kernel over `rows` rows of a power-of-two n in
-// [256, 16384]; osc may be null.
-static inline cudaError_t launch_reg_forward(const float2* x,
-                                             const float2* osc, float2* Y,
-                                             const float2* tab, int rows,
-                                             int nb, int n, cudaStream_t s) {
-  const size_t smem = reg_smem_bytes(n);
-  cudaError_t err = cudaErrorInvalidValue;
-#define GJT_FWD(NN)                                                         \
-  if (n == NN) {                                                            \
-    err = allow_smem(reinterpret_cast<const void*>(reg_forward_kernel<NN>), \
-                     smem);                                                 \
-    if (err != cudaSuccess) return err;                                     \
-    reg_forward_kernel<NN><<<rows, RegShape<NN>::T, smem, s>>>(x, osc, Y,   \
-                                                               tab, nb);    \
-    return cudaGetLastError();                                              \
+  for (int j = 0; j < S::UL * S::RL; ++j) {
+    const int k = S::out_index(t, j);
+    if (S::kFullL || k < N) dst[k] = v[j];
   }
-  GJT_REG_SIZES(GJT_FWD)
-#undef GJT_FWD
-  return err;
 }
 
 }  // namespace gjt

@@ -7,9 +7,9 @@
 // - fft_mixed: any n = 2^a * p_1 * ... * p_k with odd primes p_i <=
 //   kMaxRadix (FftPlan) from a mixed-radix digit-reversed load (digit_rev):
 //   a radix-2 stages (fft_radix2), then one radix-p stage per odd prime,
-//   ascending. B1 and B3 take it at every n that is neither a power of two
-//   nor a size of fft_reg_mixed.cuh's table (those rows take the register
-//   FFTs of fft_reg.cuh and fft_reg_mixed.cuh).
+//   ascending. B1 and B3 take it at every n that is not one of
+//   GJT_CORR_SIZES (pcf_correlate.cuh; those rows take the register FFT of
+//   fft_reg.cuh).
 // The twiddle table tw[k] = exp(-2*pi*i*k/n), k < (n+1)/2, is float32
 // computed in float64 on the host and staged into shared memory by the
 // caller; `twiddle` reads the rest of the circle from its conjugate

@@ -28,9 +28,9 @@
 // reaches device memory: the only output is 5 x (P, rows) floats.
 //
 // n: every length in [256, 16384] whose prime factors are all <= 127; a
-// power of two runs the register FFT, a size of fft_reg_mixed.cuh's table
-// (2400, 2560, 2800, 3200, 10368, ...) the mixed-radix register FFT, any
-// other n the mixed-radix shared-memory one (fft_smem.cuh).
+// power of two and 2400, 2560, 2800, 3200 and 10368 (GJT_CORR_SIZES) run
+// the register FFT, any other n the mixed-radix shared-memory one
+// (fft_smem.cuh).
 #include <cuda_runtime.h>
 
 #include "pcf_correlate.cuh"
@@ -58,10 +58,8 @@ pcf_forward_kernel(const float2* __restrict__ y, float2* __restrict__ Y,
 cudaError_t launch_forward(const float2* y, float2* Y, const float2* tw,
                            int rows, const gjt::FftPlan& plan,
                            cudaStream_t s) {
-  if (gjt::is_pow2(plan.n))
+  if (gjt::corr_reg_size(plan.n))
     return gjt::launch_reg_forward(y, nullptr, Y, tw, rows, 1, plan.n, s);
-  if (gjt::mixed_size(plan.n))
-    return gjt::launch_mx_forward(y, nullptr, Y, tw, rows, 1, plan.n, s);
   const size_t smem = gjt::fft_smem_bytes(plan.n);
   cudaError_t err = gjt::allow_smem(
       reinterpret_cast<const void*>(pcf_forward_kernel), smem);
@@ -75,9 +73,8 @@ cudaError_t launch_forward(const float2* y, float2* Y, const float2* tw,
 
 // y: (R*G, n) complex64, rows ordered (r, g); Y: same-shape scratch;
 // rep: (P, n) complex64; tw: the twiddle table of `build.row_twiddles(n)`
-// (the two-level table of fft_reg.cuh for a power of two or a size of the
-// mixed table, else the half table of fft_smem.cuh), complex64; out: the
-// surface
+// (the two-level table of fft_reg.cuh for a size of GJT_CORR_SIZES, else
+// the half table of fft_smem.cuh), complex64; out: the surface
 // (P, n_c*R, n) float32 when stats == 0, else (5, P, n_c*R) float32.
 // n in [256, 16384] with every prime factor <= 127. Returns a cudaError_t
 // (0 on success).

@@ -12,13 +12,15 @@
 // sum) as five (P, n_c*R) planes; excl < 0 is peak-only (the last three
 // are zeros).
 //
-// A power-of-two n (256..16384) takes pcf_correlate_reg_kernel<n>, built
-// on the register FFT of fft_reg.cuh:
-// - thread t owns the lags k = t + j*T, j < P, from the product (Y and the
-//   replica read coalesced from device memory straight into registers) to
-//   |.|^2, which the last FFT pass leaves in the same registers, in natural
-//   order; no row ever goes through shared memory whole, only the FFT's
-//   exchanges (2 at 2048, 3 at 16384), conflict-free;
+// A size of GJT_CORR_SIZES (the powers of two 256..16384; 2400, 2560,
+// 2800, 3200, 10368) takes pcf_correlate_reg_kernel<n>, built on the
+// register FFT of fft_reg.cuh:
+// - thread t owns the lags of its last pass's registers (t + j*T, j < P,
+//   at a power of two), from the product (Y and the replica read coalesced
+//   from device memory straight into registers) to |.|^2, which the last
+//   FFT pass leaves in the same registers, in natural order; no row ever
+//   goes through shared memory whole, only the FFT's exchanges (2 at 2048,
+//   3 at 16384), conflict-free;
 // - occupancy (ptxas registers, shared memory per block): 2048 takes 128
 //   threads of 128 registers and 33 KB (two exchange buffers, one barrier
 //   per exchange), so 4 blocks (16 warps) share an SM and one block's
@@ -38,10 +40,6 @@
 //   says the loads are already hidden, and at 16384 a second 128 KB row
 //   does not fit. So each group reads its Y row and the (L1-resident)
 //   replica row when it starts.
-// A size of fft_reg_mixed.cuh's table (2400, 2560, 2800, 3200, 10368, and
-// B2's mixed nperseg from 384 to 14336) takes pcf_correlate_mx_kernel<n>,
-// the same design on the mixed-radix register FFT: thread t owns the lags
-// i + r*BL of its last pass's butterflies i = t + u*T < BL.
 // Any other n in [256, 16384] whose prime factors are all <= 127
 // (row_plan) takes pcf_correlate_kernel, on the mixed-radix shared-memory
 // FFT of fft_smem.cuh.
@@ -53,7 +51,6 @@
 #include <cuda_runtime.h>
 
 #include "fft_reg.cuh"
-#include "fft_reg_mixed.cuh"
 #include "fft_smem.cuh"
 
 namespace gjt {
@@ -76,8 +73,9 @@ static __device__ __forceinline__ int wrap(int v, int n) {
 // The epilogue of a block whose thread owns acc[j] of lag lag[j] (lag[j]
 // >= n: no lag): the surface row or the five statistics of `cell`.
 // kAscending: lag[j] grows with j, so a strict '>' alone keeps the lowest
-// lag of a thread (the power-of-two and shared-memory kernels; the lag
-// compare of the mixed layout costs B1 5 % at 2048, measured on the H100).
+// lag of a thread (RegShape::kAscending, and the shared-memory kernel; the
+// lag compare of the other layouts cost B1 5 % at 2048, measured on the
+// H100).
 template <int NV, bool kAscending>
 static __device__ void correlate_epilogue(const float (&acc)[NV],
                                           const int (&lag)[NV], int n,
@@ -137,23 +135,67 @@ static __device__ void correlate_epilogue(const float (&acc)[NV],
   }
 }
 
-// Does the n-point correlate kernel keep its |.|^2 sums in shared memory?
-// At 16384 (1024 threads, 64 registers each) the sums in registers spill.
-static __host__ __device__ constexpr bool reg_acc_smem(int n) {
-  return n == 16384;
+// The code periods whose forward and correlate rows run the register FFT
+// (fft_reg.cuh), one instantiation each: the powers of two, GPS at 2.4,
+// 2.56, 2.8 and 3.2 MS/s, and v1's 81*128. kernels/fft_plan.py reads the
+// list (CORRELATE_SIZES); every other n takes the shared-memory FFT.
+#define GJT_CORR_SIZES(X)                                              \
+  X(256) X(512) X(1024) X(2048) X(4096) X(8192) X(16384) X(2400) X(2560) \
+  X(2800) X(3200) X(10368)
+
+// Is n one of GJT_CORR_SIZES? (host side)
+static inline bool corr_reg_size(int n) {
+#define GJT_IS(NN) n == NN ||
+  return GJT_CORR_SIZES(GJT_IS) false;
+#undef GJT_IS
 }
 
-// Power-of-two N: the register FFT (fft_reg.cuh). Block b = (p, c, r).
+// Does the N-point correlate kernel keep its |.|^2 sums in shared memory?
+// Above 512 threads a thread has at most 64 registers (16384) or 75
+// (10368); the row and the sums do not fit them and spill.
 template <int N>
-static __global__ void __launch_bounds__(RegShape<N>::T)
+static __host__ __device__ constexpr bool reg_acc_smem() {
+  using S = RegShape<N>;
+  return S::T > 512 && 2 * S::P + S::UL * S::RL > 40;
+}
+
+// Blocks per SM the correlate kernel asks ptxas for: as many as 128
+// registers a thread leave room for (2048: 4 blocks of 128 threads; the
+// GPS sizes 2400-3200, 160 threads: 3), and one from 512 threads up (8192,
+// 10368, 16384), where the thread count alone bounds the registers. Left
+// alone, ptxas gave 2400-3200 166-225 registers (one or two blocks per SM)
+// and 1024-4096 143-147 (one block fewer); the cap made 2400-3200 3-32 %
+// and 2048-4096 5-15 % faster on an H100 80GB HBM3 at 700 W (A/B,
+// PERF.md).
+template <int N>
+static __host__ __device__ constexpr int reg_min_blocks() {
+  constexpr int T = RegShape<N>::T;
+  return 65536 / (T * 128) > 1 ? 65536 / (T * 128) : 1;
+}
+
+// (k - shift) mod N for k - shift in (-N, 2N).
+template <int N>
+static __device__ __forceinline__ int mod_n(int v) {
+  if constexpr ((N & (N - 1)) == 0) {
+    return v & (N - 1);
+  } else {
+    return wrap(v, N);
+  }
+}
+
+// A size of GJT_CORR_SIZES: the register FFT. Block b = (p, c, r).
+template <int N>
+static __global__ void __launch_bounds__(RegShape<N>::T, reg_min_blocks<N>())
 pcf_correlate_reg_kernel(const float2* __restrict__ Y,
                          const float2* __restrict__ rep,
                          const float2* __restrict__ tab,
                          float* __restrict__ out, int R, int G, int n_c,
                          int n_prn, int stats, int excl) {
   using S = RegShape<N>;
-  constexpr int P = S::P, T = S::T;
-  constexpr bool kAccSmem = reg_acc_smem(N);
+  constexpr int T = S::T;
+  constexpr int PL = S::UL * S::RL;        // the last pass's points
+  constexpr bool kAccSmem = reg_acc_smem<N>();
+  static_assert(T % 32 == 0, "the block reductions shuffle whole warps");
   const int b = blockIdx.x;
   const int r = b % R;
   const int c = (b / R) % n_c;
@@ -162,151 +204,32 @@ pcf_correlate_reg_kernel(const float2* __restrict__ Y,
 
   extern __shared__ float2 smem[];
   float2* buf0 = smem;
-  float2* buf1 = S::kBuffers == 2 ? smem + N : smem;
-  float2* tab_s = smem + S::kBuffers * N;
-  float* red = reinterpret_cast<float*>(tab_s + reg_tw_len(N));   // 32
+  float2* buf1 = S::kBuffers == 2 ? smem + S::kBufLen : smem;
+  float2* tab_s = smem + S::kBuffers * S::kBufLen;
+  float* red = reinterpret_cast<float*>(tab_s + S::kTabLen);      // 32
   int* redi = reinterpret_cast<int*>(red + 32);                    // 32
   float* acc_s = reinterpret_cast<float*>(redi + 32);   // N (kAccSmem)
-  stage_reg_twiddles(tab_s, tab, N);
-
-  const int t = threadIdx.x;
-  const float2* rp = rep + static_cast<long long>(p) * N;
-  const float2* yr = Y + static_cast<long long>(r) * G * N + t;
-  // replica point j of this thread: rep[p, (t + j*T - shift) mod N]
-  auto rep_at = [&](int j) { return rp[(t + j * T - shift) & (N - 1)]; };
-  float2 v[P];
-  float acc[kAccSmem ? 1 : P];
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-    if constexpr (kAccSmem) {
-      acc_s[t + j * T] = 0.f;
-    } else {
-      acc[j] = 0.f;
-    }
-    v[j] = cmul(yr[j * T], rep_at(j));
-  }
-  __syncthreads();                       // the table is staged
-
-  int phase = 0;
-  for (int g = 0; g < G; ++g) {
-    reg_fft<N, true>(v, buf0, buf1, tab_s, phase);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const float e = v[j].x * v[j].x + v[j].y * v[j].y;
-      if constexpr (kAccSmem) {
-        acc_s[t + j * T] += e;
-      } else {
-        acc[j] += e;
-      }
-    }
-    if (g + 1 < G) {
-      const float2* yn = yr + static_cast<long long>(g + 1) * N;
-#pragma unroll
-      for (int j = 0; j < P; ++j) v[j] = cmul(yn[j * T], rep_at(j));
-    }
-  }
-  // ifft's 1/n, squared: exact for a power of two
-  constexpr float kScale = 1.f / (static_cast<float>(N) * N);
-  float sums[P];
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-    if constexpr (kAccSmem) {
-      sums[j] = acc_s[t + j * T] * kScale;
-    } else {
-      sums[j] = acc[j] * kScale;
-    }
-  }
-
-  int lags[P];
-#pragma unroll
-  for (int j = 0; j < P; ++j) lags[j] = t + j * T;
-  const long long n_rows = static_cast<long long>(n_c) * R;
-  correlate_epilogue<P, true>(
-      sums, lags, N, static_cast<long long>(p) * n_rows + c * R + r,
-      static_cast<long long>(n_prn) * n_rows, stats, excl, out, red, redi);
-}
-
-// Does the N-point mixed correlate kernel keep its sums in shared memory?
-// Above 512 threads a thread has at most 102 registers (65536 / 640) and
-// fewer; the row and the sums of 12288, 14336 and 10240 do not fit them.
-template <int N>
-static __host__ __device__ constexpr bool mx_acc_smem() {
-  using M = MixedShape<N>;
-  return M::T > 512 && 2 * M::P + M::UL * M::RL > 40;
-}
-
-// Blocks per SM the mixed correlate kernel asks ptxas for: as many as
-// 128 registers a thread leave room for. Left alone, ptxas gave 2400-3200
-// 166-225 registers, one or two 160-thread blocks per SM; capped, B1 and
-// B3 there ran 3-32 % faster on the H100 (A/B, PERF.md, PR 5).
-template <int N>
-static __host__ __device__ constexpr int mx_min_blocks() {
-  return 65536 / (MixedShape<N>::T * 128) > 1
-             ? 65536 / (MixedShape<N>::T * 128)
-             : 1;
-}
-
-// A size of the mixed table: the register mixed-radix FFT
-// (fft_reg_mixed.cuh). Block b = (p, c, r).
-template <int N>
-static __global__ void __launch_bounds__(MixedShape<N>::T, mx_min_blocks<N>())
-pcf_correlate_mx_kernel(const float2* __restrict__ Y,
-                        const float2* __restrict__ rep,
-                        const float2* __restrict__ tab,
-                        float* __restrict__ out, int R, int G, int n_c,
-                        int n_prn, int stats, int excl) {
-  using M = MixedShape<N>;
-  constexpr int T = M::T, R0 = M::R0, B0 = M::B0, RL = M::RL, BL = M::BL;
-  constexpr int PL = M::UL * RL;           // the last pass's points
-  constexpr bool kAccSmem = mx_acc_smem<N>();
-  const int b = blockIdx.x;
-  const int r = b % R;
-  const int c = (b / R) % n_c;
-  const int p = b / (R * n_c);
-  const int shift = c - n_c / 2;
-
-  extern __shared__ float2 smem[];
-  float2* buf0 = smem;
-  float2* buf1 = M::kBuffers == 2 ? smem + M::kBufLen : smem;
-  float2* tab_s = smem + M::kBuffers * M::kBufLen;
-  float* red = reinterpret_cast<float*>(tab_s + M::kTabLen);      // 32
-  int* redi = reinterpret_cast<int*>(red + 32);                    // 32
-  float* acc_s = reinterpret_cast<float*>(redi + 32);   // N (kAccSmem)
-  stage_mx_twiddles<N>(tab_s, tab);
+  stage_reg_twiddles<N>(tab_s, tab);
 
   const int t = threadIdx.x;
   const float2* rp = rep + static_cast<long long>(p) * N;
   const float2* yr = Y + static_cast<long long>(r) * G * N;
-  float2 v[M::P];
+  float2 v[S::P];
   // the first pass's points of group row yg times the shifted replica
   auto load = [&](const float2* yg) {
-#pragma unroll
-    for (int u = 0; u < M::U0; ++u) {
-      const int i = t + u * T;
-#pragma unroll
-      for (int q = 0; q < R0; ++q) {
-        const int k = i + q * B0;
-        if (M::U0 * T == B0 || i < B0) {
-          v[u * R0 + q] = cmul(yg[k], rp[wrap(k - shift, N)]);
-        } else {
-          v[u * R0 + q] = make_float2(0.f, 0.f);
-        }
-      }
-    }
+    reg_first<N>(v, t, [&](int k) {
+      return cmul(yg[k], rp[mod_n<N>(k - shift)]);
+    });
   };
-  // lag of the last pass's register u*RL + q (N: none)
-  int lags[PL];
-#pragma unroll
-  for (int u = 0; u < M::UL; ++u)
-#pragma unroll
-    for (int q = 0; q < RL; ++q)
-      lags[u * RL + q] =
-          M::UL * T == BL || t + u * T < BL ? t + u * T + q * BL : N;
+  // the lag of the last pass's register j is S::out_index(t, j) (N: none),
+  // recomputed where it is needed: an array of them, live across the
+  // group loop, cost 2048 20 registers and a block per SM
   float acc[kAccSmem ? 1 : PL];
 #pragma unroll
   for (int j = 0; j < PL; ++j) {
     if constexpr (kAccSmem) {
-      if (lags[j] < N) acc_s[lags[j]] = 0.f;
+      const int k = S::out_index(t, j);
+      if (S::kFullL || k < N) acc_s[k] = 0.f;
     } else {
       acc[j] = 0.f;
     }
@@ -316,33 +239,60 @@ pcf_correlate_mx_kernel(const float2* __restrict__ Y,
 
   int phase = 0;
   for (int g = 0; g < G; ++g) {
-    mx_fft<N, true>(v, buf0, buf1, tab_s, phase);
+    reg_fft<N, true>(v, buf0, buf1, tab_s, phase);
 #pragma unroll
     for (int j = 0; j < PL; ++j) {
       const float e = v[j].x * v[j].x + v[j].y * v[j].y;
       if constexpr (kAccSmem) {
-        if (lags[j] < N) acc_s[lags[j]] += e;
+        const int k = S::out_index(t, j);
+        if (S::kFullL || k < N) acc_s[k] += e;
       } else {
         acc[j] += e;
       }
     }
     if (g + 1 < G) load(yr + static_cast<long long>(g + 1) * N);
   }
-  // ifft's 1/n, squared
+  // ifft's 1/n, squared (exact for a power of two)
   constexpr float kScale = 1.f / (static_cast<float>(N) * N);
   float sums[PL];
 #pragma unroll
   for (int j = 0; j < PL; ++j) {
     if constexpr (kAccSmem) {
-      sums[j] = lags[j] < N ? acc_s[lags[j]] * kScale : 0.f;
+      const int k = S::out_index(t, j);
+      sums[j] = S::kFullL || k < N ? acc_s[k] * kScale : 0.f;
     } else {
       sums[j] = acc[j] * kScale;
     }
   }
+  int lags[PL];
+#pragma unroll
+  for (int j = 0; j < PL; ++j) lags[j] = S::out_index(t, j);
   const long long n_rows = static_cast<long long>(n_c) * R;
-  correlate_epilogue<PL, false>(
+  correlate_epilogue<PL, S::kAscending>(
       sums, lags, N, static_cast<long long>(p) * n_rows + c * R + r,
       static_cast<long long>(n_prn) * n_rows, stats, excl, out, red, redi);
+}
+
+// Launches reg_forward_kernel (fft_reg.cuh) over `rows` rows of a size of
+// GJT_CORR_SIZES; osc may be null.
+static inline cudaError_t launch_reg_forward(const float2* x,
+                                             const float2* osc, float2* Y,
+                                             const float2* tab, int rows,
+                                             int nb, int n, cudaStream_t s) {
+  cudaError_t err = cudaErrorInvalidValue;
+#define GJT_FWD(NN)                                                         \
+  if (n == NN) {                                                            \
+    const size_t smem = reg_smem_bytes<NN>();                               \
+    err = allow_smem(reinterpret_cast<const void*>(reg_forward_kernel<NN>), \
+                     smem);                                                 \
+    if (err != cudaSuccess) return err;                                     \
+    reg_forward_kernel<NN><<<rows, RegShape<NN>::T, smem, s>>>(x, osc, Y,   \
+                                                               tab, nb);    \
+    return cudaGetLastError();                                              \
+  }
+  GJT_CORR_SIZES(GJT_FWD)
+#undef GJT_FWD
+  return err;
 }
 
 // Any other n: the mixed-radix shared-memory FFT of fft_smem.cuh. A thread
@@ -428,12 +378,9 @@ static inline bool row_plan(int n, FftPlan* pl) {
   return n >= kMinN && n <= kMaxN && make_plan(n, pl);
 }
 
-static inline bool is_pow2(int n) { return (n & (n - 1)) == 0; }
-
 // Launches the correlate stage over R * n_c * P blocks; `plan` from
 // row_plan, checked by the caller. tw: the two-level table of fft_reg.cuh
-// for a power-of-two n or a size of the mixed table, else the half table
-// of fft_smem.cuh.
+// for a size of GJT_CORR_SIZES, else the half table of fft_smem.cuh.
 static inline cudaError_t launch_correlate(const float2* Y, const float2* rep,
                                            const float2* tw, float* out,
                                            int R, int G, int n_c, int P,
@@ -443,32 +390,10 @@ static inline cudaError_t launch_correlate(const float2* Y, const float2* rep,
   const int blocks = R * n_c * P;
   const size_t red = sizeof(float) * 32 + sizeof(int) * 32;
   cudaError_t err;
-#define GJT_CORR_MX(NN, ...)                                                 \
-  if (n == NN) {                                                             \
-    const size_t smem = mx_smem_bytes<NN>() + red +                          \
-                        (mx_acc_smem<NN>() ? sizeof(float) * NN : 0);        \
-    err = allow_smem(                                                        \
-        reinterpret_cast<const void*>(pcf_correlate_mx_kernel<NN>), smem);   \
-    if (err != cudaSuccess) return err;                                      \
-    pcf_correlate_mx_kernel<NN><<<blocks, MixedShape<NN>::T, smem, s>>>(     \
-        Y, rep, tw, out, R, G, n_c, P, stats, excl);                         \
-    return cudaGetLastError();                                               \
-  }
-  GJT_MIXED_SCHEDULES(GJT_CORR_MX)
-#undef GJT_CORR_MX
-  if (!is_pow2(n)) {
-    const size_t smem = fft_smem_bytes(n) + red;
-    err = allow_smem(reinterpret_cast<const void*>(pcf_correlate_kernel),
-                     smem);
-    if (err != cudaSuccess) return err;
-    pcf_correlate_kernel<<<blocks, fft_threads(n), smem, s>>>(
-        Y, rep, tw, out, R, G, n_c, P, plan, stats, excl);
-    return cudaGetLastError();
-  }
-  const size_t smem = reg_smem_bytes(n) + red +
-                      (reg_acc_smem(n) ? sizeof(float) * n : 0);
 #define GJT_CORR(NN)                                                        \
   if (n == NN) {                                                            \
+    const size_t smem = reg_smem_bytes<NN>() + red +                        \
+                        (reg_acc_smem<NN>() ? sizeof(float) * NN : 0);      \
     err = allow_smem(                                                       \
         reinterpret_cast<const void*>(pcf_correlate_reg_kernel<NN>), smem); \
     if (err != cudaSuccess) return err;                                     \
@@ -476,9 +401,14 @@ static inline cudaError_t launch_correlate(const float2* Y, const float2* rep,
         Y, rep, tw, out, R, G, n_c, P, stats, excl);                        \
     return cudaGetLastError();                                              \
   }
-  GJT_REG_SIZES(GJT_CORR)
+  GJT_CORR_SIZES(GJT_CORR)
 #undef GJT_CORR
-  return cudaErrorInvalidValue;
+  const size_t smem = fft_smem_bytes(n) + red;
+  err = allow_smem(reinterpret_cast<const void*>(pcf_correlate_kernel), smem);
+  if (err != cudaSuccess) return err;
+  pcf_correlate_kernel<<<blocks, fft_threads(n), smem, s>>>(
+      Y, rep, tw, out, R, G, n_c, P, plan, stats, excl);
+  return cudaGetLastError();
 }
 
 }  // namespace gjt

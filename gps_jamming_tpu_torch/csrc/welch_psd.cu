@@ -11,15 +11,14 @@
 // segment) take 0.8 us at 67 TFLOP/s. So the design keeps everything but
 // the input and a few partial rows out of device memory, and keeps the SM
 // busy with several segments at once:
-// - Every N runs a register FFT: a power of two (64..16384) that of
-//   fft_reg.cuh, the 16 mixed-radix sizes of the TPU kernel (384 = 3*128
-//   ... 14336 = 7*2048) that of fft_reg_mixed.cuh. Both read their first
-//   pass's points x[s*hop + i + r*B0] (butterfly i = t + u*T, B0 = N/R0)
-//   straight from device memory into registers (natural order, coalesced,
-//   no scatter), and leave bin i + r*BL in register u*RL + r after the
-//   last pass, so each thread sums |X|^2 for its fixed bins in registers
-//   across all its segments (RowLayout below; a power of two is the case
-//   U0 = UL = 1, R0 = RL = P, B0 = BL = T).
+// - Every N (a power of two 64..16384, or one of the 16 mixed-radix sizes
+//   of the TPU kernel, 384 = 3*128 ... 14336 = 7*2048) runs the register
+//   FFT of fft_reg.cuh: it reads the first pass's points x[s*hop + i +
+//   r*B0] (butterfly i = t + u*T, B0 = N/R0) straight from device memory
+//   into registers (natural order, coalesced, no scatter), and leaves bin
+//   i + r*BL in register RegShape::out_reg(u, r) after the last pass, so
+//   each thread sums |X|^2 for its fixed bins in registers across all its
+//   segments.
 // - A block holds G = 256/T groups of T threads (1024: 4 x 64; G = 1 from
 //   256 threads up), each walking its own run of consecutive segments with
 //   its own exchange buffers and named barrier (GroupRow), so one
@@ -44,15 +43,14 @@
 //   integer ticket per slice, after __threadfence) sums slice r of every
 //   cluster's row in cluster order, applies the scale and resets its
 //   ticket for the next call. The tile count depends on N and the number
-//   of segments only, so the sum order, and the result, is the same on
-//   every card and every call.
+//   of segments only (at most kMaxTiles blocks), so the sum order, and the
+//   result, is the same on every card and every call.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
 #include "fft_reg.cuh"
-#include "fft_reg_mixed.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -60,56 +58,17 @@ namespace {
 
 constexpr int kCluster = 8;          // blocks per cluster = final-sum slices
 constexpr int kBlockThreads = 256;   // threads per block, up to T
-
-// The register layout of an N-point segment row: T threads, P registers;
-// the first pass's U0 butterflies of radix R0 per thread over B0, the last
-// pass's UL of radix RL over BL; exchange buffers, table and the FFT.
-template <int N, bool kPow2 = (N & (N - 1)) == 0>
-struct RowLayout;
-
-template <int N>
-struct RowLayout<N, true> {
-  using S = gjt::RegShape<N>;
-  static constexpr int T = S::T, P = S::P;
-  static constexpr int U0 = 1, R0 = P, B0 = T, UL = 1, RL = P, BL = T;
-  static constexpr int kBuffers = S::kBuffers, kBufLen = N;
-  static constexpr int kTabLen = (N >> gjt::kFineBits) + gjt::kFine;
-  static __device__ __forceinline__ void stage(float2* tab_s,
-                                               const float2* tab) {
-    gjt::stage_reg_twiddles(tab_s, tab, N);
-  }
-  template <class Row>
-  static __device__ __forceinline__ void fft(float2 (&v)[P], float2* buf0,
-                                             float2* buf1, const float2* tab,
-                                             int& phase) {
-    gjt::reg_fft<N, false, Row>(v, buf0, buf1, tab, phase);
-  }
-};
-
-template <int N>
-struct RowLayout<N, false> {
-  using M = gjt::MixedShape<N>;
-  static constexpr int T = M::T, P = M::P;
-  static constexpr int U0 = M::U0, R0 = M::R0, B0 = M::B0;
-  static constexpr int UL = M::UL, RL = M::RL, BL = M::BL;
-  static constexpr int kBuffers = M::kBuffers, kBufLen = M::kBufLen;
-  static constexpr int kTabLen = M::kTabLen;
-  static __device__ __forceinline__ void stage(float2* tab_s,
-                                               const float2* tab) {
-    gjt::stage_mx_twiddles<N>(tab_s, tab);
-  }
-  template <class Row>
-  static __device__ __forceinline__ void fft(float2 (&v)[P], float2* buf0,
-                                             float2* buf1, const float2* tab,
-                                             int& phase) {
-    gjt::mx_fft<N, false, Row>(v, buf0, buf1, tab, phase);
-  }
-};
+// The most blocks of one launch, a multiple of kCluster: 1024 at 512k
+// samples is 128 blocks of 4 groups x 2 segments (caps of 32, 64, 256
+// and 512 were slower on an H100 80GB HBM3 at 700 W; PERF.md).
+constexpr int kMaxTiles = 128;
+// Scratch: kCluster slice tickets, then the clusters' partial rows.
+constexpr int kTicketBytes = 256;
 
 // The layout of an N-point Welch block.
 template <int N>
 struct WelchShape {
-  using L = RowLayout<N>;
+  using L = gjt::RegShape<N>;
   static constexpr int T = L::T;
   static constexpr int G = T >= kBlockThreads ? 1 : kBlockThreads / T;
   static constexpr int kThreads = G * T;
@@ -175,7 +134,7 @@ static __device__ void welch_finish(const float* part_s, float* partial,
   if (threadIdx.x == 0) ticket[rank] = 0u;   // ready for the next call
 }
 
-// Groups of T threads, the register FFT of RowLayout<N>.
+// Groups of T threads, the register FFT of RegShape<N>.
 template <int N>
 __global__ void __cluster_dims__(kCluster, 1, 1)
 __launch_bounds__(WelchShape<N>::kThreads)
@@ -189,10 +148,10 @@ welch_kernel(const float2* __restrict__ x, const float* __restrict__ win,
   constexpr int T = L::T, G = W::G, kHop = N / 2;
   constexpr int U0 = L::U0, R0 = L::R0, B0 = L::B0;
   constexpr int UL = L::UL, RL = L::RL, BL = L::BL, PL = UL * RL;
-  constexpr bool kAll0 = U0 * T == B0, kAllL = UL * T == BL;
+  constexpr bool kAll0 = U0 * T == B0;
   // the owners of bins 0, 1 (thread 0, 1, register 0) and N-1
   constexpr int kTLast = (BL - 1) % T;
-  constexpr int kJLast = (BL - 1) / T * RL + RL - 1;
+  constexpr int kJLast = L::out_reg((BL - 1) / T, RL - 1);
   extern __shared__ float2 smem[];
   const int g = G == 1 ? 0 : static_cast<int>(threadIdx.x) / T;
   const int t = Row::t();
@@ -202,15 +161,12 @@ welch_kernel(const float2* __restrict__ x, const float* __restrict__ win,
   float2* sums_s = tab_s + L::kTabLen;                   // [2][G][kWarps]
   float* part_s = reinterpret_cast<float*>(sums_s + 2 * G * W::kWarps);
   int* flag_s = reinterpret_cast<int*>(part_s + N);
-  L::stage(tab_s, tab);
+  gjt::stage_reg_twiddles<N>(tab_s, tab);
 
-  // bin of the last pass's register u*RL + q (N: none)
+  // bin of the last pass's register j (N: none)
   int bins[PL];
 #pragma unroll
-  for (int u = 0; u < UL; ++u)
-#pragma unroll
-    for (int q = 0; q < RL; ++q)
-      bins[u * RL + q] = kAllL || t + u * T < BL ? t + u * T + q * BL : N;
+  for (int j = 0; j < PL; ++j) bins[j] = L::out_index(t, j);
   float acc[W::kAccSmem ? 1 : PL];
 #pragma unroll
   for (int j = 0; j < PL; ++j) {
@@ -288,7 +244,7 @@ welch_kernel(const float2* __restrict__ x, const float* __restrict__ win,
         }
       }
     }
-    L::template fft<Row>(v, buf0, buf1, tab_s, phase);
+    gjt::reg_fft<N, false, Row>(v, buf0, buf1, tab_s, phase);
     if (detrend) {
       // bins 0 and 1 are register 0 of threads 0 and 1, bin N-1 register
       // kJLast of thread kTLast; the FFT's barriers ordered the sums' slots
@@ -347,10 +303,10 @@ welch_kernel(const float2* __restrict__ x, const float* __restrict__ win,
 }
 
 // Segments per run and blocks (a multiple of the cluster size, at most
-// max_tiles) for n_segs segments over groups of G runs per block: fixed by
+// kMaxTiles) for n_segs segments over groups of G runs per block: fixed by
 // the shape alone.
-void tiles(int n_segs, int G, int max_tiles, int* seg_run, int* n_tiles) {
-  *seg_run = (n_segs + max_tiles * G - 1) / (max_tiles * G);
+void tiles(int n_segs, int G, int* seg_run, int* n_tiles) {
+  *seg_run = (n_segs + kMaxTiles * G - 1) / (kMaxTiles * G);
   const int runs = (n_segs + *seg_run - 1) / *seg_run;
   const int blocks = (runs + G - 1) / G;
   *n_tiles = (blocks + kCluster - 1) / kCluster * kCluster;
@@ -359,10 +315,10 @@ void tiles(int n_segs, int G, int max_tiles, int* seg_run, int* n_tiles) {
 template <int N>
 cudaError_t launch(const float2* x, const float* win, const float2* tab,
                    float* partial, unsigned* ticket, float* out, int n_segs,
-                   int max_tiles, int detrend, float scale, cudaStream_t s) {
+                   int detrend, float scale, cudaStream_t s) {
   using W = WelchShape<N>;
   int seg_run, n_tiles;
-  tiles(n_segs, W::G, max_tiles, &seg_run, &n_tiles);
+  tiles(n_segs, W::G, &seg_run, &n_tiles);
   const size_t smem = welch_smem_bytes<N>();
   cudaError_t err =
       gjt::allow_smem(reinterpret_cast<const void*>(welch_kernel<N>), smem);
@@ -376,37 +332,51 @@ cudaError_t launch(const float2* x, const float* win, const float2* tab,
   X(64) X(128) X(256) X(512) X(1024) X(2048) X(4096) X(8192) X(16384)
 
 // The 16 mixed-radix nperseg of the TPU kernel (pallas_psd.supported up
-// to 16384: 128 * 2^a * {3, 5, 7}), each a size of fft_reg_mixed.cuh.
+// to 16384: 128 * 2^a * {3, 5, 7}), each a size of GJT_REG_SCHEDULES.
 #define GJT_WELCH_MIXED(X)                                                \
   X(384) X(640) X(768) X(896) X(1280) X(1536) X(1792) X(2560) X(3072)    \
   X(3584) X(5120) X(6144) X(7168) X(10240) X(12288) X(14336)
 
 }  // namespace
 
+static bool welch_size(int nperseg) {
+#define GJT_IS(NN) nperseg == NN ||
+  return GJT_WELCH_POW2(GJT_IS) GJT_WELCH_MIXED(GJT_IS) false;
+#undef GJT_IS
+}
+
+// Bytes of the scratch buffer gjt_welch_psd takes at nperseg: zero-filled
+// before the first call (each call leaves the tickets zero); 0 for an
+// nperseg it does not take.
+extern "C" int gjt_welch_scratch_bytes(int nperseg) {
+  if (!welch_size(nperseg)) return 0;
+  return kTicketBytes + static_cast<int>(sizeof(float)) *
+                            (kMaxTiles / kCluster) * nperseg;
+}
+
 // x: (n,) complex64 with n_segs = 1 + (n - nperseg) / (nperseg/2)
-// segments; win: (nperseg,) float32; tab: `build.row_twiddles(nperseg)`
-// (the two-level table of fft_reg.cuh); partial: (max_tiles/8, nperseg)
-// float32 scratch; ticket: 8 uint32, zero before the first call (each
-// call leaves them zero); out: (nperseg,) float32. nperseg: a power of two
-// in [64, 16384] or a size of GJT_WELCH_MIXED; max_tiles a positive
-// multiple of 8. One launch. Returns a cudaError_t (0 on success).
+// segments; win: (nperseg,) float32; tab: `build.reg_twiddles(nperseg)`
+// (the two-level table of fft_reg.cuh); scratch: gjt_welch_scratch_bytes
+// (nperseg) bytes; out: (nperseg,) float32. nperseg: a power of two in
+// [64, 16384] or a size of GJT_WELCH_MIXED. One launch. Returns a
+// cudaError_t (0 on success).
 extern "C" int gjt_welch_psd(const void* x, const void* win, const void* tab,
-                             void* partial, void* ticket, void* out,
-                             int nperseg, int n_segs, int max_tiles,
-                             int detrend, float scale, void* stream) {
-  if (n_segs < 1 || max_tiles < kCluster || max_tiles % kCluster)
-    return static_cast<int>(cudaErrorInvalidValue);
+                             void* scratch, void* out, int nperseg,
+                             int n_segs, int detrend, float scale,
+                             void* stream) {
+  if (n_segs < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float2* x2 = static_cast<const float2*>(x);
   const float* w = static_cast<const float*>(win);
   const float2* tb = static_cast<const float2*>(tab);
-  float* pt = static_cast<float*>(partial);
-  unsigned* tk = static_cast<unsigned*>(ticket);
+  unsigned* tk = static_cast<unsigned*>(scratch);
+  float* pt = reinterpret_cast<float*>(static_cast<char*>(scratch) +
+                                       kTicketBytes);
   float* o = static_cast<float*>(out);
 #define GJT_WELCH(NN)                                                    \
   if (nperseg == NN)                                                     \
-    return static_cast<int>(launch<NN>(x2, w, tb, pt, tk, o, n_segs,     \
-                                       max_tiles, detrend, scale, s));
+    return static_cast<int>(                                             \
+        launch<NN>(x2, w, tb, pt, tk, o, n_segs, detrend, scale, s));
   GJT_WELCH_POW2(GJT_WELCH)
   GJT_WELCH_MIXED(GJT_WELCH)
 #undef GJT_WELCH

@@ -1,7 +1,7 @@
 """Kernels B1, B2 and B3 of this tree against another checkout's, on one
 card, timed in turns: other, this, this, other.
 
-    python3 -m gps_jamming_tpu_torch.kernels.ab OTHER_ROOT [--b2-tiles 64,256]
+    python3 -m gps_jamming_tpu_torch.kernels.ab OTHER_ROOT [--only B3]
 
 OTHER_ROOT is the root of another checkout of the repo (for example the
 parent commit, unpacked by `git archive` into a directory that .gitignore
@@ -14,11 +14,12 @@ nperseg 1024 and 1536; B1 peak-only (32 PRN x 15 coarse x 6 rows x 2
 groups) at 2048, 2400, 2560, 2800 and 3200 lags; B3 (32 PRN x 71 bins x 10
 periods) at 2048, 2400, 2560, 2800, 3200 and 10368 lags, and Galileo E1B's
 36 PRN at 16384. A shape the other tree's kernel refuses is timed on this
-tree alone. `--b2-tiles` also times this tree's B2 at 1024 with other
-tile caps (the wrapper's `_TILES`). Each reading is the median over
+tree alone. Each reading is the median over
 `--reps` samples of CUDA-event time over `--inner` back-to-back calls,
-divided by `--inner`. Prints one line per shape, then one JSON object;
-needs a CUDA device.
+divided by `--inner`; beside it, in the same turns, the device time of
+the calls' kernels per call (`torch.profiler` over `--inner` calls),
+which leaves out the gaps between launches that event time counts.
+Prints one line per shape, then one JSON object; needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -62,10 +63,11 @@ def _cplx(shape, seed, dev):
     return torch.from_numpy(x.astype(np.complex64)).to(dev)
 
 
-def _b2(mod, lib, n: int, dev, stream, tiles: int = 128):
+def _b2(mod, lib, n: int, dev, stream):
     """Kernel B2 at nperseg n on B2_SAMPLES samples, through `mod`'s C
-    signature: 13 arguments (PR 1-4: a partial row per tile, then a reduce
-    launch) or 12 (one launch, cluster partials and slice tickets)."""
+    signature: 13 arguments (the two-launch kernel: a partial row per
+    tile, then a reduce launch) or 10 (one launch into a scratch buffer the
+    library sizes)."""
     x = _cplx(B2_SAMPLES, n, dev)
     win = torch.from_numpy((0.5 - 0.5 * np.cos(
         2.0 * np.pi * np.arange(n) / n)).astype(np.float32)).to(dev)
@@ -84,19 +86,18 @@ def _b2(mod, lib, n: int, dev, stream, tiles: int = 128):
                 partial.data_ptr(), out.data_ptr(), n, n // 2, n_segs,
                 per_tile, n_tiles, 1, scale, stream)
         return fn, out
-    tab = mod.row_twiddles(n, dev)
-    partial = torch.empty((tiles // 8, n), dtype=torch.float32, device=dev)
-    ticket = torch.zeros(8, dtype=torch.int32, device=dev)
+    tab = mod.reg_twiddles(n, dev)
+    scratch = torch.zeros(lib.gjt_welch_scratch_bytes(n), dtype=torch.uint8,
+                          device=dev)
 
     def fn():
         return lib.gjt_welch_psd(
-            x.data_ptr(), win.data_ptr(), tab.data_ptr(), partial.data_ptr(),
-            ticket.data_ptr(), out.data_ptr(), n, n_segs, tiles, 1, scale,
-            stream)
+            x.data_ptr(), win.data_ptr(), tab.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), n, n_segs, 1, scale, stream)
     return fn, out
 
 
-def _call(mod, what: str, n: int, dev, tiles: int = 128):
+def _call(mod, what: str, n: int, dev):
     """A closure launching `what` at n through the library of build module
     `mod`, with its own twiddle table; inputs are seeded, so both
     libraries see the same ones. Raises if the kernel refuses n."""
@@ -106,7 +107,7 @@ def _call(mod, what: str, n: int, dev, tiles: int = 128):
           else mod.twiddles)(n, dev)
     stream = torch.cuda.current_stream().cuda_stream
     if what == "B2":
-        fn, out = _b2(mod, lib, n, dev, stream, tiles)
+        fn, out = _b2(mod, lib, n, dev, stream)
     elif what == "B1 peak":
         n_c, rows, groups, n_prn = 15, 6, 2, 32
         y = _cplx((rows * groups, n), n, dev)
@@ -154,6 +155,20 @@ def _median_ms(fn, reps: int, inner: int) -> float:
     return statistics.median(ts)
 
 
+def _device_ms(fn, calls: int) -> float:
+    """The summed device time of the kernels of one call, ms, from
+    torch.profiler over `calls` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA)
+    return us / calls / 1000.0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=Path, help="root of the other checkout")
@@ -161,8 +176,6 @@ def main() -> int:
     ap.add_argument("--inner", type=int, default=10)
     ap.add_argument("--only", default="",
                     help="time only the kernels whose name starts so")
-    ap.add_argument("--b2-tiles", default="",
-                    help="comma-separated tile caps for this tree's B2")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab: no CUDA device")
@@ -190,24 +203,23 @@ def main() -> int:
         diff = float((calls["this"][1] - calls["other"][1]).abs().max()
                      / calls["other"][1].abs().max())
         fns = {k: c[0] for k, c in calls.items()}
-        ms = [_median_ms(fns[k], args.reps, inner)
-              for k in ("other", "this", "this", "other")]
+        turns = ("other", "this", "this", "other")
+        ms = [_median_ms(fns[k], args.reps, inner) for k in turns]
+        dev = [_device_ms(fns[k], inner) for k in turns]
         rows.append({"kernel": what, "n": n, "other_this_this_other_ms": ms,
                      "change": (ms[1] + ms[2]) / (ms[0] + ms[3]) - 1.0,
+                     "device_ms": dev,
+                     "device_change": (dev[1] + dev[2]) / (dev[0] + dev[3])
+                     - 1.0,
                      "max_rel_diff": diff})
         print(f"{what} n={n}: other, this, this, other ms "
               f"{', '.join(f'{t:.4f}' for t in ms)}; this/other "
-              f"{(ms[1] + ms[2]) / (ms[0] + ms[3]):.4f}; outputs differ by "
-              f"{diff:.2e} of their max; card {card}", flush=True)
+              f"{(ms[1] + ms[2]) / (ms[0] + ms[3]):.4f}; device "
+              f"{', '.join(f'{t:.4f}' for t in dev)}, this/other "
+              f"{(dev[1] + dev[2]) / (dev[0] + dev[3]):.4f}; outputs differ "
+              f"by {diff:.2e} of their max; card {card}", flush=True)
         del calls, fns
         torch.cuda.empty_cache()
-    for tiles in (int(t) for t in args.b2_tiles.split(",") if t):
-        fn, out = _call(build, "B2", 1024, dev, tiles)
-        ms = _median_ms(fn, args.reps, args.inner)
-        rows.append({"kernel": "B2 tiles", "n": 1024, "tiles": tiles,
-                     "this_ms": ms})
-        print(f"B2 n=1024 with at most {tiles} tiles: {ms:.4f} ms; card "
-              f"{card}", flush=True)
     print(json.dumps({"card": card, "ab": rows}))
     return 0
 

@@ -28,8 +28,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("welch_psd.cu", "pcf.cu", "caf_std.cu")
-HEADERS = ("fft_smem.cuh", "fft_reg.cuh", "fft_reg_mixed.cuh",
-           "pcf_correlate.cuh")
+HEADERS = ("fft_smem.cuh", "fft_reg.cuh", "pcf_correlate.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # The code-period lengths the FFTs of kernels B1 and B3 take:
 # n in [FFT_MIN_N, FFT_MAX_N] with every prime factor <= FFT_MAX_RADIX. The
@@ -43,8 +42,8 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "gjt_welch_psd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                      ctypes.c_float, _P],
+    "gjt_welch_scratch_bytes": [_I],
+    "gjt_welch_psd": [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
     "gjt_pcf": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gjt_caf_std": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -148,20 +147,26 @@ def check(err: int, name: str) -> None:
 def twiddles(n: int, device) -> torch.Tensor:
     """((n+1)//2,) complex64 exp(-2*pi*i*k/n), computed in float64 on the
     host: the half table of fft_smem.cuh (n/2 entries for even n), which
-    the rows of B1 and B3 read at an n that is neither a power of two nor a
-    size of the mixed register FFT. Cached per (n, device); read-only."""
+    the rows of B1 and B3 read at an n off `fft_plan.CORRELATE_SIZES`.
+    Cached per (n, device); read-only."""
     k = np.arange((n + 1) // 2, dtype=np.float64)
     return torch.from_numpy(np.exp(-2j * np.pi * k / n).astype(
         np.complex64)).to(device)
 
 
 @functools.lru_cache(maxsize=16)
-def row_twiddles(n: int, device) -> torch.Tensor:
-    """The table kernels B1, B2 and B3 take for an n-point row: for a power
-    of two or a size of the mixed-radix register FFT (csrc/fft_reg.cuh,
-    csrc/fft_reg_mixed.cuh; `fft_plan.twiddle_table`: ceil(n/64) coarse,
-    then 64 fine entries, computed in float64) the two-level table, else
-    `twiddles(n)`. Cached per (n, device); read-only."""
-    if n & (n - 1) and n not in fft_plan.MIXED:
-        return twiddles(n, device)
+def reg_twiddles(n: int, device) -> torch.Tensor:
+    """The two-level table of the register FFT (csrc/fft_reg.cuh;
+    `fft_plan.twiddle_table`: ceil(n/64) coarse, then 64 fine entries,
+    computed in float64), which kernel B2 takes at every nperseg. Cached per
+    (n, device); read-only."""
     return torch.from_numpy(fft_plan.twiddle_table(n)).to(device)
+
+
+def row_twiddles(n: int, device) -> torch.Tensor:
+    """The table kernels B1 and B3 take for an n-point row: `reg_twiddles`
+    at a size of `fft_plan.CORRELATE_SIZES` (the register FFT), else
+    `twiddles(n)`."""
+    if n in fft_plan.CORRELATE_SIZES:
+        return reg_twiddles(n, device)
+    return twiddles(n, device)

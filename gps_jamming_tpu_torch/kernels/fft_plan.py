@@ -1,26 +1,22 @@
-"""The pass schedules of the register FFTs (`csrc/fft_reg.cuh`,
-`csrc/fft_reg_mixed.cuh`), in Python.
+"""The pass schedules of the register FFT (`csrc/fft_reg.cuh`), in Python.
 
-The CUDA headers fix each schedule at compile time, one template
-instantiation per size; this module mirrors their index arithmetic so that
-the CPU tests can run the schedules in NumPy (`emulate`, `emulate_mixed`)
-and hold them against `np.fft`. The mixed-radix sizes and their schedules
-are read from the header's table (`MIXED`), so both sides run one table.
-Every rule here has a twin in the headers (`RegShape`, `kRadix`,
-`reg_slot`, the two-level `reg_twiddle` and its `fine_slot`; `mx_slot`,
-`coarse_slot`, `split_radix`).
+The CUDA header fixes each size's schedule at compile time, one template
+instantiation per size; this module mirrors its index arithmetic so that
+the CPU tests can run the schedules in NumPy (`emulate`) and hold them
+against `np.fft`. The sizes and their schedules are read from the header's
+table (`SCHEDULES`), and the code periods that kernels B1 and B3 run on it
+from `csrc/pcf_correlate.cuh` (`CORRELATE_SIZES`), so both sides run one
+table. Every rule here has a twin in the header (`RegShape`, `reg_slot`,
+`reg_twiddle` with its `coarse_slot` and `fine_slot`, `split_radix`).
 
-A power-of-two n is split over T = n / P threads, P points each (P = 8 for
-n <= 512, else 16). The transform is a Stockham autosort of radix-P passes
-and, where log2(n) is no multiple of log2(P), one last pass of a smaller
-radix: every pass reads in[i + r*n/R] (r < R) for its butterfly i and
-writes out[(i - i%Ns)*R + i%Ns + r*Ns], Ns being the product of the
-earlier radices, so input and output are both in natural order. Thread t
-owns butterflies i = t + u*T (u < P/R). Between passes the points go
-through shared memory at the XOR-swizzled float2 slot `swizzle(a, p)`,
-which keeps every pass's reads and writes free of bank conflicts; the
-fine twiddle entries sit at `fine_slot`, which does the same for the
-twiddle reads (`bank_ways` counts both).
+Each size has T threads, an exchange swizzle (pad, shift) and radices in
+pass order. A pass of radix R has B = n/R butterflies; thread t runs
+i = t + u*T, u < ceil(B/T) (idle past B). Butterfly i reads
+in[i + r*B] (r < R) and writes out[(i - i%Ns)*R + i%Ns + r*Ns], Ns being
+the product of the earlier radices, so input and output are both in
+natural order. Between passes the points go through shared memory at
+`slot(a, n)`; the two-level twiddle table sits at `coarse_slot` and
+`fine_slot` (`bank_ways` counts the bank conflicts of all three).
 """
 from __future__ import annotations
 
@@ -30,34 +26,52 @@ from pathlib import Path
 import numpy as np
 
 FINE_BITS = 6                    # the fine twiddle table's 64 entries
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 
-def points_per_thread(n: int) -> int:
-    """P: the points each thread holds in registers."""
-    return 8 if n <= 512 else 16
+def _macro_args(header: str, name: str) -> list[list[int]]:
+    """The integer arguments of every X(...) in `#define name(X)`."""
+    text = (_CSRC / header).read_text()
+    block = text[text.index(f"#define {name}(X)"):]
+    block = block[:block.index("\n\n")]
+    return [[int(a) for a in args.split(",")]
+            for args in re.findall(r"X\(([\d,\s]+)\)", block)]
 
 
-def radices(n: int) -> list[int]:
-    """The passes' radices: radix-P passes, then the remainder."""
-    p = points_per_thread(n)
-    out, m = [], n
-    while m >= p:
-        out.append(p)
-        m //= p
-    if m > 1:
-        out.append(m)
-    return out
+def _read_schedules() -> dict[int, tuple[int, int, int, tuple[int, ...]]]:
+    """{n: (T, pad, shift, radices)} from csrc/fft_reg.cuh."""
+    return {n: (t, pad, shift, tuple(rad)) for n, t, pad, shift, *rad
+            in _macro_args("fft_reg.cuh", "GJT_REG_SCHEDULES")}
+
+
+SCHEDULES = _read_schedules()
+CORRELATE_SIZES = tuple(a[0] for a in _macro_args("pcf_correlate.cuh",
+                                                  "GJT_CORR_SIZES"))
 
 
 def threads(n: int) -> int:
-    return n // points_per_thread(n)
+    return SCHEDULES[n][0]
 
 
-def swizzle(a, p: int):
-    """Shared-memory float2 slot of exchange index a at P = p points per
-    thread: a XOR the four bits above its low log2(p) (16 float2 slots
-    span the 32 four-byte banks)."""
-    return a ^ ((a >> (p.bit_length() - 1)) & 15)
+def radices(n: int) -> tuple[int, ...]:
+    return SCHEDULES[n][3]
+
+
+def slot(a, n: int):
+    """Shared-memory float2 slot of exchange index a of an n-point row:
+    XOR (pad 0) or padded (pad 1) by the bits above `shift` (16 float2
+    slots span the 32 four-byte banks)."""
+    _, pad, shift, _ = SCHEDULES[n]
+    return a + (a >> shift) if pad else a ^ ((a >> shift) & 15)
+
+
+def butterflies_per_thread(n: int, radix: int) -> int:
+    return -(-(n // radix) // threads(n))
+
+
+def points(n: int) -> int:
+    """P: the most points a thread holds in any pass (its register array)."""
+    return max(butterflies_per_thread(n, r) * r for r in radices(n))
 
 
 def twiddle_table(n: int) -> np.ndarray:
@@ -75,33 +89,30 @@ def fine_slot(l):
     return l ^ (l >> 4)
 
 
-def coarse_slot(h):
-    """Shared-memory slot of coarse entry h of a mixed-radix row's table:
-    h XOR its next four bits (the power-of-two rows keep h)."""
-    return h ^ ((h >> 4) & 15)
+def coarse_slot(h, n: int):
+    """Shared-memory slot of coarse entry h of an n-point table: h at a
+    power of two, else h XOR its next four bits."""
+    return h if n & (n - 1) == 0 else h ^ ((h >> 4) & 15)
 
 
 def _coarse_slots(n: int) -> int:
     """Slots before the fine entries in shared memory: ceil(n/64), rounded
-    up to 16 for a mixed-radix row."""
-    n_coarse = -(-n >> FINE_BITS)
-    return -(-n_coarse // 16) * 16 if n in MIXED else n_coarse
+    up to 16."""
+    return -(-(-(-n >> FINE_BITS)) // 16) * 16
 
 
 def _twiddle_addrs(e, n: int):
     """Shared-memory slots (coarse, fine) of exponent e's two entries."""
-    c = e >> FINE_BITS
-    return (coarse_slot(c) if n in MIXED else c,
+    return (coarse_slot(e >> FINE_BITS, n),
             _coarse_slots(n) + fine_slot(e & 63))
 
 
 def stage_table(table: np.ndarray, n: int) -> np.ndarray:
     """The n-point table as the kernel stages it in shared memory: coarse
-    entry h at its slot (_twiddle_addrs), fine entry l at its fine_slot."""
+    entry h at its coarse_slot, fine entry l at its fine_slot."""
     n_coarse = table.size - (1 << FINE_BITS)
     staged = np.zeros(_coarse_slots(n) + (1 << FINE_BITS), np.complex64)
-    h = np.arange(n_coarse)
-    staged[coarse_slot(h) if n in MIXED else h] = table[:n_coarse]
+    staged[coarse_slot(np.arange(n_coarse), n)] = table[:n_coarse]
     staged[_coarse_slots(n) + fine_slot(np.arange(1 << FINE_BITS))] = \
         table[n_coarse:]
     return staged
@@ -113,120 +124,6 @@ def _twiddle(staged: np.ndarray, e, n: int, inverse: bool):
     c, f = _twiddle_addrs(e, n)
     w = (staged[c] * staged[f]).astype(np.complex64)
     return np.conj(w) if inverse else w
-
-
-def pass_io(n: int, ns: int, radix: int, t: int, u: int, r: int):
-    """(read index, write index) of point r of thread t's u-th butterfly
-    in the pass of radix `radix` after earlier radices of product ns."""
-    i = t + u * threads(n)
-    m = i % ns
-    return i + r * (n // radix), (i - m) * radix + m + r * ns
-
-
-def emulate(x: np.ndarray, inverse: bool = False) -> np.ndarray:
-    """The register FFT of a (n,) complex64 row by the kernel's schedule,
-    index maps and twiddles, thread by thread, in float32 (no 1/n)."""
-    n = x.size
-    tab = stage_table(twiddle_table(n), n)
-    n_t, sign = threads(n), (1.0 if inverse else -1.0)
-    p = points_per_thread(n)
-    slot = np.array([swizzle(a, p) for a in range(n)])
-    # the first pass reads the row from device memory, unswizzled
-    buf = np.empty(n, np.complex64)
-    buf[slot] = x
-    ns = 1
-    for radix in radices(n):
-        nxt = np.empty_like(buf)
-        e_r = np.exp(sign * 2j * np.pi * np.arange(radix)[:, None]
-                     * np.arange(radix)[None, :] / radix)
-        for t in range(n_t):
-            for u in range(p // radix):
-                idx = [pass_io(n, ns, radix, t, u, r) for r in range(radix)]
-                v = np.array([buf[slot[rd]] for rd, _ in idx], np.complex64)
-                m = (t + u * n_t) % ns
-                if ns > 1:
-                    # w^r by repeated products, as the kernel forms them
-                    w = _twiddle(tab, m * (n // (ns * radix)), n, inverse)
-                    wr = w
-                    for r in range(1, radix):
-                        v[r] = np.complex64(v[r] * wr)
-                        wr = np.complex64(wr * w)
-                v = (e_r @ v).astype(np.complex64)
-                for r, (_, wr) in enumerate(idx):
-                    nxt[slot[wr]] = v[r]
-        buf, ns = nxt, ns * radix
-    # the last pass's points stay in registers, in natural order
-    return buf[slot]
-
-
-def _ways(addrs) -> int:
-    """Bank-pair ways of one half-warp's float2 slots: lanes reading the
-    same slot share one access (a broadcast)."""
-    return int(max(np.bincount([int(a) % 16 for a in set(
-        np.asarray(list(addrs)).ravel().tolist())])))
-
-
-def bank_ways(n: int) -> int:
-    """The most distinct float2 slots of one half-warp (16 lanes, 128
-    bytes) that share a bank pair, over every pass's exchange reads and
-    writes and its twiddle-table reads."""
-    worst, ns, n_t, p = 1, 1, threads(n), points_per_thread(n)
-    for radix in radices(n):
-        for u in range(p // radix):
-            for t0 in range(0, n_t, 16):
-                lanes = range(t0, min(t0 + 16, n_t))
-                for r in range(radix):
-                    for which in (0, 1):
-                        worst = max(worst, _ways(
-                            swizzle(pass_io(n, ns, radix, t, u, r)[which], p)
-                            for t in lanes))
-                if ns > 1:
-                    addrs = [_twiddle_addrs(((t + u * n_t) % ns)
-                                            * (n // (ns * radix)), n)
-                             for t in lanes]
-                    for which in (0, 1):
-                        worst = max(worst, _ways(a[which] for a in addrs))
-        ns *= radix
-    return worst
-
-
-# --- The mixed-radix register FFT (csrc/fft_reg_mixed.cuh) ---------------
-#
-# Each size of the header's GJT_MIXED_SCHEDULES table: T threads, the
-# exchange swizzle (pad, shift) and the radices in pass order. A pass of
-# radix R has B = n/R butterflies; thread t runs i = t + u*T, u < ceil(B/T)
-# (idle past B); the index maps are those of the power-of-two schedule.
-
-
-def _read_schedules() -> dict[int, tuple[int, int, int, tuple[int, ...]]]:
-    """{n: (T, pad, shift, radices)} from csrc/fft_reg_mixed.cuh."""
-    text = (Path(__file__).resolve().parent.parent / "csrc"
-            / "fft_reg_mixed.cuh").read_text()
-    block = text[text.index("#define GJT_MIXED_SCHEDULES(X)"):]
-    block = block[:block.index("\n\n")]
-    out = {}
-    for args in re.findall(r"X\(([\d,\s]+)\)", block):
-        n, t, pad, shift, *rad = (int(a) for a in args.split(","))
-        out[n] = (t, pad, shift, tuple(rad))
-    return out
-
-
-MIXED = _read_schedules()
-
-
-def mixed_slot(a, n: int):
-    """Shared-memory float2 slot of exchange index a of an n-point row."""
-    _, pad, shift, _ = MIXED[n]
-    return a + (a >> shift) if pad else a ^ ((a >> shift) & 15)
-
-
-def butterflies_per_thread(n: int, radix: int) -> int:
-    return -(-(n // radix) // MIXED[n][0])
-
-
-def mixed_points(n: int) -> int:
-    """P: the most points a thread holds in any pass (its register array)."""
-    return max(butterflies_per_thread(n, r) * r for r in MIXED[n][3])
 
 
 def split_radix(r: int) -> int:
@@ -268,21 +165,21 @@ def _dft_nat(v: np.ndarray, radix: int, inverse: bool, tab: np.ndarray,
     return out
 
 
-def emulate_mixed(x: np.ndarray, inverse: bool = False) -> np.ndarray:
-    """The mixed-radix register FFT of a (n,) complex64 row by the kernel's
-    schedule, index maps, twiddles (w^r by repeated products) and R-point
-    DFTs, every butterfly of a pass at once, in float32 (no 1/n)."""
+def emulate(x: np.ndarray, inverse: bool = False) -> np.ndarray:
+    """The register FFT of a (n,) complex64 row by the kernel's schedule,
+    index maps, twiddles (w^r by repeated products) and R-point DFTs, every
+    butterfly of a pass at once, in float32 (no 1/n)."""
     n = x.size
     tab = stage_table(twiddle_table(n), n)
-    slot = mixed_slot(np.arange(n), n)
-    buf = np.zeros(int(slot.max()) + 1, np.complex64)
-    buf[slot] = x
+    slots = slot(np.arange(n), n)
+    buf = np.zeros(int(slots.max()) + 1, np.complex64)
+    buf[slots] = x
     ns = 1
-    for radix in MIXED[n][3]:
+    for radix in radices(n):
         b = n // radix
         i = np.arange(b)
         m = i % ns
-        v = buf[mixed_slot(i[:, None] + b * np.arange(radix)[None, :], n)]
+        v = buf[slot(i[:, None] + b * np.arange(radix)[None, :], n)]
         if ns > 1:
             w = _twiddle(tab, m * (n // (ns * radix)), n, inverse)
             wr = w
@@ -292,31 +189,37 @@ def emulate_mixed(x: np.ndarray, inverse: bool = False) -> np.ndarray:
         v = _dft_nat(v, radix, inverse, tab, n)
         nxt = np.zeros_like(buf)
         out = ((i - m) * radix + m)[:, None] + ns * np.arange(radix)[None, :]
-        nxt[mixed_slot(out, n)] = v
+        nxt[slot(out, n)] = v
         buf, ns = nxt, ns * radix
-    return buf[slot]
+    return buf[slots]
 
 
-def bank_ways_mixed(n: int) -> int:
-    """bank_ways for a size of the mixed table: every pass's exchange
-    reads and writes and its twiddle reads, over the half-warps of lanes
-    that run a butterfly (the composite radices' own twiddles are one
-    address per pass, a broadcast)."""
-    n_t, worst, ns = MIXED[n][0], 1, 1
-    for radix in MIXED[n][3]:
+def _ways(addrs) -> int:
+    """Bank-pair ways of one half-warp's float2 slots: lanes reading the
+    same slot share one access (a broadcast)."""
+    return int(max(np.bincount([int(a) % 16 for a in set(
+        np.asarray(list(addrs)).ravel().tolist())])))
+
+
+def bank_ways(n: int) -> int:
+    """The most distinct float2 slots of one half-warp (16 lanes, 128
+    bytes) that share a bank pair, over every pass's exchange reads and
+    writes and its twiddle reads, over the half-warps of lanes that run a
+    butterfly (the composite radices' own twiddles are one address per
+    pass, a broadcast)."""
+    n_t, worst, ns = threads(n), 1, 1
+    for radix in radices(n):
         b = n // radix
         for u in range(butterflies_per_thread(n, radix)):
             for t0 in range(0, n_t, 16):
-                i = np.arange(t0, t0 + 16) + u * n_t
+                i = np.arange(t0, min(t0 + 16, n_t)) + u * n_t
                 i = i[i < b]
                 if i.size == 0:
                     continue
                 m = i % ns
                 for r in range(radix):
-                    worst = max(worst,
-                                _ways(mixed_slot(i + r * b, n)),
-                                _ways(mixed_slot((i - m) * radix + m
-                                                 + r * ns, n)))
+                    worst = max(worst, _ways(slot(i + r * b, n)),
+                                _ways(slot((i - m) * radix + m + r * ns, n)))
                 if ns > 1:
                     c, f = _twiddle_addrs(m * (n // (ns * radix)), n)
                     worst = max(worst, _ways(c), _ways(f))

@@ -23,16 +23,10 @@ from ..kernels import build
 # Kernel launches made by `welch_psd_fused` (one per call on a CUDA tensor).
 LAUNCHES = 0
 
-# The most thread blocks (segment tiles) of one launch, a multiple of the
-# kernel's cluster of 8; the tiles follow from (nperseg, segments) alone, so
-# the reduction order, and with it the result, does not depend on the card.
-_TILES = 128
-_CLUSTER = 8
-
 # The mixed-radix nperseg of the TPU kernel up to 16384
 # (`pallas_psd.supported`: 128 * 2^a * {3, 5, 7}); the C gate of
-# csrc/welch_psd.cu lists the same sizes, each a size of the mixed-radix
-# register FFT (csrc/fft_reg_mixed.cuh, `fft_plan.MIXED`).
+# csrc/welch_psd.cu lists the same sizes, each a schedule of the register
+# FFT (csrc/fft_reg.cuh, `fft_plan.SCHEDULES`).
 MIXED_NPERSEG = (384, 640, 768, 896, 1280, 1536, 1792, 2560, 3072, 3584,
                  5120, 6144, 7168, 10240, 12288, 14336)
 
@@ -62,16 +56,15 @@ def _window(nperseg: int, device: torch.device) -> tuple[torch.Tensor, float]:
 
 
 @functools.lru_cache(maxsize=16)
-def _scratch(nperseg: int, device: torch.device,
-             stream: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's scratch, kept per (nperseg, device, stream): the
-    clusters' partial rows and the 8 slice tickets, which the kernel leaves
-    at zero after every call (so calls on one stream may reuse them; another
-    stream gets its own)."""
-    partial = torch.empty((_TILES // _CLUSTER, nperseg), dtype=torch.float32,
-                          device=device)
-    ticket = torch.zeros(_CLUSTER, dtype=torch.int32, device=device)
-    return partial, ticket
+def _scratch(nperseg: int, device: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's scratch, kept per (nperseg, device, stream), sized by
+    the kernel (`gjt_welch_scratch_bytes`): its slice tickets, which it
+    leaves at zero after every call (so calls on one stream may reuse
+    them; another stream gets its own), and the clusters' partial rows.
+    The number of tiles is a constant of the kernel, so the reduction
+    order, and with it the result, does not depend on the card."""
+    n_bytes = build.load().gjt_welch_scratch_bytes(nperseg)
+    return torch.zeros(n_bytes, dtype=torch.uint8, device=device)
 
 
 def welch_psd_fused(x: torch.Tensor, sample_rate: float, nperseg: int = 1024,
@@ -92,17 +85,16 @@ def welch_psd_fused(x: torch.Tensor, sample_rate: float, nperseg: int = 1024,
         raise ValueError(f"welch_psd_fused: {n} samples < nperseg {nperseg}")
     n_segs = 1 + (n - nperseg) // (nperseg // 2)
     win, wsum2 = _window(nperseg, x.device)
-    tab = build.row_twiddles(nperseg, x.device)
+    tab = build.reg_twiddles(nperseg, x.device)
     out = torch.empty(nperseg, dtype=torch.float32, device=x.device)
     scale = 1.0 / (sample_rate * wsum2) / n_segs
     lib = build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        partial, ticket = _scratch(nperseg, x.device, stream)
+        scratch = _scratch(nperseg, x.device, stream)
         err = lib.gjt_welch_psd(
-            x.data_ptr(), win.data_ptr(), tab.data_ptr(), partial.data_ptr(),
-            ticket.data_ptr(), out.data_ptr(), nperseg, n_segs, _TILES,
-            int(detrend), scale, stream)
+            x.data_ptr(), win.data_ptr(), tab.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), nperseg, n_segs, int(detrend), scale, stream)
     build.check(err, "gjt_welch_psd")
     LAUNCHES += 1
     return out

@@ -1,13 +1,13 @@
-"""The register FFTs' pass schedules (kernels/fft_plan.py, the Python twin
-of csrc/fft_reg.cuh and csrc/fft_reg_mixed.cuh) run in NumPy.
+"""The register FFT's pass schedules (kernels/fft_plan.py, the Python twin
+of csrc/fft_reg.cuh) run in NumPy.
 
 The CUDA kernel cannot run here, so this is the CPU check of its index
-arithmetic: for every power of two from 256 to 16384, the schedule's
+arithmetic: for every power of two from 64 to 16384, the schedule's
 Stockham passes (thread-owned butterflies, swizzled exchange slots, the
 two-level twiddles and their repeated products) reproduce np.fft.ifft * n
 and np.fft.fft within 2e-6 of the row's largest value (float32 sums of up
 to 16384 terms), and no exchange and no twiddle read has a shared-memory
-bank conflict; the same for every size of the mixed-radix table.
+bank conflict; the same for every mixed-radix size of the table.
 """
 import numpy as np
 import pytest
@@ -52,22 +52,27 @@ def test_schedule_matches_numpy_fft_welch_sizes(n, inverse):
 
 @pytest.mark.parametrize("n", POW2)
 def test_schedule_shape_and_banks(n):
-    p, t = fft_plan.points_per_thread(n), fft_plan.threads(n)
-    assert p * t == n and t % 32 == 0 and t <= 1024
-    rad = fft_plan.radices(n)
+    """A power of two keeps its radix-P schedule: P = 8 points per thread
+    up to 512, else 16, radix-P passes then the rest, the XOR swizzle by
+    the bits above log2 P; whole warps; no bank conflict."""
+    p = 8 if n <= 512 else 16
+    t, pad, shift, rad = fft_plan.SCHEDULES[n]
+    assert t == n // p and fft_plan.points(n) == p
+    assert t % 32 == 0 and t <= 1024
     assert int(np.prod(rad)) == n and all(r == p for r in rad[:-1])
     assert rad[-1] in (2, 4, 8, p)
-    assert sorted(fft_plan.swizzle(np.arange(n), p)) == list(range(n))
+    assert (pad, shift) == (0, p.bit_length() - 1)
+    assert sorted(fft_plan.slot(np.arange(n), n)) == list(range(n))
     assert fft_plan.bank_ways(n) == 1
 
 
 @pytest.mark.parametrize("n", [256, 2048, 16384, 2400, 3200, 10368])
 def test_row_twiddles(n):
-    """The two-level table for a power of two or a size of the mixed-radix
-    register FFT (ceil(n/64) coarse entries, every exponent's product
-    within 3e-7 of float64), the half table for any other n."""
+    """B1's and B3's table at a size of their register FFT: the two-level
+    table (ceil(n/64) coarse entries, every exponent's product within 3e-7
+    of float64); the half table for any other n."""
     tab = build.row_twiddles(n, torch.device("cpu")).numpy()
-    if n & (n - 1) and n not in fft_plan.MIXED:
+    if n not in fft_plan.CORRELATE_SIZES:
         assert tab.shape == ((n + 1) // 2,)
         return
     n_c = -(-n // 64)
@@ -78,30 +83,36 @@ def test_row_twiddles(n):
                                atol=3e-7)
 
 
-@pytest.mark.parametrize("n", [4 * 127, 3 ** 7])
+@pytest.mark.parametrize("n", [4 * 127, 3 ** 7, 1536, 14336])
 def test_row_twiddles_half_table_off_the_mixed_table(n):
-    """An n of neither FFT (a prime factor above 7, or 3^7, not in the
-    table) keeps the half table of the shared-memory FFT."""
-    assert n not in fft_plan.MIXED
+    """An n off B1's and B3's register FFT (a prime factor above 7, 3^7,
+    or a size that only B2 runs on the register FFT) keeps the half table
+    of the shared-memory FFT; B2's table at its sizes is the two-level
+    one."""
+    assert n not in fft_plan.CORRELATE_SIZES
     tab = build.row_twiddles(n, torch.device("cpu")).numpy()
     np.testing.assert_allclose(
         tab, np.exp(-2j * np.pi * np.arange((n + 1) // 2) / n), atol=1e-7)
+    if n in fft_plan.SCHEDULES:
+        np.testing.assert_array_equal(
+            build.reg_twiddles(n, torch.device("cpu")).numpy(),
+            fft_plan.twiddle_table(n))
 
 
-MIXED = sorted(fft_plan.MIXED)
-# sizes whose best schedule found leaves a 2-way access (PERF.md, PR 5)
+MIXED = sorted(n for n in fft_plan.SCHEDULES if n & (n - 1))
+# sizes whose best schedule found leaves a 2-way access (PERF.md, section 6)
 TWO_WAY = {896, 2400, 2800, 3200, 10368}
 
 
 @pytest.mark.parametrize("n", MIXED)
 @pytest.mark.parametrize("inverse", [True, False])
 def test_mixed_schedule_matches_numpy_fft(n, inverse):
-    """The mixed-radix register FFT's schedule (csrc/fft_reg_mixed.cuh's
-    table, read by fft_plan): index maps, two-level twiddles, their
-    repeated products and the composite radices' own twiddles, in float32,
-    within 2e-6 of the row's largest value (measured: at most 1.1e-6)."""
+    """The register FFT's mixed-radix schedules (csrc/fft_reg.cuh's table,
+    read by fft_plan): index maps, two-level twiddles, their repeated
+    products and the composite radices' own twiddles, in float32, within
+    2e-6 of the row's largest value (measured: at most 1.1e-6)."""
     x = _row(n, n + 2 + inverse)
-    got = fft_plan.emulate_mixed(x, inverse=inverse)
+    got = fft_plan.emulate(x, inverse=inverse)
     want = np.fft.ifft(x.astype(np.complex128)) * n if inverse \
         else np.fft.fft(x.astype(np.complex128))
     assert got.dtype == np.complex64
@@ -115,7 +126,7 @@ def test_mixed_schedule_shape_and_banks(n):
     even first radix (B2 carries the overlapped half over), at most 24
     points per thread, every exchange slot distinct, and at most one
     access per bank pair per half-warp (two at TWO_WAY)."""
-    t, _, _, rad = fft_plan.MIXED[n]
+    t, _, _, rad = fft_plan.SCHEDULES[n]
     assert t % 32 == 0 and t <= 1024
     assert int(np.prod(rad)) == n and rad[0] % 2 == 0
     # every radix nests the kernel's DFTs: powers of two up to 16, 3, 5, 7
@@ -124,20 +135,23 @@ def test_mixed_schedule_shape_and_banks(n):
             a = fft_plan.split_radix(r)
             assert a in (2, 4, 8, 16, 3, 5, 7)
             r //= a
-    assert 8 <= fft_plan.mixed_points(n) <= 24
-    slots = fft_plan.mixed_slot(np.arange(n), n)
+    assert 8 <= fft_plan.points(n) <= 24
+    slots = fft_plan.slot(np.arange(n), n)
     assert len(set(slots.tolist())) == n
-    assert fft_plan.bank_ways_mixed(n) == (2 if n in TWO_WAY else 1)
+    assert fft_plan.bank_ways(n) == (2 if n in TWO_WAY else 1)
 
 
 def test_mixed_table_covers_the_sizes_the_kernels_take():
-    """The table holds GPS at the RTL-SDR rates (2400, 2560, 2800, 3200),
-    v1's 81*128 and B2's 16 mixed nperseg; csrc/welch_psd.cu's gate lists
-    exactly B2's."""
+    """B1 and B3 instantiate the register FFT at the powers of two from 256
+    and at GPS's RTL-SDR rates (2400, 2560, 2800, 3200) and v1's 81*128,
+    and at no other size; the table holds those and B2's 16 mixed nperseg,
+    which csrc/welch_psd.cu's gate lists exactly."""
     import re
     from gps_jamming_tpu_torch.ops import cuda_psd
-    assert {2400, 2560, 2800, 3200, 10368} <= set(fft_plan.MIXED)
-    assert set(cuda_psd.MIXED_NPERSEG) <= set(fft_plan.MIXED)
+    assert sorted(fft_plan.CORRELATE_SIZES) == sorted(
+        POW2 + [2400, 2560, 2800, 3200, 10368])
+    assert set(fft_plan.CORRELATE_SIZES) <= set(fft_plan.SCHEDULES)
+    assert set(cuda_psd.MIXED_NPERSEG) <= set(fft_plan.SCHEDULES)
     src = (build.CSRC / "welch_psd.cu").read_text()
     block = src[src.index("#define GJT_WELCH_MIXED(X)"):]
     block = block[:block.index("\n\n")]
