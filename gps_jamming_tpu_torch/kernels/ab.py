@@ -205,18 +205,18 @@ def main() -> int:
         fns = {k: c[0] for k, c in calls.items()}
         turns = ("other", "this", "this", "other")
         ms = [_median_ms(fns[k], args.reps, inner) for k in turns]
-        dev = [_device_ms(fns[k], inner) for k in turns]
+        dms = [_device_ms(fns[k], inner) for k in turns]
         rows.append({"kernel": what, "n": n, "other_this_this_other_ms": ms,
                      "change": (ms[1] + ms[2]) / (ms[0] + ms[3]) - 1.0,
-                     "device_ms": dev,
-                     "device_change": (dev[1] + dev[2]) / (dev[0] + dev[3])
+                     "device_ms": dms,
+                     "device_change": (dms[1] + dms[2]) / (dms[0] + dms[3])
                      - 1.0,
                      "max_rel_diff": diff})
         print(f"{what} n={n}: other, this, this, other ms "
               f"{', '.join(f'{t:.4f}' for t in ms)}; this/other "
               f"{(ms[1] + ms[2]) / (ms[0] + ms[3]):.4f}; device "
-              f"{', '.join(f'{t:.4f}' for t in dev)}, this/other "
-              f"{(dev[1] + dev[2]) / (dev[0] + dev[3]):.4f}; outputs differ "
+              f"{', '.join(f'{t:.4f}' for t in dms)}, this/other "
+              f"{(dms[1] + dms[2]) / (dms[0] + dms[3]):.4f}; outputs differ "
               f"by {diff:.2e} of their max; card {card}", flush=True)
         del calls, fns
         torch.cuda.empty_cache()
