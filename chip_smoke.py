@@ -15,8 +15,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    path's shapes, with CUDA-event median times of both: (a) the Welch PSD
    on one 512k-sample block at nperseg 1024 (the main path's), 1536 (a
    mixed-radix size) and 16384, each bitwise repeatable, and one launch
-   and one device kernel per call (LAUNCHES and torch.profiler); (b) the PCF search at 32 PRN x 2048 lags x 10
-   code periods in surface, stats and peak-only modes; (c) the std search
+   and one device kernel per call (LAUNCHES and torch.profiler), and at
+   16384 over a DC of 127 LSB (the detrend's worst case); (b) the PCF
+   search at 32 PRN x 2048 lags x 10 code periods in surface, stats and
+   peak-only modes; (c) the std search
    at the GPS shape (32 PRN x 71 bins x 10 x 2048) and the Galileo E1B
    shape (36 PRN x 71 bins x 10 x 16384 at 4.096 MS/s); (d) B1 in its
    three modes and B3 at the mixed-radix n of GPS at 2.4, 2.56, 2.8 and
@@ -38,14 +40,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
    and 'std', against the CPU path; (f) GPS `acquire_all` 'pcf' (B1) and
    'std' (B3) on seeded 10 ms captures at 2.4, 2.56, 2.8 and 3.2 MS/s,
    against the known answer and the CPU path;
-5. the GPS receiver: a geometry-true 20.8 s capture of a 24-satellite
-   shell (`sim/constellation.py`, NumPy, the long pole of the run), scaled
-   to RTL-SDR uint8 and written as a .bin, read back with
-   `iq.read_iq_file`, then `receiver.run_receiver` on the card: at least
+5. the GPS receiver through the batch product path: a geometry-true
+   20.8 s capture of a 24-satellite shell (`sim/constellation.py`, NumPy,
+   the long pole of the run), scaled to RTL-SDR uint8 and written as a
+   .bin, then `pipeline.analyze_capture([bin], streaming=False)` on the
+   card (pre-scan, `run_receiver`, detector, telemetry records): at least
    4 channels decoded with the simulated ephemeris and a fix within 30 m
-   (50 m in height); per-stage times, tracking Msamples/s and multiples
-   of real time; (b) the tracker on the card against the CPU over the
-   first 2000 epochs of the same capture and handover;
+   (50 m in height); no jamming flagged, the last safe fix within 30 m,
+   one record per 100 ms frame carrying the decoded satellites and GPS
+   time; per-stage times, tracking Msamples/s and multiples of real time;
+   (b) the tracker on the card against the CPU over the first 2000 epochs
+   of the same capture (read back with `iq.read_iq_file`) and handover;
+   (c) detection and localization through the same path on three
+   antennas at (0, 0), (3, 0) and (0, 3) m. Antenna 0 is the render taken
+   at a lower gain (its background at PRODUCT_BG_LSB rms per component,
+   so the reference's RSSI turn-on threshold of 0.1 full scale sits above
+   it), antennas 1-2 seeded noise at that level; each carries a chirp
+   jammer at (4, 3) m, its amplitude from the log-distance model (the JAX
+   simulator's scaling), on from just after subframe 3 of the last
+   decoded channel of (a) to the end of the capture. One event from the
+   jam start to EOF, F1 over the jammed frames and nothing flagged
+   before, >= 4 acquired, RSSI within 3 m of (4, 3), three TDOA pairs, one
+   record per frame, B1 launched; `range_from_iq` and `find_onset` on the
+   card against the CPU on the same captures; the path's host times per
+   stage. (The batch receiver drops a channel whose median C/N0 over its
+   last 200 ms is under 25 dB-Hz, as this jam makes every one, so (a)
+   holds the receiver's checks and (c) the detector's and localization's.)
 6. print the per-kernel JSON line, the card line, and the success line.
 
 Each kernel's entry in the JSON line, and each of its shapes, carries
@@ -107,6 +127,11 @@ RX_LLA = (50.06, 19.94, 219.0)
 RX_TOE = 345600.0
 RX_SCALE = 12.0                   # float -> uint8 LSB, as the CLI's users
 RX_CHECK_EPOCHS = 2000            # card vs CPU tracker comparison
+ANTENNAS = ((0.0, 0.0), (3.0, 0.0), (0.0, 3.0))   # the CLI's defaults
+JAMMER_XY = (4.0, 3.0)
+PRODUCT_BG_LSB = 1.3              # background rms per I/Q component
+JAM_MARGIN_S = 0.1                # after the last bit of subframe 3
+ONSET_BOUND = 64                  # find_onset, card vs CPU, samples
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
 
@@ -509,6 +534,194 @@ def same_result(label, got, ref, rtol=1e-3):
                         f"(rel {rel:.3e})")
 
 
+def ecef_error(fix: dict | None, rx_ecef) -> float:
+    """Distance in m of a {'lat', 'lon', 'hgt'} fix from rx_ecef (float64);
+    NaN for no fix."""
+    from gps_jamming_tpu_torch.ops import geodesy
+    if fix is None:
+        return float("nan")
+    e = geodesy.lla_to_ecef(*(torch.tensor(fix[k], dtype=torch.float64)
+                              for k in ("lat", "lon", "hgt")))
+    return float(np.linalg.norm(np.array([float(v) for v in e]) - rx_ecef))
+
+
+def check_records(recs, n_samples: int):
+    """One telemetry record per 100 ms frame, each one JSON object."""
+    fail_unless(len(recs) == n_samples // N_CODE // 100,
+                f"{len(recs)} telemetry records for {n_samples} samples")
+    for r in recs:
+        json.loads(json.dumps(r))
+
+
+def stage_line(res, seconds: float) -> str:
+    """The product path's host times, each stage ending in a read."""
+    st, rx = res.stage_seconds, res.receiver.stage_seconds
+    extra = "".join(f", {k} {st[k]:.3f}" for k in ("rssi", "tdoa")
+                    if k in st)
+    return (f"host times (s, each ending in a read): prescan "
+            f"{st['prescan']:.3f}, receiver {st['receiver']:.3f} (acquire "
+            f"{rx['acquire']:.3f}, refine {rx['refine']:.3f}, track "
+            f"{rx['track']:.3f}, decode {rx['decode']:.3f}, pvt "
+            f"{rx['pvt']:.3f}), detector {st['detector']:.4f}, records "
+            f"{st['records']:.3f}{extra}; elapsed_s {res.elapsed_s:.3f} = "
+            f"{seconds / res.elapsed_s:.3f}x real time for {seconds:.1f} s "
+            f"of capture")
+
+
+def jam_start_sample(rres) -> tuple[int, float]:
+    """(first jammed sample, where subframe 3 ends): the capture sample at
+    which ToW RX_TOE + 18 s (the end of subframes 1-3, which the fix
+    needs) reaches the last decoded channel of the clean run, plus
+    JAM_MARGIN_S."""
+    ends = []
+    for c in rres.channels:
+        o = c.obs
+        if o is None or not o.eph.complete:
+            continue
+        tow = o.transmit_time(np.arange(o.chips.size))
+        k = int(np.searchsorted(tow, RX_TOE + 18.0))
+        fail_unless(k < o.chips.size, f"PRN {c.prn}: subframe 3 does not "
+                                      "end inside the capture")
+        ends.append(o.sample_offset + k * o.epoch_samples)
+    end = max(ends)
+    return int(end + JAM_MARGIN_S * FS), end / FS
+
+
+def write_antennas(td, iq_sim, jam0: int) -> tuple[list[str], float]:
+    """The three product-path captures as uint8 .bin files: antenna 0 the
+    render at PRODUCT_BG_LSB rms per component, antennas 1-2 seeded noise
+    at that level, each plus the chirp (-500 kHz up at 500 kHz/s, the
+    JAX simulator's sweep) from sample jam0 on at the log-distance
+    amplitude of its distance to JAMMER_XY. Returns (paths, scale)."""
+    from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from gps_jamming_tpu_torch.ops import iq, pathloss
+    n = iq_sim.size
+    scale = PRODUCT_BG_LSB / float(np.std(iq_sim.real))
+    tau = np.arange(n - jam0) / FS
+    chirp = np.exp(2j * np.pi * (-500e3 * tau + 0.5 * 500e3 * tau * tau))
+    rng = np.random.default_rng(6)
+    paths = []
+    for k, (ax, ay) in enumerate(ANTENNAS):
+        prx = float(pathloss.forward_received_db(
+            math.hypot(JAMMER_XY[0] - ax, JAMMER_XY[1] - ay),
+            CFG.rssi.tx_power_dbm, CFG.rssi.path_loss_exponent,
+            CFG.rssi.frequency_mhz))
+        x = (iq_sim * scale if k == 0 else PRODUCT_BG_LSB * (
+            rng.standard_normal(n) + 1j * rng.standard_normal(n)))
+        x[jam0:] += 127.5 * 10 ** (prx / 20) * chirp
+        paths.append(os.path.join(td, f"ant{k}.bin"))
+        iq.write_iq_file(paths[-1], x)
+        del x
+    return paths, scale
+
+
+def product_path(iq_sim, rres, card: str) -> dict:
+    """Phase 5c: `analyze_capture(streaming=False)` on the card over the
+    jammed 3-antenna set, its checks, host times, and `range_from_iq` and
+    `find_onset` against the CPU. Returns the launches of that run.
+
+    The jam runs to the end of the capture, because the reference's RSSI
+    ranging averages the amplitude from the turn-on to EOF. The batch
+    receiver keeps a channel only where the median C/N0 of its last 200
+    ms is at least 25 dB-Hz (`run_receiver`, as the JAX package's), which
+    this jam takes from every channel: phase 5 holds the receiver, its fix
+    and the last safe fix on the clean capture, and this phase holds
+    detection and localization. The receiver's part in detection here is
+    F2, the C/N0 drop of the tracked channels: it must be on, as F1 is,
+    over every frame that lies a chunk past the jam's start."""
+    from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from gps_jamming_tpu_torch.models import rssi
+    from gps_jamming_tpu_torch.ops import iq, power
+    from gps_jamming_tpu_torch.runtime import pipeline
+    jam0, sub3_end_s = jam_start_sample(rres)
+    n = iq_sim.size
+    fail_unless(n - jam0 >= FS, f"jam window {(n - jam0) / FS:.3f} s is "
+                                "under 1 s")
+    chunk_b = 2 * CFG.detector.power_chunk_samples
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        paths, scale = write_antennas(td, iq_sim, jam0)
+        write_s = time.perf_counter() - t0
+        print(f"product path: jam [{jam0 / FS:.4f} s, EOF {n / FS:.1f} s) "
+              f"= {(n - jam0) / FS:.4f} s (subframe 3 of the last decoded "
+              f"channel ends at {sub3_end_s:.4f} s, + {JAM_MARGIN_S} s); "
+              f"antenna 0 = the render x {scale:.4f}; 3 .bin written in "
+              f"{write_s:.1f} s", flush=True)
+        reset_launches()
+        res = pipeline.analyze_capture(paths, ANTENNAS, streaming=False)
+        launches = read_launches()
+
+        # card vs CPU on the same captures: ranging and the onset finder
+        d_rel, d_onset = [], []
+        for p in paths:
+            xn = torch.from_numpy(iq.read_iq_file(p, convention="normalized"))
+            g = float(rssi.range_from_iq(xn.cuda(), CFG.rssi).distance_m)
+            c = float(rssi.range_from_iq(xn, CFG.rssi).distance_m)
+            d_rel.append(abs(g - c) / abs(c))
+            xc = torch.from_numpy(iq.read_iq_file(p, convention="centered"))
+            a = (CFG.tdoa.noise_sample_size, CFG.tdoa.detection_window_size,
+                 CFG.tdoa.detection_threshold_factor)
+            og, oc = int(power.find_onset(xc.cuda(), *a)), \
+                int(power.find_onset(xc, *a))
+            d_onset.append((og, og - oc))
+            del xn, xc
+    rx = res.receiver
+    ev = res.events
+    acquired = [c.prn for c in rx.channels if c.acquired]
+    decoded = [c.prn for c in rx.channels
+               if c.obs is not None and c.obs.eph.complete]
+    loc = res.localization
+    xy = loc["location_meters"] if loc and loc["success"] else [np.nan] * 2
+    loc_err = math.hypot(xy[0] - JAMMER_XY[0], xy[1] - JAMMER_XY[1])
+    buff = (np.arange(len(res.flags_trace["jamming"])) + 1) * 2 * 100 * N_CODE
+    jam_b = 2 * jam0
+    print(f"product path: events {ev}; power ranges {res.power_ranges} "
+          f"(jam from byte {jam_b}); flags over the jam: F1 "
+          f"{int(res.flags_trace['f1'][buff >= jam_b].sum())}, F2 "
+          f"{int(res.flags_trace['f2'][buff >= jam_b].sum())} of "
+          f"{int((buff >= jam_b).sum())} frames (F2 before the jam "
+          f"{int(res.flags_trace['f2'][buff < jam_b].sum())}); acquired "
+          f"{acquired}, "
+          f"decoded {decoded}, {len(rx.fixes)} fixes, last safe fix "
+          f"{res.last_safe_fix}; RSSI {xy} distances "
+          f"{loc and loc['distances']} ({loc_err:.2f} m from {JAMMER_XY}); "
+          f"TDOA {res.tdoa_result and [(p['pair'], round(p['lag_samples'], 3)) for p in res.tdoa_result['pairs']]}"
+          f"; {len(res.telemetry.records)} records; launches {launches}",
+          flush=True)
+    print(f"product path, card vs CPU on the same captures: range_from_iq "
+          f"max rel diff {max(d_rel):.3e} (bound 1e-4); find_onset (card, "
+          f"card - CPU) {d_onset} samples (bound {ONSET_BOUND})", flush=True)
+    print(f"product path {stage_line(res, n / FS)}; card {card}", flush=True)
+
+    fail_unless(launches["pcf"] >= 1,
+                f"analyze_capture did not launch B1: {launches}")
+    fail_unless(len(ev) == 1, f"{len(ev)} events, want 1")
+    fail_unless(abs(ev[0]["start_sample"] - jam_b) <= 2 * chunk_b,
+                f"event starts at byte {ev[0]['start_sample']}, the jam at "
+                f"{jam_b}")
+    fail_unless(abs(ev[0]["end_sample"] - 2 * n) <= 0.02 * 2 * n,
+                f"event ends at byte {ev[0]['end_sample']}, EOF {2 * n}")
+    fail_unless(len(res.power_ranges) == 1
+                and abs(res.power_ranges[0][0] - jam_b) <= chunk_b,
+                f"power ranges {res.power_ranges}")
+    fail_unless(bool(res.flags_trace["f1"][buff >= jam_b + chunk_b].all()),
+                "F1 is off in a jammed frame")
+    fail_unless(bool(res.flags_trace["f2"][buff >= jam_b + chunk_b].all()),
+                "F2 (the receiver's C/N0 drop) is off in a jammed frame")
+    fail_unless(not res.flags_trace["jamming"][buff < jam_b - chunk_b].any(),
+                "jamming flagged before the jam")
+    fail_unless(len(acquired) >= 4, f"only {len(acquired)} acquired")
+    fail_unless(loc_err < 3.0, f"RSSI location {xy}, {loc_err:.2f} m off")
+    fail_unless(res.tdoa_result is not None
+                and len(res.tdoa_result["pairs"]) == 3,
+                f"TDOA result {res.tdoa_result}")
+    check_records(res.telemetry.records, n)
+    fail_unless(max(d_rel) <= 1e-4, "range_from_iq: card differs from CPU")
+    fail_unless(max(abs(d) for _, d in d_onset) <= ONSET_BOUND,
+                "find_onset: card differs from CPU")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -525,8 +738,9 @@ def main() -> int:
     from gps_jamming_tpu_torch.models import detector
     from gps_jamming_tpu_torch.models.receiver import acquisition as acq
     from gps_jamming_tpu_torch.models.receiver import galileo, glonass
-    from gps_jamming_tpu_torch.models.receiver import receiver, tracking
+    from gps_jamming_tpu_torch.models.receiver import tracking
     from gps_jamming_tpu_torch.ops import caf, codes, cuda_psd, iq
+    from gps_jamming_tpu_torch.runtime import pipeline
     from gps_jamming_tpu_torch.sim import constellation
     from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
     jax_side = sorted(m for m in sys.modules if m == "gps_jamming_tpu"
@@ -584,6 +798,23 @@ def main() -> int:
               f"{plain_ms:.4f} ms; bound {b2[nps]['bound_ms']:.4f} ms "
               f"({b2[nps]['bound_by']}), share of bound "
               f"{b2[nps]['bound_share']:.3f}", flush=True)
+    # the detrend after the FFT at its worst: a full-scale DC of 127 LSB
+    # over 1 LSB of noise at nperseg 16384 (tests/test_torch_cuda.py)
+    g = torch.Generator(device=dev).manual_seed(11)
+    x_dc = torch.complex(torch.randn(300_000, generator=g, device=dev),
+                         torch.randn(300_000, generator=g, device=dev)) + 127
+    got = cuda_psd.welch_psd_fused(x_dc, FS, 16384)
+    ref = cuda_psd.welch_psd_reference(x_dc, FS, 16384)
+    err = (got.double() - ref.double()).abs()
+    ratio = err / (1e-3 * ref.double().abs() + 1e-4 * float(ref.max()))
+    print(f"B2 at nperseg 16384, DC 127 over unit noise: relative error at "
+          f"bins 0, 1, N-1 {[float(err[k] / ref[k]) for k in (0, 1, -1)]}"
+          f", elsewhere max {float((err / ref.double())[2:-1].max()):.3e}; "
+          f"worst error / tolerance {float(ratio.max()):.3f} at bin "
+          f"{int(ratio.argmax())}", flush=True)
+    fail_unless(float(ratio.max()) <= 1.0,
+                "B2 at a DC of 127 disagrees with its plain version")
+    del x_dc
     b2_calls = b2_kernels_per_call(lambda: cuda_psd.welch_psd_fused(
         x0, FS, 1024), 5)
     print(f"B2: {b2_calls} per call (LAUNCHES and torch.profiler)",
@@ -934,8 +1165,10 @@ def main() -> int:
     del mixed
 
     # 5. the GPS receiver: a geometry-true 20.8 s capture of the
-    # 24-satellite shell -> RTL-SDR uint8 .bin -> read back -> run_receiver
-    # on the card (acquisition by B1, tracking, decode, PVT)
+    # 24-satellite shell -> RTL-SDR uint8 .bin -> the batch product path,
+    # `analyze_capture(streaming=False)`, on the card (pre-scan, the
+    # receiver: acquisition by B1, tracking, decode, PVT; the detector, the
+    # telemetry records)
     t0 = time.perf_counter()
     sats = constellation.gps_shell(RX_TOE)
     iq_sim, truths, rx_ecef = constellation.simulate_constellation(
@@ -945,18 +1178,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as td:
         path = os.path.join(td, "gps.bin")
         iq.write_iq_file(path, iq_sim * RX_SCALE)
-        del iq_sim
         t0 = time.perf_counter()
         x_rx = torch.from_numpy(iq.read_iq_file(
             path, convention="centered")).to(dev)
         torch.cuda.synchronize()
         read_s = time.perf_counter() - t0
+        reset_launches()
+        clean = pipeline.analyze_capture([path], streaming=False)
+        rx_launches = read_launches()
     n_rx = x_rx.numel()
-    reset_launches()
-    t0 = time.perf_counter()
-    rres = receiver.run_receiver(x_rx, FS, skip_epochs=600)
-    rx_s = time.perf_counter() - t0
-    rx_launches = read_launches()
+    rres = clean.receiver
+    rx_s = clean.stage_seconds["receiver"]
     tracked = [c for c in rres.channels if c.obs is not None]
     decoded = [c for c in tracked if c.obs.eph.complete]
     by_prn = {e.prn: e for e in sats}
@@ -966,6 +1198,8 @@ def main() -> int:
     err = (float(np.linalg.norm(fix.pos_ecef - rx_ecef)) if fix is not None
            else float("nan"))
     d_h = fix.height_m - RX_LLA[2] if fix is not None else float("nan")
+    safe_err = ecef_error(clean.last_safe_fix, rx_ecef)
+    recs = clean.telemetry.records
     print(f"receiver: {RX_SECONDS} s at {FS / 1e6} MS/s ({n_rx} samples), "
           f"{len(truths)} satellites in view {sorted(t.prn for t in truths)}"
           f"; render {render_s:.1f} s (NumPy, host), .bin read + upload "
@@ -984,8 +1218,16 @@ def main() -> int:
           f"{st_s['decode']:.3f} s, pvt {st_s['pvt']:.3f} s; run_receiver "
           f"{rx_s:.3f} s = {RX_SECONDS / rx_s:.2f}x real time; card {card}",
           flush=True)
+    mid = recs[len(recs) // 2]            # (the last frame lies past the
+    # tracked epochs, where the reference lists no satellite)
+    print(f"clean product path: events {clean.events}, power ranges "
+          f"{clean.power_ranges}, {len(recs)} records (at "
+          f"{mid['elapsed_time']} s: TIME {mid['time']}, decoded "
+          f"{mid['decoded']}, nsat {mid['position']['nsat']}), last safe fix "
+          f"{clean.last_safe_fix} ({safe_err:.2f} m); "
+          f"{stage_line(clean, RX_SECONDS)}; card {card}", flush=True)
     fail_unless(rx_launches["pcf"] >= 1,
-                f"run_receiver did not launch B1: {rx_launches}")
+                f"analyze_capture did not launch B1: {rx_launches}")
     fail_unless(len(tracked) >= 4, f"only {len(tracked)} channels tracked")
     fail_unless(len(decoded) >= 4, f"only {len(decoded)} channels decoded")
     for c in decoded:
@@ -996,6 +1238,16 @@ def main() -> int:
     fail_unless(fix is not None, "no valid PVT fix")
     fail_unless(err < 30.0 and abs(d_h) < 50.0,
                 f"fix error {err:.2f} m, height error {d_h:+.2f} m")
+    fail_unless(not clean.events and not clean.power_ranges
+                and not clean.flags_trace["jamming"].any(),
+                "the clean capture raised a jamming flag")
+    fail_unless(safe_err < 30.0, f"last safe fix {clean.last_safe_fix} "
+                                 f"({safe_err:.2f} m)")
+    check_records(recs, int(RX_SECONDS * FS))
+    fail_unless(sorted(mid["decoded"]) == sorted(c.prn for c in decoded)
+                and not mid["time"].startswith("1980"),
+                f"the record at {mid['elapsed_time']} s misses the decoded "
+                "satellites or GPS time")
 
     # 5b. the tracker on the card against the CPU over the first
     # RX_CHECK_EPOCHS epochs of the same capture and handover
@@ -1043,12 +1295,22 @@ def main() -> int:
                 "carr_freq differs from the CPU by more than 0.05 Hz")
     fail_unless(float(d_rem.max()) <= 1e-3,
                 "code_rem differs from the CPU by more than 1e-3 chips")
+    del x_rx, x_chk
+
+    # 5c. the product path on three antennas with a jammer
+    prod_launches = product_path(iq_sim, rres, card)
+    del iq_sim
 
     # 6. results
     for k in kernels:
         k["launches"] = (std_launches if k["name"] == "caf_std"
                          else launches)[k["name"]]
         k["launches_per_step"] = k["launches"] / N_BLOCKS
+        k["launches_by_path"] = {
+            "detect_acquire_step": launches[k["name"]],
+            "detect_acquire_step_std": std_launches[k["name"]],
+            "analyze_capture_clean": rx_launches[k["name"]],
+            "analyze_capture_jammed": prod_launches[k["name"]]}
         k["library_ms"] = None
     print(json.dumps({"kernels": kernels}))
     print(card)

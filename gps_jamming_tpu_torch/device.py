@@ -8,6 +8,7 @@ versions of the kernels; a CUDA tensor runs the kernels or raises.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -22,6 +23,14 @@ def require_cuda() -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("a CUDA device is required and none is available")
     return torch.device("cuda", 0)
+
+
+def on_device(x, device=None) -> torch.Tensor:
+    """A tensor keeps its device; an array goes to `device` (None: the
+    card)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.ascontiguousarray(x)).to(as_device(device))
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,

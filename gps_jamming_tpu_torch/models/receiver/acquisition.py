@@ -80,6 +80,12 @@ def acquire_all(blocks: torch.Tensor, replica_fft_conj: torch.Tensor,
     E1B at 16384 lags over the default 10 periods; std only where
     n_blocks <= 9 at 16384 lags and +/-7 kHz.
 
+    On a CUDA tensor an n that neither kernels B1 and B3 nor the JAX
+    package's Pallas kernels take (`caf.plain_on_card`: 2062 = 2 * 1031)
+    runs the plain surfaces on the card, as the reference computes XLA
+    there. An n that a TPU kernel takes and B1 and B3 do not (above 16384)
+    raises from the kernel's wrapper.
+
     The JAX package's `precision=` argument is left out: the port has no
     precision option and computes in float32/complex64.
     """
@@ -104,7 +110,8 @@ def acquire_all(blocks: torch.Tensor, replica_fft_conj: torch.Tensor,
     excl = exclusion_half_width(n, cfg, code_len_chips)
     freqs = torch.from_numpy(caf_ops.pcf_doppler_hz(
         sample_rate, int(n), cfg.doppler_max_hz)).to(blocks.device)
-    if blocks.is_cuda:
+    if blocks.is_cuda and not caf_ops.plain_on_card(
+            blocks, replica_fft_conj.shape[0], pcf=True):
         stats = cuda_pcf.caf_accumulate_pcf_fused(
             blocks, replica_fft_conj, sample_rate,
             max_doppler_hz=cfg.doppler_max_hz, stats_excl=excl)

@@ -15,7 +15,7 @@ The reference's per-channel threads and sync thread (`sdrmain.c:248-400`,
 The device does the sample-rate work; the host the bit- and fix-rate work.
 Galileo, GLONASS and SBAS need their decoders (`systems.py`, Galileo I/NAV,
 GLONASS GNAV, SBAS, `utils/fec`, `utils/crc`), which are not ported yet
-(ROADMAP A item 9); `run_receiver` raises ValueError for them.
+(ROADMAP A5); `run_receiver` raises ValueError for them.
 """
 from __future__ import annotations
 
@@ -90,7 +90,7 @@ def _not_ported(system: str) -> str:
     if system in SYSTEMS_NOT_PORTED:
         return (f"system {system!r} is not ported yet: its decoder "
                 "(systems.py, Galileo I/NAV, GLONASS GNAV, SBAS, utils/fec, "
-                "utils/crc) is ROADMAP A item 9")
+                "utils/crc) is ROADMAP A5")
     return f"unknown system {system!r}"
 
 

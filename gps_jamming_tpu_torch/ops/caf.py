@@ -55,6 +55,58 @@ def caf_surface(x: torch.Tensor, replica: torch.Tensor, freqs,
     return v.real * v.real + v.imag * v.imag
 
 
+# The JAX package's gates for its Pallas acquisition kernels
+# (`pallas_caf.factorization`, `factorization_v2`, `factorization_v3`,
+# `supported_v3`, `supported_pcf`), copied. An n that none of them takes is
+# one the reference computes in XLA.
+_LANE, _MAX_N2, _MAX_N1_V3, _MAX_LANES_V3 = 128, 1024, 32, 4096
+
+
+def _tpu_v1(n: int) -> bool:
+    return any(n % n1 == 0 and (n // n1) % _LANE == 0
+               for n1 in range(2, 257))
+
+
+def _tpu_n2(n: int, n1s) -> tuple[int, int] | None:
+    """The first (n1, n/n1) over n1s with n/n1 a lane multiple, or None
+    when there is none or its n/n1 is above the cap."""
+    for n1 in n1s:
+        if n % n1 == 0 and (n // n1) % _LANE == 0:
+            return (n1, n // n1) if n // n1 <= _MAX_N2 else None
+    return None
+
+
+def _tpu_v3(n: int, n_prn: int) -> bool:
+    f = _tpu_n2(n, (_MAX_N1_V3, 16, 8, 4, 2, 1))
+    if f is None:
+        return False
+    step = _LANE // math.gcd(_LANE, f[0])
+    return -(-n_prn // step) * step * f[0] <= _MAX_LANES_V3
+
+
+def tpu_kernel_takes(n: int, n_prn: int, pcf: bool) -> bool:
+    """Does the JAX package run a Pallas kernel for this search on a TPU?
+    PCF: only v3 (`supported_pcf`); std: v3, v2 or v1 (`fused_dispatch`)."""
+    if pcf:
+        return _tpu_v3(n, n_prn)
+    return (_tpu_v3(n, n_prn) or _tpu_n2(n, (128, 64, 32, 16, 8, 4, 2, 1))
+            is not None or _tpu_v1(n))
+
+
+def plain_on_card(blocks: torch.Tensor, n_prn: int, pcf: bool) -> bool:
+    """Does a search on these blocks compute its plain surface on the card?
+
+    Only where neither the port's kernel (`cuda_pcf.supported`) nor any of
+    the JAX package's Pallas kernels takes n, so that the reference
+    computes XLA there (n = 2062 = 2 * 1031). An n that a TPU kernel takes
+    and the port's does not (above 16384, ROADMAP B) goes to the kernel's
+    wrapper, which raises.
+    """
+    n = int(blocks.shape[-1])
+    return (blocks.is_cuda and not cuda_pcf.supported(n)
+            and not tpu_kernel_takes(n, int(n_prn), pcf))
+
+
 def caf_accumulate(blocks: torch.Tensor, replica: torch.Tensor, freqs,
                    sample_rate: float) -> torch.Tensor:
     """Non-coherent sum of the CAF power over code periods: the
@@ -63,9 +115,13 @@ def caf_accumulate(blocks: torch.Tensor, replica: torch.Tensor, freqs,
     blocks: (n_blocks, n) complex64, one code period each; replica: (P, n)
     complex64; freqs: concrete (F,) Doppler bins [Hz]. Returns float32
     (P, F, n). This is kernel B3 through `cuda_caf.caf_accumulate_fused`:
-    on a CUDA tensor it launches the kernel where the JAX package takes its
-    Pallas kernels; on the CPU it runs the kernel's plain version.
+    on a CUDA tensor it launches the kernel, or computes the plain surface
+    where the JAX package computes XLA (`plain_on_card`); a CPU tensor runs
+    the kernel's plain version.
     """
+    if plain_on_card(blocks, replica.shape[0], pcf=False):
+        return cuda_caf.caf_accumulate_reference(blocks, replica, freqs,
+                                                 sample_rate)
     return cuda_caf.caf_accumulate_fused(blocks, replica, freqs, sample_rate)
 
 
@@ -121,9 +177,18 @@ def caf_accumulate_pcf(blocks: torch.Tensor, replica_fft_conj: torch.Tensor,
     i is pcf_doppler_hz(...)[i].
 
     This is kernel B1 through `cuda_pcf.caf_accumulate_pcf_fused`: on a
-    CUDA tensor it launches the kernel where the JAX package takes its
-    Pallas kernel; on the CPU it runs the kernel's plain version.
+    CUDA tensor it launches the kernel, or runs the prologue and the plain
+    search where the JAX package computes XLA (`plain_on_card`); a CPU
+    tensor runs the prologue and the kernel's plain version.
     """
+    if plain_on_card(blocks, replica_fft_conj.shape[0], pcf=True):
+        n = blocks.shape[-1]
+        y = cuda_pcf.pcf_prologue(blocks, sample_rate, n_sets, fine_hz,
+                                  n_groups)
+        return cuda_pcf.pcf_search_reference(
+            y, replica_fft_conj, cuda_pcf.n_coarse(sample_rate, n,
+                                                   max_doppler_hz),
+            n_sets * len(fine_hz), n_groups)
     return cuda_pcf.caf_accumulate_pcf_fused(
         blocks, replica_fft_conj, sample_rate, max_doppler_hz=max_doppler_hz,
         n_sets=n_sets, fine_hz=fine_hz, n_groups=n_groups)

@@ -249,3 +249,60 @@ def test_replica_conversion_round_trip():
     np.testing.assert_array_equal(t.imag.numpy(), want.im)
     t2 = convert.replica_from_jax((want.re, want.im), "cpu")
     assert torch.equal(t, t2)
+
+
+def _c1_case(system):
+    """(blocks, jax replica planes, port replica, fs, n, kw, cfg pair, the
+    injected (index, lag, Hz)) at an n kernels B1 and B3 do not take:
+    Galileo E1B at 8.192 MS/s (n = 32768, above 16384; 3 PRNs, +/-2 kHz to
+    keep the CPU surface small) or GPS at 2.062 MS/s (n = 2062 = 2 * 1031,
+    a prime factor above 127)."""
+    from gps_jamming_tpu.models.receiver import galileo as jgal
+    if system == "galileo":
+        fs, n, prns, hz, lag = 8.192e6, 32768, [4, 11, 19], -1500.0, 5000
+        code = jgal.e1b_boc_code(11)
+        chip = np.floor((np.arange(10 * n) - lag) * (jgal.BOC_RATE / fs))
+        rep = jgal.replica_table_host(fs, n, prns)
+        planes = (rep.re, rep.im)
+        kw = dict(code_period_s=jgal.PERIOD_S,
+                  code_len_chips=float(jgal.BOC_LEN))
+        cfgs = (AcquisitionConfig(doppler_max_hz=2000.0),
+                JAcquisitionConfig(doppler_max_hz=2000.0))
+        want_i = 1
+    else:
+        fs, n, hz, lag = 2.062e6, 2062, 2600.0, 901
+        code = jcodes.gps_ca_code(3)
+        chip = np.floor((np.arange(10 * n) - lag) * (1.023e6 / fs))
+        rep = jacq.gps_replica_table_host(fs, n)
+        planes = (rep.re[:N_PRN], rep.im[:N_PRN])
+        kw, cfgs, want_i = {}, (CFG, JCFG), 2
+    rng = np.random.default_rng(n)
+    i = np.arange(10 * n)
+    x = (rng.standard_normal(i.size) + 1j * rng.standard_normal(i.size)
+         + np.sqrt(2 * 10 ** (-18 / 10)) * code[chip.astype(int) % code.size]
+         * np.exp(2j * np.pi * hz * i / fs)).astype(np.complex64)
+    return (x.reshape(10, n), planes, fs, n, kw, cfgs, (want_i, lag, hz))
+
+
+@pytest.mark.parametrize("system", ["galileo", "gps_prime_1031"])
+@pytest.mark.parametrize("method", ["pcf", "std", "auto"])
+def test_acquire_all_where_the_kernels_do_not_apply_matches_jax(system,
+                                                                method):
+    """At an n kernels B1 and B3 do not take, the port's CPU search equals
+    the JAX package's: its XLA surface at 2062 (no Pallas kernel takes it;
+    the card computes the plain surface too), its XLA surface on the CPU
+    at 32768 (a Pallas kernel on a TPU; the card raises,
+    tests/test_torch_cuda.py). Both acquire the same PRN at the same lag
+    and Doppler."""
+    x, planes, fs, n, kw, (cfg, jcfg), (want_i, lag, hz) = _c1_case(system)
+    assert not cuda_pcf.supported(n)
+    want = jacq.acquire_all(_jax_blocks(x), cplx.CArray(*planes), fs, jcfg,
+                            method=method, **kw)
+    got = tacq.acquire_all(torch.from_numpy(x),
+                           convert.replica_from_jax(planes, "cpu"), fs, cfg,
+                           method=method, **kw)
+    _assert_same_result(got, want)
+    assert got.acquired.tolist() == [p == want_i
+                                     for p in range(len(planes[0]))]
+    assert abs(int(got.code_phase[want_i]) - lag) <= 1
+    assert abs(float(got.doppler_hz[want_i]) - hz) <= 250.0

@@ -146,6 +146,26 @@ def test_pcf_search_rejects_bad_arguments():
     assert not cuda_pcf.supported(2 * 131) and not cuda_pcf.supported(2 * 127)
 
 
+@pytest.mark.parametrize("n_prn", [1, 3, 32, 130])
+def test_tpu_gate_copy_matches_jax_dispatch(n_prn):
+    """caf.tpu_kernel_takes is the JAX package's Pallas gate: PCF is
+    `supported_pcf`, std is `fused_dispatch` is not None, over every n from
+    128 to 70000 in steps of 2 and the port's and the reference's sizes."""
+    ns = sorted(set(range(128, 70001, 2)) | {2062, 2187, 32768, 65536,
+                                             131072, 81 * 128})
+    for n in ns:
+        assert tcaf.tpu_kernel_takes(n, n_prn, pcf=True) \
+            == pallas_caf.supported_pcf(n, n_prn), n
+        assert tcaf.tpu_kernel_takes(n, n_prn, pcf=False) \
+            == (jcaf.fused_dispatch(n, n_prn) is not None), n
+    # 2062 = 2 * 1031: no TPU kernel, no port kernel, so plain on a CUDA
+    # tensor; 32768: a TPU kernel takes it, so the port's wrapper decides
+    assert not tcaf.tpu_kernel_takes(2062, n_prn, pcf=False)
+    assert tcaf.tpu_kernel_takes(32768, 3, pcf=True)
+    assert not tcaf.plain_on_card(torch.zeros(2, 2062, dtype=torch.complex64),
+                                  n_prn, pcf=True)       # a CPU tensor
+
+
 def test_corr_reductions_match_jax():
     rng = np.random.default_rng(13)
     rows = rng.random((6, 64)).astype(np.float32)

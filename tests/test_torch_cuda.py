@@ -18,7 +18,16 @@ GPS at 2.4, 2.56, 2.8 and 3.2 MS/s (2400, 2560, 2800, 3200) and v1's
 81*128 = 10368 (the register FFT of csrc/fft_reg.cuh), and at an odd n
 (3^7), one with a generic-radix stage (4*127) and some of B2's mixed
 sizes (384, 1536, 12288, 14336), which keep the shared-memory FFT, to the
-same tolerances.
+same tolerances. B2 is also held at a full-scale DC of 127 LSB over 1 LSB
+of noise at nperseg 16384, the detrend's worst case.
+
+Where neither B1 and B3 nor the JAX package's Pallas kernels take an n
+(2062, a prime factor 1031) their callers compute the plain surfaces on the
+card without a launch, and acquisition equals the CPU's; where only a TPU
+kernel takes it (32768, Galileo E1B at 8.192 MS/s) the card raises, with no
+launch. The localization ops
+and the batch product path (`pipeline.analyze_capture(streaming=False)`)
+on the card equal the CPU on a seeded 1 s 3-antenna jammed set.
 """
 import numpy as np
 import pytest
@@ -62,7 +71,10 @@ WELCH_CASES = (
     + [(m, 9 * m // 2 + 77, 0.3 - 0.2j) for m in cuda_psd.MIXED_NPERSEG]
     + [(1024, 1 << 19, 0.3 - 0.2j), (1024, 100_000, 0.3 - 0.2j),
        (1024, 1 << 19, 30 + 20j), (64, 5000, 30 + 20j),
-       (1536, 100_000, 30 + 20j), (16384, 300_000, 30 + 20j)])
+       (1536, 100_000, 30 + 20j), (16384, 300_000, 30 + 20j),
+       # a full-scale RTL-SDR DC (127 LSB) over 1 LSB of noise at the
+       # largest nperseg: the worst case of the detrend after the FFT
+       (16384, 300_000, 127 + 0j)])
 
 
 @pytest.mark.parametrize("nperseg,n,dc", WELCH_CASES)
@@ -168,8 +180,10 @@ def test_pcf_stats_ties_take_the_lowest_lag(dev, n):
 
 
 def test_pcf_dispatch_on_cuda(dev):
-    """caf_accumulate_pcf on a CUDA tensor is kernel B1; sizes the kernel
-    does not take raise instead of falling back."""
+    """caf_accumulate_pcf on a CUDA tensor is kernel B1 for the n it takes;
+    for an n it does not take (2062 = 2 * 1031) it computes the plain
+    surface on the card without a launch, as the JAX package computes its
+    XLA surface there; the kernel's wrapper itself raises for that n."""
     from gps_jamming_tpu_torch.ops import caf
     blocks = _cplx((10, 2048), seed=3, dev=dev)
     rep = _cplx((4, 2048), seed=4, dev=dev)
@@ -178,9 +192,14 @@ def test_pcf_dispatch_on_cuda(dev):
     assert cuda_pcf.LAUNCHES == before + 1
     plain = caf.caf_accumulate_pcf(blocks.cpu(), rep.cpu(), FS)
     _assert_close(surf.cpu(), plain, 1e-3, 1e-4 * float(plain.max()))
+    b62, r62 = _cplx((10, 2062), seed=5, dev=dev), _cplx((4, 2062), seed=6,
+                                                         dev=dev)
+    surf = caf.caf_accumulate_pcf(b62, r62, 2.062e6)
+    assert surf.is_cuda and cuda_pcf.LAUNCHES == before + 1
+    plain = caf.caf_accumulate_pcf(b62.cpu(), r62.cpu(), 2.062e6)
+    _assert_close(surf.cpu(), plain, 1e-3, 1e-4 * float(plain.max()))
     with pytest.raises(ValueError, match="prime factor"):
-        caf.caf_accumulate_pcf(_cplx((10, 2062), seed=5, dev=dev),
-                               _cplx((4, 2062), seed=6, dev=dev), FS)
+        cuda_pcf.caf_accumulate_pcf_fused(b62, r62, 2.062e6)
     assert cuda_pcf.LAUNCHES == before + 1
 
 
@@ -217,7 +236,9 @@ def test_caf_std_dispatch_on_cuda(dev):
     """caf_accumulate, acquire_all(method='std') and
     detect_acquire_step(method='std') on CUDA tensors each launch kernel B3
     once, as does caf_accumulate at the mixed-radix n = 3200 (3.2 MS/s);
-    a size the kernel does not take raises instead of falling back."""
+    at an n the kernel does not take (2062) caf_accumulate computes the
+    plain surface on the card without a launch, and the kernel's wrapper
+    raises."""
     from gps_jamming_tpu_torch.config import AcquisitionConfig
     from gps_jamming_tpu_torch import entry
     from gps_jamming_tpu_torch.models.receiver import acquisition as acq
@@ -242,10 +263,88 @@ def test_caf_std_dispatch_on_cuda(dev):
     assert cuda_caf.LAUNCHES == before + 4
     plain = caf.caf_accumulate(b32.cpu(), r32.cpu(), freqs, 3.2e6)
     _assert_close(surf.cpu(), plain, 1e-3, 1e-4 * float(plain.max()))
+    b62, r62 = _cplx((10, 2062), seed=9, dev=dev), _cplx((4, 2062), seed=10,
+                                                         dev=dev)
+    surf = caf.caf_accumulate(b62, r62, freqs, 2.062e6)
+    assert surf.is_cuda and cuda_caf.LAUNCHES == before + 4
+    plain = caf.caf_accumulate(b62.cpu(), r62.cpu(), freqs, 2.062e6)
+    _assert_close(surf.cpu(), plain, 1e-3, 1e-4 * float(plain.max()))
     with pytest.raises(ValueError, match="B3"):
-        caf.caf_accumulate(_cplx((10, 2062), seed=9, dev=dev),
-                           _cplx((4, 2062), seed=10, dev=dev), freqs, 2.062e6)
+        cuda_caf.caf_accumulate_fused(b62, r62, freqs, 2.062e6)
     assert cuda_caf.LAUNCHES == before + 4
+
+
+def _c1_blocks(system, dev):
+    """10 code periods of unit noise plus one PRN at -18 dB per sample, at
+    an n kernels B1 and B3 do not take: Galileo E1B at 8.192 MS/s (n =
+    32768; 3 PRNs, +/-2 kHz) or GPS at 2.062 MS/s (n = 2062 = 2 * 1031).
+    Returns (blocks, replica, fs, config, acquire_all kwargs)."""
+    from gps_jamming_tpu_torch.config import AcquisitionConfig
+    from gps_jamming_tpu_torch.models.receiver import galileo
+    from gps_jamming_tpu_torch.ops import codes
+    if system == "galileo":
+        fs, n, hz, lag = 8.192e6, 32768, -1500.0, 5000
+        code, rate = galileo.e1b_boc_code(11), galileo.BOC_RATE
+        rep = codes.replica_tensor(galileo.replica_table_host(
+            fs, n, [4, 11, 19]), dev)
+        cfg = AcquisitionConfig(doppler_max_hz=2000.0)
+        kw = dict(code_period_s=galileo.PERIOD_S,
+                  code_len_chips=float(galileo.BOC_LEN))
+    else:
+        fs, n, hz, lag = 2.062e6, 2062, 2600.0, 901
+        code, rate = codes.gps_ca_code(3), 1.023e6
+        rep = codes.gps_replica_table(fs, n, dev)[:8]
+        cfg, kw = AcquisitionConfig(), {}
+    rng = np.random.default_rng(n)
+    i = np.arange(10 * n)
+    chip = np.floor((i - lag) * (rate / fs)).astype(int) % code.size
+    x = (rng.standard_normal(i.size) + 1j * rng.standard_normal(i.size)
+         + np.sqrt(2 * 10 ** (-18 / 10)) * code[chip]
+         * np.exp(2j * np.pi * hz * i / fs))
+    blocks = torch.from_numpy(x.astype(np.complex64).reshape(10, n)).to(dev)
+    return blocks, rep, fs, cfg, kw
+
+
+@pytest.mark.parametrize("system", ["gps_prime_1031"])
+@pytest.mark.parametrize("method", ["pcf", "std", "auto"])
+def test_acquire_all_where_the_kernels_do_not_apply(dev, system, method):
+    """At n = 2062, which neither B1 and B3 nor the JAX package's Pallas
+    kernels take, acquire_all on the card runs the plain surfaces (no
+    launch of B1 or B3) and equals the CPU: decisions, lags and Dopplers
+    exact, ratios rtol 1e-3."""
+    from gps_jamming_tpu_torch.models.receiver import acquisition as acq
+    from gps_jamming_tpu_torch.ops import caf
+    blocks, rep, fs, cfg, kw = _c1_blocks(system, dev)
+    assert not cuda_pcf.supported(blocks.shape[-1])
+    assert caf.plain_on_card(blocks, rep.shape[0], pcf=True)
+    before = (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES)
+    got = acq.acquire_all(blocks, rep, fs, cfg, method=method, **kw)
+    torch.cuda.synchronize()
+    assert (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES) == before
+    want = acq.acquire_all(blocks.cpu(), rep.cpu(), fs, cfg, method=method,
+                           **kw)
+    for f in ("acquired", "code_phase", "doppler_hz"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    for f in ("peak_ratio", "cn0_dbhz", "peak_power"):
+        _assert_close(getattr(got, f).cpu(), getattr(want, f), 1e-3, 0.0)
+    assert int(got.acquired.sum()) == 1
+
+
+@pytest.mark.parametrize("method", ["pcf", "std", "auto"])
+def test_acquire_all_raises_where_only_a_tpu_kernel_applies(dev, method):
+    """At n = 32768 (Galileo E1B at 8.192 MS/s) the JAX package runs its
+    Pallas kernels (v3, 32 x 1024) and B1 and B3 do not take n: the card
+    raises from the kernel's wrapper, with no launch, and does not give way
+    to the plain surface."""
+    from gps_jamming_tpu_torch.models.receiver import acquisition as acq
+    from gps_jamming_tpu_torch.ops import caf
+    blocks, rep, fs, cfg, kw = _c1_blocks("galileo", dev)
+    assert caf.tpu_kernel_takes(blocks.shape[-1], rep.shape[0], pcf=True)
+    assert not caf.plain_on_card(blocks, rep.shape[0], pcf=True)
+    before = (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES)
+    with pytest.raises(ValueError, match="16384"):
+        acq.acquire_all(blocks, rep, fs, cfg, method=method, **kw)
+    assert (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES) == before
 
 
 def test_refine_doppler_on_cuda_matches_cpu(dev):
@@ -310,3 +409,129 @@ def test_tracker_on_cuda_matches_cpu(dev):
     assert d_hz < 0.05 and d_chips < 1e-3, (d_hz, d_chips)
     assert torch.equal(torch.sign(g.i_prompt.cpu()[900:]),
                        torch.sign(c.i_prompt[900:]))
+
+
+def _jammed_set(tmp_path, n=1 << 21, start=0.6):
+    """Three antennas at (0, 0), (3, 0), (0, 3) m: unit noise plus a chirp
+    jammer at (4, 3) m from `start` of the capture to its end, amplitudes
+    from the log-distance model (the JAX simulator's scaling), as uint8
+    .bin files."""
+    from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from gps_jamming_tpu_torch.ops import iq, pathloss
+    ants = [(0.0, 0.0), (3.0, 0.0), (0.0, 3.0)]
+    rng = np.random.default_rng(5)
+    t = np.arange(n) / FS
+    tau = np.maximum(t - start * n / FS, 0.0)
+    chirp = np.exp(2j * np.pi * (-500e3 * tau + 0.5 * 500e3 * tau * tau))
+    paths = []
+    for k, (ax, ay) in enumerate(ants):
+        prx = float(pathloss.forward_received_db(
+            np.hypot(4.0 - ax, 3.0 - ay), CFG.rssi.tx_power_dbm,
+            CFG.rssi.path_loss_exponent, CFG.rssi.frequency_mhz))
+        x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+        x += 127.5 * 10 ** (prx / 20) * chirp * (t >= start * n / FS)
+        paths.append(str(tmp_path / f"ant{k}.bin"))
+        iq.write_iq_file(paths[-1], x)
+    return paths, ants
+
+
+def test_localization_ops_on_cuda_match_cpu(dev, tmp_path):
+    """find_onset, range_from_iq and the TDOA/RSSI localizations on the
+    card against the CPU on the same captures: onsets and first crossings
+    exact (a 1 s capture keeps the float32 cumsum small), distances rtol
+    1e-4, lags within 1e-3 samples."""
+    from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from gps_jamming_tpu_torch.models import rssi, tdoa
+    from gps_jamming_tpu_torch.ops import iq, power
+    paths, ants = _jammed_set(tmp_path)
+    for p in paths:
+        x = torch.from_numpy(iq.read_iq_file(p, convention="centered"))
+        args = (CFG.tdoa.noise_sample_size, CFG.tdoa.detection_window_size,
+                CFG.tdoa.detection_threshold_factor)
+        assert int(power.find_onset(x.to(dev), *args)) == \
+            int(power.find_onset(x, *args)) > 0
+        xn = torch.from_numpy(iq.read_iq_file(p, convention="normalized"))
+        g, c = rssi.range_from_iq(xn.to(dev), CFG.rssi), \
+            rssi.range_from_iq(xn, CFG.rssi)
+        assert int(g.onset_index) == int(c.onset_index) > 0
+        assert float(g.distance_m) == pytest.approx(float(c.distance_m),
+                                                    rel=1e-4)
+    caps = [iq.read_iq_file(p, convention="centered") for p in paths]
+    g = tdoa.localize(caps, ants, FS, device=dev)
+    c = tdoa.localize(caps, ants, FS, device="cpu")
+    assert g["onsets"] == c["onsets"]
+    np.testing.assert_allclose([p["lag_samples"] for p in g["pairs"]],
+                               [p["lag_samples"] for p in c["pairs"]],
+                               atol=1e-3)
+
+
+def test_analyze_capture_on_cuda_matches_cpu(dev, tmp_path):
+    """The batch product path with the receiver on (kernel B1 in stats
+    mode, one launch) on the card against the CPU: ranges, events, flags
+    and records equal, RSSI distances rtol 1e-4."""
+    from gps_jamming_tpu_torch.runtime import pipeline
+    paths, ants = _jammed_set(tmp_path)
+    before = cuda_pcf.LAUNCHES
+    g = pipeline.analyze_capture(paths, ants, streaming=False)
+    assert cuda_pcf.LAUNCHES == before + 1
+    c = pipeline.analyze_capture(paths, ants, streaming=False, device="cpu")
+    assert g.power_ranges == c.power_ranges and len(g.events) == 1
+    assert g.events == c.events
+    for k in c.flags_trace:
+        assert np.array_equal(g.flags_trace[k], c.flags_trace[k]), k
+    assert g.telemetry.records == c.telemetry.records
+    np.testing.assert_allclose(g.localization["distances"],
+                               c.localization["distances"], rtol=1e-4)
+    x, y = g.localization["location_meters"]
+    assert np.hypot(x - 4.0, y - 3.0) < 3.0
+    assert g.tdoa_result is not None and len(g.tdoa_result["pairs"]) == 3
+
+
+def test_streaming_detect_without_receiver_on_cuda_matches_cpu(dev,
+                                                                tmp_path):
+    """streaming=True with the receiver off: the file pre-scan and the grid
+    searches on the card, the streamed ranging and onsets on the host; the
+    same ranges, events and TDOA onsets as the CPU, distances rtol 1e-6
+    (host NumPy on both sides)."""
+    from gps_jamming_tpu_torch.runtime import pipeline
+    paths, ants = _jammed_set(tmp_path)
+    kw = dict(run_receiver=False, streaming=True)
+    g = pipeline.analyze_capture(paths, ants, **kw)
+    c = pipeline.analyze_capture(paths, ants, device="cpu", **kw)
+    assert g.power_ranges == c.power_ranges and g.events == c.events
+    assert len(g.events) == 1 and g.receiver is None
+    np.testing.assert_allclose(g.localization["distances"],
+                               c.localization["distances"], rtol=1e-6)
+    assert g.tdoa_result["onsets"] == c.tdoa_result["onsets"]
+
+
+def test_cli_runs_on_the_card_by_default(dev, tmp_path):
+    """`python -m gps_jamming_tpu_torch` with no --device: detect (batch
+    receiver), localize, calibrate and receiver exit 0 and print the same
+    events, ranges and RSSI distances (rtol 1e-4) as with --device cpu."""
+    import json
+    import os
+    import subprocess
+    import sys
+    paths, _ = _jammed_set(tmp_path)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def run(*args):
+        r = subprocess.run([sys.executable, "-m", "gps_jamming_tpu_torch",
+                            *args], capture_output=True, text=True,
+                           cwd=repo, timeout=600)
+        assert r.returncode == 0, r.stderr[-2000:]
+        return json.loads(r.stdout)
+
+    for argv in (["detect", *paths, "--batch-receiver"],
+                 ["localize", *paths], ["calibrate", paths[1]],
+                 ["receiver", paths[0]]):
+        g, c = run(*argv), run(*argv, "--device", "cpu")
+        assert list(g) == list(c), argv
+        for k in ("events", "power_ranges_bytes", "events_at_threshold",
+                  "acquired", "fix"):
+            assert g.get(k) == c.get(k), (argv, k)
+        loc = "localization" if argv[0] == "detect" else "rssi"
+        if loc in g:
+            np.testing.assert_allclose(g[loc]["distances"],
+                                       c[loc]["distances"], rtol=1e-4)
