@@ -23,8 +23,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    shape (36 PRN x 71 bins x 10 x 16384 at 4.096 MS/s); (d) B1 in its
    three modes and B3 at the mixed-radix n of GPS at 2.4, 2.56, 2.8 and
    3.2 MS/s (n = 2400, 2560, 2800, 3200; 32 PRN x 10 periods x +/-7 kHz;
-   the mixed-radix register FFT), B3 alone at 81*128 = 10368, and the
-   power-of-two times of (b) and (c) beside them;
+   the mixed-radix register FFT), B3 alone at 81*128 = 10368, B1 (36 PRN,
+   all three modes) and B3 (36 PRN x 71 bins x 10) at 8192, Galileo E1B
+   at the front end's default 2.048 MS/s, and the power-of-two times of
+   (b) and (c) beside them;
 4. the main path: `entry.detect_acquire_step` over 8 consecutive 512k-sample
    blocks of a synthetic capture (noise, GPS PRN 7, a tone jammer in blocks
    3-5), then `acquire_all(method='pcf')` on the clean first 10 ms and
@@ -42,8 +44,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    against the known answer and the CPU path;
 5. the GPS receiver through the batch product path: a geometry-true
    20.8 s capture of a 24-satellite shell (`sim/constellation.py`, NumPy,
-   the long pole of the run), scaled to RTL-SDR uint8 and written as a
-   .bin, then `pipeline.analyze_capture([bin], streaming=False)` on the
+   rendered in a worker process, as every receiver fixture is: this one
+   while the kernels build and phases 3-4 run, phase 6's from the end of
+   phase 3 on), scaled to RTL-SDR uint8 and written as a .bin, then `pipeline.analyze_capture([bin], streaming=False)` on the
    card (pre-scan, `run_receiver`, detector, telemetry records): at least
    4 channels decoded with the simulated ephemeris and a fix within 30 m
    (50 m in height); no jamming flagged, the last safe fix within 30 m,
@@ -66,7 +69,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
    stage. (The batch receiver drops a channel whose median C/N0 over its
    last 200 ms is under 25 dB-Hz, as this jam makes every one, so (a)
    holds the receiver's checks and (c) the detector's and localization's.)
-6. print the per-kernel JSON line, the card line, and the success line.
+6. the other systems' receivers on the card, each fixture from the port's
+   NumPy renderers, scaled x12 into a uint8 .bin: (a) Galileo E1B, the
+   JAX package's closed-loop test (24-satellite shell, 13 s at 4.096
+   MS/s, noise 0.4, seed 2), through `analyze_capture(streaming=False,
+   system='galileo')`: at least 4 decoded with the simulated IODE and
+   sqrt(A), a fix within 30 m, no event, one record per 100 ms, B1
+   launched; (b) GLONASS L1OF, its 5-satellite shell on channels -2..2,
+   11 s at 10 MS/s, seed 4, through `run_receiver(system='glonass',
+   skip_epochs=600)`: at least 4 decoded, a fix within 40 m, no launch
+   (the FDMA search is plain torch, as it was XLA); (c) SBAS PRN 129 with
+   three MT12 messages (4.2 s at 2.048 MS/s, noise 0.8), through the
+   port's CLI `receiver --system sbas` in a child process: an MT12 of week
+   310 within 0.5 s of a sent ToW, no fix, B1 launched. Each prints its
+   stage times and its multiple of real time;
+7. print the per-kernel JSON line, the card line, and the success line.
 
 Each kernel's entry in the JSON line, and each of its shapes, carries
 `bound_ms`: the least time the card could take for the same work, the
@@ -83,7 +100,9 @@ transforms, one part of their work only.
 import argparse
 import json
 import math
+import multiprocessing
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -132,6 +151,49 @@ JAMMER_XY = (4.0, 3.0)
 PRODUCT_BG_LSB = 1.3              # background rms per I/Q component
 JAM_MARGIN_S = 0.1                # after the last bit of subframe 3
 ONSET_BOUND = 64                  # find_onset, card vs CPU, samples
+GAL8_FS = 2.048e6                 # Galileo E1B at the front end's default
+GAL8_N = 8192                     # one 4 ms code period there
+GAL8_CODE_PHASE = 2500            # samples
+GAL_RX_FS = 4.096e6               # the E1B receiver fixture's rate: the
+# simulator's nearest-neighbour BOC aliases at 2.048 MS/s
+GAL_RX_SECONDS = 13.0             # words 1-5 after a 1 s pull-in
+GAL_RX_FIX_M = 30.0
+GLO_RX_SECONDS = 11.0             # strings 1-4 after a 0.6 s pull-in
+GLO_T0 = 27030.0                  # GLONASS time at sample 0
+GLO_TB = 27000.0                  # the broadcast state's epoch
+GLO_SKIP_EPOCHS = 600
+GLO_RX_FIX_M = 40.0
+SBAS_SECONDS = 4.2
+SBAS_PRN = 129
+SBAS_DOPPLER_HZ = 1250.0
+SBAS_CODE_PHASE = 317.25          # chips at sample 0
+SBAS_WEEK = 310
+SBAS_NOISE = 0.8                  # rms per I/Q component, before x12
+FIXTURES = ("gps", "galileo", "glonass", "sbas")
+# run in a child process by phase 6c: the port's CLI (`cli.main`, the
+# body of `python -m gps_jamming_tpu_torch`) with the kernels' launch
+# counts and run_receiver's stage times written to stderr at its end
+CLI_WITH_COUNTS = """
+import json, sys, time
+from gps_jamming_tpu_torch import cli
+from gps_jamming_tpu_torch.models.receiver import receiver
+from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf, cuda_psd
+stages = []
+run_receiver = receiver.run_receiver
+def counted(*a, **k):
+    res = run_receiver(*a, **k)
+    stages.append(res.stage_seconds)
+    return res
+receiver.run_receiver = counted
+t0 = time.perf_counter()
+rc = cli.main(sys.argv[1:])
+print(json.dumps({"launches": {"welch_psd": cuda_psd.LAUNCHES,
+                               "pcf": cuda_pcf.LAUNCHES,
+                               "caf_std": cuda_caf.LAUNCHES},
+                  "stage_seconds": stages,
+                  "main_s": time.perf_counter() - t0}), file=sys.stderr)
+sys.exit(rc)
+"""
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
 
@@ -293,24 +355,26 @@ def complex_noise(rng, n: int) -> np.ndarray:
     return rng.standard_normal(n) + 1j * rng.standard_normal(n)
 
 
-def make_galileo_blocks(rng, dev) -> torch.Tensor:
-    """(10, 16384) complex64: 40 ms at 4.096 MS/s of noise plus E1B PRN
-    GAL_PRN at -18 dB per-sample SNR (about 48 dB-Hz), its code starting at
-    sample GAL_CODE_PHASE, at GAL_DOPPLER_HZ. The BOC code is rendered
-    band-limited: sampled raw, its 2.046 MHz subcarrier line would alias
-    into the Doppler band."""
+def make_galileo_blocks(rng, dev, fs=GAL_FS, n_code=GAL_N,
+                        code_phase=GAL_CODE_PHASE) -> torch.Tensor:
+    """(10, n_code) complex64: 10 code periods (40 ms) at fs of noise plus
+    E1B PRN GAL_PRN at -18 dB per-sample SNR, its code starting at sample
+    `code_phase`, at GAL_DOPPLER_HZ. The BOC code is rendered band-limited:
+    sampled raw, its 2.046 MHz subcarrier line would alias into the
+    Doppler band."""
     from gps_jamming_tpu_torch.models.receiver import galileo
     from gps_jamming_tpu_torch.ops import codes
-    n = 10 * GAL_N
+    n = 10 * n_code
     f = galileo.BOC_RATE * (1.0 + GAL_DOPPLER_HZ / 1575.42e6)
     code = torch.from_numpy(galileo.e1b_boc_code(GAL_PRN).astype(np.float32))
     chips = codes.resample_code_bandlimited(
-        code, f, GAL_FS, n, rem_chips=-GAL_CODE_PHASE * f / GAL_FS).numpy()
+        code, f, fs, n, rem_chips=-code_phase * f / fs).numpy()
     i = np.arange(n, dtype=np.float64)
     amp = np.sqrt(2 * 10 ** (SIGNAL_SNR_DB / 10))
     x = complex_noise(rng, n) + amp * chips * np.exp(
-        2j * np.pi * GAL_DOPPLER_HZ * i / GAL_FS)
-    return torch.from_numpy(x.astype(np.complex64).reshape(10, GAL_N)).to(dev)
+        2j * np.pi * GAL_DOPPLER_HZ * i / fs)
+    return torch.from_numpy(x.astype(np.complex64).reshape(10, n_code)).to(
+        dev)
 
 
 def make_glonass_blocks(rng, dev) -> torch.Tensor:
@@ -545,9 +609,10 @@ def ecef_error(fix: dict | None, rx_ecef) -> float:
     return float(np.linalg.norm(np.array([float(v) for v in e]) - rx_ecef))
 
 
-def check_records(recs, n_samples: int):
-    """One telemetry record per 100 ms frame, each one JSON object."""
-    fail_unless(len(recs) == n_samples // N_CODE // 100,
+def check_records(recs, n_samples: int, n_ms: int = N_CODE):
+    """One telemetry record per 100 ms frame (n_ms samples per ms), each
+    one JSON object."""
+    fail_unless(len(recs) == n_samples // n_ms // 100,
                 f"{len(recs)} telemetry records for {n_samples} samples")
     for r in recs:
         json.loads(json.dumps(r))
@@ -722,16 +787,216 @@ def product_path(iq_sim, rres, card: str) -> dict:
     return launches
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="also print a torch.profiler breakdown of the "
-                         "main-path step")
-    args_cli = ap.parse_args()
+def render_sbas(n: int) -> np.ndarray:
+    """SBAS PRN SBAS_PRN's complex baseband at FS (the JAX package's
+    `sim.gps.scene` model, in NumPy): three MT12 messages (week SBAS_WEEK,
+    ToW RX_TOE + k) through the continuous rate-1/2 coder, a '1' symbol as
+    +1, two code periods per symbol, the carrier-aided code at
+    SBAS_DOPPLER_HZ from SBAS_CODE_PHASE chips, and seeded noise."""
+    from gps_jamming_tpu_torch.models.receiver import sbas
+    from gps_jamming_tpu_torch.ops import codes
+    sym = sbas.encode_stream([sbas.build_mt12(RX_TOE + k, SBAS_WEEK,
+                                              preamble_idx=k % 3)
+                              for k in range(3)])
+    fcode = 1.023e6 * (1.0 + SBAS_DOPPLER_HZ / 1575.42e6)
+    t = np.arange(n, dtype=np.float64) / FS
+    chips = SBAS_CODE_PHASE + t * fcode
+    code = codes.sbas_ca_code(SBAS_PRN).astype(np.float64)
+    data = (2.0 * sym - 1.0)[np.clip(np.floor(chips / (2 * 1023)).astype(
+        np.int64), 0, sym.size - 1)]
+    x = code[np.floor(chips).astype(np.int64) % 1023] * data * np.exp(
+        2j * np.pi * SBAS_DOPPLER_HZ * t)
+    return x + SBAS_NOISE * complex_noise(np.random.default_rng(11), n)
+
+
+def render_fixture(name: str, td: str) -> dict:
+    """Render one receiver fixture (run in a worker process beside the
+    phases) and write it into td as an RTL-SDR uint8 .bin at RX_SCALE: 'gps' (phase 5; its float render
+    also as .npy for phase 5c), 'galileo', 'glonass' and 'sbas' (phase 6).
+    Returns the paths, the truth and the render's host seconds."""
+    from gps_jamming_tpu_torch.ops import iq
+    from gps_jamming_tpu_torch.sim import constellation as con
+    t0 = time.perf_counter()
+    out = {"bin": os.path.join(td, f"{name}.bin")}
+    truths, rx_ecef = [], None
+    if name == "gps":
+        x, truths, rx_ecef = con.simulate_constellation(
+            con.gps_shell(RX_TOE), RX_LLA, RX_TOE - 1.3,
+            int(RX_SECONDS * FS), FS, noise_std=0.4, seed=2)
+        out["npy"] = os.path.join(td, "gps.npy")
+        np.save(out["npy"], x)
+    elif name == "galileo":
+        x, truths, rx_ecef = con.simulate_galileo_constellation(
+            con.galileo_shell(RX_TOE), RX_LLA, RX_TOE - 1.3,
+            int(GAL_RX_SECONDS * GAL_RX_FS), GAL_RX_FS, noise_std=0.4,
+            seed=2)
+    elif name == "glonass":
+        x, truths, rx_ecef = con.simulate_glonass_constellation(
+            con.glonass_shell(RX_LLA, GLO_TB), RX_LLA, GLO_T0,
+            int(GLO_RX_SECONDS * GLO_FS), GLO_FS, noise_std=0.4, seed=4)
+    else:
+        x = render_sbas(int(SBAS_SECONDS * FS))
+    render_s = time.perf_counter() - t0
+    iq.write_iq_file(out["bin"], x * RX_SCALE)
+    out.update(truths=truths, rx_ecef=rx_ecef, n_samples=x.size,
+               render_s=render_s, write_s=time.perf_counter() - t0 - render_s)
+    return out
+
+
+def receiver_line(label: str, rx, seconds: float, wall_s: float) -> str:
+    """A receiver run's stage times, tracking per epoch and its multiple of
+    real time (host clock, each stage ending in a read)."""
+    st = rx.stage_seconds
+    n_ep = rx.tracked_spans[0][2] if rx.tracked_spans else 0
+    return (f"{label} times (host s, each ending in a read): acquire "
+            f"{st['acquire']:.3f}, refine {st['refine']:.3f}, track "
+            f"{st['track']:.3f} ({len(rx.tracked_spans or [])} channels x "
+            f"{n_ep} epochs of {rx.epoch_ms:g} ms, "
+            f"{1e3 * st['track'] / max(n_ep, 1):.4f} ms per epoch), decode "
+            f"{st['decode']:.3f}, pvt {st['pvt']:.3f}; receiver "
+            f"{sum(st.values()):.3f} s; run {wall_s:.3f} s = "
+            f"{seconds / wall_s:.3f}x real time for {seconds:.1f} s of "
+            f"capture")
+
+
+def galileo_receiver(fx: dict, card: str) -> dict:
+    """Phase 6a: Galileo E1B through `analyze_capture(streaming=False,
+    system='galileo')` on the card, on the 13 s 24-satellite render at
+    4.096 MS/s (the JAX package's closed-loop E1B test, seed 2). Returns
+    the launches of that run."""
+    from gps_jamming_tpu_torch.models.receiver import galileo
+    from gps_jamming_tpu_torch.runtime import pipeline
+    from gps_jamming_tpu_torch.sim import constellation
+    reset_launches()
+    res = pipeline.analyze_capture([fx["bin"]], streaming=False,
+                                   system="galileo", sample_rate=GAL_RX_FS)
+    launches = read_launches()
+    rx = res.receiver
+    decoded = [c for c in rx.channels
+               if c.obs is not None and galileo.inav_complete(c.obs.eph)]
+    by_prn = {e.prn: e for e in constellation.galileo_shell(RX_TOE)}
+    fix = rx.best_fix
+    err = (float(np.linalg.norm(fix.pos_ecef - fx["rx_ecef"]))
+           if fix is not None else float("nan"))
+    print(f"Galileo E1B: {GAL_RX_SECONDS} s at {GAL_RX_FS / 1e6} MS/s "
+          f"({fx['n_samples']} samples), {len(fx['truths'])} in view "
+          f"{sorted(t.prn for t in fx['truths'])}; render {fx['render_s']:.1f}"
+          f" s (NumPy, a worker process); acquired "
+          f"{[c.prn for c in rx.channels if c.acquired]}, decoded "
+          f"{[c.prn for c in decoded]}; {len(rx.fixes)} fixes, best fix "
+          f"error {err:.2f} m; events {res.events}; "
+          f"{len(res.telemetry.records)} records; launches {launches}",
+          flush=True)
+    print(receiver_line("Galileo receiver", rx, GAL_RX_SECONDS,
+                        res.stage_seconds["receiver"])
+          + f"; analyze_capture elapsed_s {res.elapsed_s:.3f} = "
+          f"{GAL_RX_SECONDS / res.elapsed_s:.3f}x real time; card {card}",
+          flush=True)
+    fail_unless(launches["pcf"] >= 1,
+                f"Galileo analyze_capture did not launch B1: {launches}")
+    fail_unless(len(decoded) >= 4, f"Galileo: only {len(decoded)} decoded")
+    for c in decoded:
+        fail_unless(c.obs.eph.iode == by_prn[c.prn].iode
+                    and abs(c.obs.eph.sqrt_a - by_prn[c.prn].sqrt_a) < 1e-3,
+                    f"Galileo PRN {c.prn}: decoded ephemeris differs from "
+                    "the simulated one")
+    fail_unless(err < GAL_RX_FIX_M, f"Galileo fix error {err:.2f} m")
+    fail_unless(not res.events and not res.flags_trace["jamming"].any(),
+                "the clean Galileo capture raised a jamming flag")
+    check_records(res.telemetry.records, fx["n_samples"],
+                  int(round(GAL_RX_FS * 1e-3)))
+    return launches
+
+
+def glonass_receiver(fx: dict, dev, card: str) -> dict:
+    """Phase 6b: GLONASS L1OF through `run_receiver(system='glonass')` on
+    the card, on the 11 s 5-satellite render at 10 MS/s (the JAX package's
+    closed-loop L1OF test, seed 4). The FDMA search is plain torch (it was
+    XLA), so no kernel launches. Returns the launches of that run."""
+    from gps_jamming_tpu_torch.models.receiver import receiver
+    from gps_jamming_tpu_torch.ops import iq
+    t0 = time.perf_counter()
+    x = torch.from_numpy(iq.read_iq_file(fx["bin"],
+                                         convention="centered")).to(dev)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    rx = receiver.run_receiver(x, GLO_FS, system="glonass",
+                               skip_epochs=GLO_SKIP_EPOCHS)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    del x
+    decoded = [c for c in rx.channels
+               if c.obs is not None and c.obs.eph.complete]
+    fix = rx.best_fix
+    err = (float(np.linalg.norm(fix.pos_ecef - fx["rx_ecef"]))
+           if fix is not None else float("nan"))
+    print(f"GLONASS L1OF: {GLO_RX_SECONDS} s at {GLO_FS / 1e6} MS/s "
+          f"({fx['n_samples']} samples), channels "
+          f"{sorted(t.prn for t in fx['truths'])}; render "
+          f"{fx['render_s']:.1f} s (a worker process), .bin read + upload "
+          f"{read_s:.2f} s; acquired "
+          f"{[c.prn for c in rx.channels if c.acquired]}, decoded "
+          f"{[c.prn for c in decoded]}; {len(rx.fixes)} fixes, best fix "
+          f"error {err:.2f} m; launches {launches}", flush=True)
+    print(receiver_line("GLONASS receiver", rx, GLO_RX_SECONDS, wall)
+          + f"; card {card}", flush=True)
+    fail_unless(not any(launches.values()),
+                f"GLONASS launched a kernel: {launches}")
+    fail_unless(len(decoded) >= 4, f"GLONASS: only {len(decoded)} decoded")
+    fail_unless(err < GLO_RX_FIX_M, f"GLONASS fix error {err:.2f} m")
+    return launches
+
+
+def sbas_cli(fx: dict, card: str) -> dict:
+    """Phase 6c: SBAS through the port's command line, `receiver --system
+    sbas`, in a child process on the card (CLI_WITH_COUNTS: `cli.main`
+    with the launch counts and stage times written at its end). Returns
+    the launches of that run."""
+    cmd = [sys.executable, "-c", CLI_WITH_COUNTS, "receiver", fx["bin"],
+           "--system", "sbas", "--sample-rate", str(int(FS))]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    fail_unless(r.returncode == 0, f"receiver --system sbas exited "
+                                   f"{r.returncode}: {r.stderr[-3000:]}")
+    out = json.loads(r.stdout)
+    extra = json.loads(r.stderr.strip().splitlines()[-1])
+    launches = extra["launches"]
+    st = extra["stage_seconds"][0]
+    tows = [RX_TOE + k for k in range(3)]
+    mt12 = [m for m in out["messages"] if m["mt"] == 12]
+    print(f"SBAS through the CLI: {SBAS_SECONDS} s at {FS / 1e6} MS/s, PRN "
+          f"{SBAS_PRN}; acquired {out['acquired']}; messages "
+          f"{out['messages']}; n_fixes {out['n_fixes']}; launches "
+          f"{launches}", flush=True)
+    print(f"SBAS receiver times (host s, each ending in a read): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+          + f"; receiver {sum(st.values()):.3f} s = "
+          f"{SBAS_SECONDS / sum(st.values()):.3f}x real time; cli.main "
+          f"{extra['main_s']:.3f} s; the process {wall:.3f} s; card {card}",
+          flush=True)
+    fail_unless(launches["pcf"] >= 1,
+                f"receiver --system sbas did not launch B1: {launches}")
+    fail_unless(any(m["prn"] == SBAS_PRN and m["week"] == SBAS_WEEK
+                    and min(abs(m["tow_s"] - t) for t in tows) < 0.5
+                    for m in mt12),
+                f"no MT12 of week {SBAS_WEEK} near ToW {tows}")
+    fail_unless(out["n_fixes"] == 0 and out["fix"] is None,
+                "SBAS formed a fix")
+    return launches
+
+
+def phases(args_cli, start_render) -> int:
+    """Every phase after the CUDA check. `start_render(name)` starts a
+    receiver fixture's render (`render_fixture`) in a worker process and
+    returns its pending result: the GPS one at once (the build and phases
+    3-4 run beside it), the other three after the kernel timings of phase
+    3, so that they do not share the host with those."""
+    renders = {"gps": start_render("gps")}
     # 1. the card
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
-                         "is_available() is False)")
     from gps_jamming_tpu_torch import entry
     from gps_jamming_tpu_torch.device import require_cuda
     from gps_jamming_tpu_torch.kernels import build
@@ -878,6 +1143,20 @@ def main() -> int:
     b3_v1 = check_b3(f"n={V1_N}", make_gps_blocks(rng, fs_v1, dev, 777),
                      codes.gps_replica_table(fs_v1, V1_N, dev), std_freqs,
                      fs_v1, 5, 3)
+    # B1 (36 PRN) and B3 (36 PRN x 71 bins x 10) at 8192: Galileo E1B at
+    # the front end's default 2.048 MS/s, the rate `receiver --system
+    # galileo` runs at
+    gal8_blocks = make_galileo_blocks(rng, dev, GAL8_FS, GAL8_N,
+                                      GAL8_CODE_PHASE)
+    gal8_rep = codes.replica_tensor(
+        galileo.replica_table_host(GAL8_FS, GAL8_N), dev)
+    b1_g8 = check_b1(f" galileo n={GAL8_N}", gal8_blocks, gal8_rep, GAL8_FS,
+                     acq.exclusion_half_width(GAL8_N, CFG.acquisition,
+                                              float(galileo.BOC_LEN)))
+    b3_g8 = check_b3(f"galileo n={GAL8_N}", gal8_blocks, gal8_rep, std_freqs,
+                     GAL8_FS, 5, 3)
+    del gal8_blocks, gal8_rep
+    renders.update({k: start_render(k) for k in FIXTURES if k != "gps"})
     print("power-of-two sizes in this run beside the mixed-radix ones "
           "(kernel / plain ms): B1 peak 2048 "
           f"{modes['peak']['ms']:.4f}/{modes['peak']['plain_ms']:.4f}, "
@@ -889,15 +1168,21 @@ def main() -> int:
           f"{b3['galileo']['plain_ms']:.4f}, "
           + ", ".join(f"{n_m} {m['b3']['ms']:.4f}/{m['b3']['plain_ms']:.4f}"
                       for n_m, m in mixed.items())
-          + f", {V1_N} {b3_v1['ms']:.4f}/{b3_v1['plain_ms']:.4f}; card "
-          f"{card}", flush=True)
+          + f", {V1_N} {b3_v1['ms']:.4f}/{b3_v1['plain_ms']:.4f}; Galileo "
+          f"{GAL8_N}: B1 stats {b1_g8['stats']['ms']:.4f}/"
+          f"{b1_g8['stats']['plain_ms']:.4f} (share of bound "
+          f"{b1_g8['stats']['bound_share']:.3f}), B3 {b3_g8['ms']:.4f}/"
+          f"{b3_g8['plain_ms']:.4f} (share {b3_g8['bound_share']:.3f}); "
+          f"card {card}", flush=True)
     for k in kernels:
         if k["name"] == "pcf":
             k["sizes"] = {str(n_m): m["b1"] for n_m, m in mixed.items()}
+            k["sizes"][f"galileo_{GAL8_N}"] = b1_g8
         if k["name"] == "caf_std":
             k["shapes"].update({f"n{n_m}": m["b3"]
                                 for n_m, m in mixed.items()})
             k["shapes"][f"n{V1_N}"] = b3_v1
+            k["shapes"][f"galileo_n{GAL8_N}"] = b3_g8
 
     # 4. the main path (warm-up pass first, then counters from zero)
     for b in range(N_BLOCKS):
@@ -1169,23 +1454,23 @@ def main() -> int:
     # `analyze_capture(streaming=False)`, on the card (pre-scan, the
     # receiver: acquisition by B1, tracking, decode, PVT; the detector, the
     # telemetry records)
+    # (the render, and its .bin at RX_SCALE, come from a worker process)
     t0 = time.perf_counter()
+    fx_gps = renders["gps"].get()
+    wait_s = time.perf_counter() - t0
     sats = constellation.gps_shell(RX_TOE)
-    iq_sim, truths, rx_ecef = constellation.simulate_constellation(
-        sats, RX_LLA, RX_TOE - 1.3, int(RX_SECONDS * FS), FS,
-        noise_std=0.4, seed=2)
-    render_s = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as td:
-        path = os.path.join(td, "gps.bin")
-        iq.write_iq_file(path, iq_sim * RX_SCALE)
-        t0 = time.perf_counter()
-        x_rx = torch.from_numpy(iq.read_iq_file(
-            path, convention="centered")).to(dev)
-        torch.cuda.synchronize()
-        read_s = time.perf_counter() - t0
-        reset_launches()
-        clean = pipeline.analyze_capture([path], streaming=False)
-        rx_launches = read_launches()
+    iq_sim = np.load(fx_gps["npy"])
+    truths, rx_ecef = fx_gps["truths"], fx_gps["rx_ecef"]
+    render_s = fx_gps["render_s"]
+    path = fx_gps["bin"]
+    t0 = time.perf_counter()
+    x_rx = torch.from_numpy(iq.read_iq_file(
+        path, convention="centered")).to(dev)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    reset_launches()
+    clean = pipeline.analyze_capture([path], streaming=False)
+    rx_launches = read_launches()
     n_rx = x_rx.numel()
     rres = clean.receiver
     rx_s = clean.stage_seconds["receiver"]
@@ -1202,8 +1487,9 @@ def main() -> int:
     recs = clean.telemetry.records
     print(f"receiver: {RX_SECONDS} s at {FS / 1e6} MS/s ({n_rx} samples), "
           f"{len(truths)} satellites in view {sorted(t.prn for t in truths)}"
-          f"; render {render_s:.1f} s (NumPy, host), .bin read + upload "
-          f"{read_s:.2f} s; acquired "
+          f"; render {render_s:.1f} s (NumPy, a worker process; waited "
+          f"{wait_s:.1f} s for it), .bin read + upload {read_s:.2f} s; "
+          f"acquired "
           f"{[c.prn for c in rres.channels if c.acquired]}, tracked "
           f"{[c.prn for c in tracked]}, decoded {[c.prn for c in decoded]}; "
           f"{len(rres.fixes)} fixes, best fix error {err:.2f} m, height "
@@ -1301,7 +1587,20 @@ def main() -> int:
     prod_launches = product_path(iq_sim, rres, card)
     del iq_sim
 
-    # 6. results
+    # 6. the other systems' receivers on the card: (a) Galileo E1B through
+    # analyze_capture, (b) GLONASS L1OF through run_receiver, (c) SBAS
+    # through the CLI; each fixture rendered by a worker process
+    t0 = time.perf_counter()
+    fx = {k: renders[k].get() for k in ("galileo", "glonass", "sbas")}
+    print(f"phase 6 fixtures: waited {time.perf_counter() - t0:.1f} s; "
+          "render / .bin write (s) "
+          + ", ".join(f"{k} {v['render_s']:.1f} / {v['write_s']:.1f}"
+                      for k, v in fx.items()), flush=True)
+    gal_launches = galileo_receiver(fx["galileo"], card)
+    glo_launches = glonass_receiver(fx["glonass"], dev, card)
+    sbas_launches = sbas_cli(fx["sbas"], card)
+
+    # 7. results
     for k in kernels:
         k["launches"] = (std_launches if k["name"] == "caf_std"
                          else launches)[k["name"]]
@@ -1310,7 +1609,10 @@ def main() -> int:
             "detect_acquire_step": launches[k["name"]],
             "detect_acquire_step_std": std_launches[k["name"]],
             "analyze_capture_clean": rx_launches[k["name"]],
-            "analyze_capture_jammed": prod_launches[k["name"]]}
+            "analyze_capture_jammed": prod_launches[k["name"]],
+            "analyze_capture_galileo": gal_launches[k["name"]],
+            "run_receiver_glonass": glo_launches[k["name"]],
+            "cli_receiver_sbas": sbas_launches[k["name"]]}
         k["library_ms"] = None
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1318,6 +1620,26 @@ def main() -> int:
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also print a torch.profiler breakdown of the "
+                         "main-path step")
+    args_cli = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
+                         "is_available() is False)")
+    td = tempfile.mkdtemp(prefix="chip_smoke_")
+    pool = multiprocessing.get_context("spawn").Pool(len(FIXTURES))
+    try:
+        return phases(args_cli, lambda k: pool.apply_async(
+            render_fixture, (k, td)))
+    finally:
+        pool.terminate()
+        pool.join()
+        shutil.rmtree(td, ignore_errors=True)
 
 
 if __name__ == "__main__":

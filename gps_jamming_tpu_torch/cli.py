@@ -8,11 +8,12 @@ detect, localize, calibrate and receiver verbs):
 
 The verbs take the JAX package's flags and print its JSON keys. Each runs
 on the card unless `--device` names another device (`--device cpu`).
-Flags that need what the port does not have yet exit with status 2 and
-name the ROADMAP item: the streaming receiver and its `--checkpoint`,
-`--resume` and `--wire-bits` (A6; so `detect` needs `--batch-receiver` or
-`--no-receiver`, and `receiver` refuses `--streaming`), the decoders of
-systems other than GPS (A5), and `--devices` (A8).
+`--system` takes the JAX CLI's systems (GPS, Galileo, GLONASS; `receiver`
+also SBAS, whose messages it prints). Flags that need what the port does
+not have yet exit with status 2 and name the ROADMAP item: the streaming
+receiver and its `--checkpoint`, `--resume` and `--wire-bits` (A6; so
+`detect` needs `--batch-receiver` or `--no-receiver`, and `receiver`
+refuses `--streaming`), and `--devices` (A8).
 """
 from __future__ import annotations
 
@@ -63,7 +64,6 @@ def _refuse(verb: str, refused: list[tuple[str, str]]) -> int:
     return 2
 
 
-A5 = "ROADMAP A5 (the Galileo, GLONASS and SBAS decoders)"
 A6 = "ROADMAP A6 (the streaming receiver)"
 A8 = "ROADMAP A8 (multi-device)"
 
@@ -82,9 +82,7 @@ def cmd_detect(args) -> int:
          receiver_on and not args.batch_receiver),
         ("--checkpoint", A6, args.checkpoint),
         ("--resume", A6, args.resume),
-        ("--wire-bits", A6, args.wire_bits != "auto"),
-        (f"--system {args.system} with the receiver", A5,
-         receiver_on and args.system != "gps")] if bad]
+        ("--wire-bits", A6, args.wire_bits != "auto")] if bad]
     if refused:
         return _refuse("detect", refused)
     from .runtime import pipeline
@@ -162,8 +160,7 @@ def cmd_receiver(args) -> int:
         ("--streaming", A6, args.streaming),
         ("--checkpoint", A6, args.checkpoint),
         ("--resume", A6, args.resume),
-        ("--wire-bits", A6, args.wire_bits != "auto"),
-        (f"--system {args.system}", A5, args.system != "gps")] if bad]
+        ("--wire-bits", A6, args.wire_bits != "auto")] if bad]
     if refused:
         return _refuse("receiver", refused)
     import torch
@@ -198,8 +195,9 @@ def cmd_receiver(args) -> int:
         "decoded_prns": [c.prn for c in res.channels
                          if c.obs is not None
                          and rx_mod._eph_complete(args.system, c.obs.eph)],
-        # SBAS message rows come with its decoder (A5): none for GPS
-        "messages": [],
+        "messages": [
+            {"prn": c.prn, "mt": m.mt, "tow_s": m.tow_s, "week": m.week}
+            for c in res.channels for m in (c.messages or [])],
         "filter": res.filter_name,
         "n_fixes": len([f for f in res.fixes if f.valid]),
         "fix": None if fix is None else {
@@ -242,8 +240,7 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--telemetry-out", help="write JSONL telemetry here")
     d.add_argument("--system", default="gps",
                    choices=["gps", "glonass", "galileo"],
-                   help="constellation (the reference's -g/-l/-a modes; "
-                        "the receiver runs GPS only so far)")
+                   help="constellation (the reference's -g/-l/-a modes)")
     d.add_argument("--threshold-db", type=float,
                    help="F1 power-rise threshold over baseline "
                         "(settings dialog; default 6.0 dB ITU-R)")
@@ -290,8 +287,7 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--max-seconds", type=float)
     r.add_argument("--system", default="gps",
                    choices=["gps", "glonass", "galileo", "sbas"],
-                   help="constellation (GPS only so far: the others' "
-                        "decoders are ROADMAP A5)")
+                   help="constellation (SBAS: message monitoring)")
     r.add_argument("--hold", action="store_true",
                    help="hold-position output filter (gnssdec -h)")
     r.add_argument("--streaming", action="store_true",

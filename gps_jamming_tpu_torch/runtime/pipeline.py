@@ -280,21 +280,24 @@ def analyze_capture(paths: Sequence[str],
     card; raises RuntimeError where there is none).
 
     streaming=False: the whole first capture is read and sent to the
-    device, pre-scanned there, and run through the acquire-once batch GPS
-    receiver (`run_receiver`); then the detector and the telemetry records
-    on the host, and, on a detected event with >= 2 antennas, RSSI and
-    TDOA localization, each antenna sent to the device one at a time.
-    streaming=True with run_receiver=False: the file pre-scan in bounded
-    memory, the detector, and the streamed localization
-    (`triangulate_files`, `localize_files`).
+    device, pre-scanned there, and run through the acquire-once batch
+    receiver of `system` (`run_receiver`); then the detector and the
+    telemetry records on the host, and, on a detected event with >= 2
+    antennas, RSSI and TDOA localization, each antenna sent to the device
+    one at a time. streaming=True with run_receiver=False: the file
+    pre-scan in bounded memory, the detector, and the streamed
+    localization (`triangulate_files`, `localize_files`).
 
-    system: constellation of the receiver chain; only 'gps' is ported
-    (`run_receiver` raises ValueError for the others, ROADMAP A5).
-    hold: freeze the REPORTED position while the fix is held (the
-    reference's -h filter, sdrout.c:141-183); the telemetry always carries
-    the hold flag. sample_rate: default the per-system front-end rate.
-    pvt_filter: 'wls' or 'ekf'. A TDOA failure (no onset, too short)
-    leaves tdoa_result None, as in the reference.
+    system: the receiver chain's constellation, 'gps', 'galileo',
+    'glonass' or 'sbas' (messages only, no fix); another raises
+    ValueError. The telemetry frames count 1 ms epochs at every system,
+    as the JAX package's (`build_telemetry_frames`). hold: freeze the
+    REPORTED position while the fix is held (the reference's -h filter,
+    sdrout.c:141-183); the telemetry always carries the hold flag.
+    sample_rate: default the per-system front-end rate (10 MS/s for
+    GLONASS, else the front end's 2.048 MS/s). pvt_filter: 'wls' or 'ekf'.
+    A TDOA failure (no onset, too short) leaves tdoa_result None, as in
+    the reference.
 
     Raises NotImplementedError for what needs the streaming receiver
     (ROADMAP A6): streaming=True with the receiver on, a sink, a

@@ -1,14 +1,16 @@
-"""Ephemeris-consistent GPS capture simulator (geometry-true fixtures).
+"""Ephemeris-consistent GNSS capture simulator (geometry-true fixtures).
 
-NumPy copy of the GPS part of `gps_jamming_tpu.sim.constellation`
-(`SatTruth`, `geometric_range`, `render_signal`, `render_satellite`,
-`simulate_constellation`, and the receiver tests' 24-satellite shell as
-`gps_shell`), which imports the jax-importing receiver
-package. It renders baseband where each satellite's code phase, carrier
-phase, Doppler and LNAV data bits agree with the geometry, so acquisition,
-tracking, decode and PVT can be checked against ground truth on a machine
-without JAX. tests/test_torch_receiver_host.py holds it equal to the JAX
-package's. The Galileo and GLONASS renderers are not copied yet.
+NumPy copy of `gps_jamming_tpu.sim.constellation` (`SatTruth`,
+`geometric_range`, `render_signal`, `render_satellite`,
+`simulate_constellation`, `simulate_galileo_constellation`,
+`glo_geometric_range`, `simulate_glonass_constellation`, and the receiver
+tests' 24-satellite GPS shell as `gps_shell`), which imports the
+jax-importing receiver package. It renders baseband where each
+satellite's code phase, carrier phase, Doppler and nav symbols agree with
+the geometry, so acquisition, tracking, decode and PVT can be checked
+against ground truth on a machine without JAX.
+tests/test_torch_receiver_host.py and tests/test_torch_systems.py hold it
+equal to the JAX package's.
 
 Signal model, per satellite:
   t_tx(t_rx) = t_gps(t_rx) - rho(t_rx)/c          (transit delay)
@@ -28,6 +30,8 @@ import numpy as np
 
 from ..utils import constants as C
 from ..models.receiver import ephemeris as eph_mod
+from ..models.receiver import galileo as gal
+from ..models.receiver import glonass as glo
 from ..models.receiver import lnav, pvt
 from ..ops import codes as codes_ops
 
@@ -172,6 +176,64 @@ def gps_shell(toe: float, n: int = 24) -> list[lnav.Ephemeris]:
         have_subframes=(1, 2, 3)) for k in range(n)]
 
 
+def galileo_shell(toe: float, n: int = 24) -> list[lnav.Ephemeris]:
+    """An n-satellite Galileo shell at a common Toe (the JAX package's
+    closed-loop E1B tests' `_gal_shell`; E1 shares the GPS orbit math):
+    a = 29 600 km, spread mean anomalies, six planes, clock offsets of
+    (k - 12) * 2 us, GST week 1340."""
+    return [lnav.Ephemeris(
+        prn=k + 1, week=1340, toc=toe, af0=(k - 12) * 2e-6,
+        af1=0.0, af2=0.0, tgd=0.0, iodc=100 + k, ura=1, health=0,
+        iode=100 + k, toe=toe, sqrt_a=np.sqrt(29_600_000.0),
+        e=0.0003, m0=2.0 * np.pi * k / n,
+        delta_n=3e-9, omega0=2.0 * np.pi * (k % 6) / 6.0,
+        omega_dot=-5.6e-9, omega=0.25 * k, i0=0.975, idot=-2e-10,
+        cuc=0.0, cus=0.0, crc=0.0, crs=0.0, cic=0.0, cis=0.0,
+        have_subframes=(1, 2, 3, 4, 5)) for k in range(n)]
+
+
+def glonass_shell(rx_lla: tuple[float, float, float],
+                  tb: float) -> list["glo.GloEphemeris"]:
+    """Five GLONASS satellites on FDMA channels -2..2 (the JAX package's
+    closed-loop L1OF tests' `_glo_shell`): placed at spread azimuths and
+    elevations from the receiver at the orbit radius, with circular-speed
+    tangential velocities and clock offsets of (i - 2) * 4 us. The
+    simulator and the receiver extrapolate the same broadcast state with
+    the same RK4 force model, so the geometry closes."""
+    r_orb = 25_508_000.0
+    rx = pvt.lla_to_ecef(*rx_lla)
+    lat, lon = np.deg2rad(rx_lla[0]), np.deg2rad(rx_lla[1])
+    e_hat = np.array([-np.sin(lon), np.cos(lon), 0.0])
+    n_hat = np.array([-np.sin(lat) * np.cos(lon),
+                      -np.sin(lat) * np.sin(lon), np.cos(lat)])
+    u_hat = np.array([np.cos(lat) * np.cos(lon),
+                      np.cos(lat) * np.sin(lon), np.sin(lat)])
+    sats = []
+    geom = [(0.0, 65.0), (85.0, 40.0), (170.0, 55.0), (255.0, 35.0),
+            (320.0, 70.0)]
+    for i, (az_d, el_d) in enumerate(geom):
+        az, el = np.deg2rad(az_d), np.deg2rad(el_d)
+        ray = (np.sin(az) * np.cos(el) * e_hat
+               + np.cos(az) * np.cos(el) * n_hat + np.sin(el) * u_hat)
+        # |rx + d*ray| = r_orb
+        b = 2.0 * rx.dot(ray)
+        c0 = rx.dot(rx) - r_orb ** 2
+        d = (-b + np.sqrt(b * b - 4 * c0)) / 2.0
+        pos = rx + d * ray
+        v_circ = np.sqrt(3.986e14 / r_orb)
+        t1 = np.cross(pos, [0.0, 0.0, 1.0])
+        t1 /= np.linalg.norm(t1)
+        t2 = np.cross(pos / np.linalg.norm(pos), t1)
+        ang = 0.7 * i
+        vel = v_circ * (np.cos(ang) * t1 + np.sin(ang) * t2)
+        sats.append(glo.GloEphemeris(
+            freq_ch=i - 2, tb_s=tb, tk_s=0.0,
+            pos_m=tuple(pos), vel_mps=tuple(vel),
+            acc_mps2=(0.0, 0.0, 0.0),
+            tau_s=(i - 2) * 4e-6, gamma=0.0))
+    return sats
+
+
 def simulate_constellation(ephs: Sequence[lnav.Ephemeris],
                            rx_lla: tuple[float, float, float],
                            tow0: float, n_samples: int, fs: float,
@@ -237,6 +299,154 @@ def simulate_constellation(ephs: Sequence[lnav.Ephemeris],
             prn=eph.prn, range_m=float(rho0), doppler_hz=float(doppler),
             code_phase_chips=float(cp),
             pseudorange_m=float(rho0 - C.SPEED_OF_LIGHT * clk[0])))
+
+    if noise_std > 0.0:
+        rng = np.random.default_rng(seed)
+        out = out + (rng.normal(0.0, noise_std, n_samples)
+                     + 1j * rng.normal(0.0, noise_std, n_samples))
+    return out, truths, rx_ecef
+
+
+# ---------------------------------------------------------------------------
+# Galileo E1B constellation
+# ---------------------------------------------------------------------------
+
+def simulate_galileo_constellation(ephs: Sequence[lnav.Ephemeris],
+                                   rx_lla: tuple[float, float, float],
+                                   tow0: float, n_samples: int, fs: float,
+                                   amplitudes: Sequence[float] | None = None,
+                                   noise_std: float = 0.0, seed: int = 0,
+                                   min_elevation_deg: float = 10.0):
+    """Geometry-true E1B capture: BOC(1,1) codes + live I/NAV pages.
+
+    Same Keplerian geometry as GPS (E1 shares the L1 carrier); the data
+    layer is the 250 sps I/NAV stream of galileo.encode_inav_stream with
+    word-5 GST anchors. Use fs >= 4.096 MS/s: nearest-neighbor BOC
+    synthesis at 2.048 MS/s aliases the doubled-subcarrier line into the
+    Doppler band (see ops.codes.resample_code_bandlimited).
+    """
+    rx_ecef = pvt.lla_to_ecef(*rx_lla)
+    batch = eph_mod.stack_ephemeris(ephs)
+    out = np.zeros(n_samples, dtype=np.complex128)
+    truths = []
+    amplitudes = amplitudes or [1.0] * len(ephs)
+
+    pos0, _ = eph_mod.sat_pos_clock(batch, np.full(len(ephs), tow0))
+    e_, n_, u_ = pvt.topocentric(rx_ecef, pos0 - rx_ecef)
+    el = np.rad2deg(np.arctan2(u_, np.hypot(e_, n_)))
+
+    dur = n_samples / fs
+    page0 = np.floor(tow0 / 2.0) * 2.0 - 2.0        # one page of lead-in
+    n_pairs = int(np.ceil((dur + tow0 - page0) / 2.0)) + 2
+
+    for k, eph in enumerate(ephs):
+        if el[k] < min_elevation_deg:
+            continue
+        one = eph_mod.EphArrays(*[c[k:k + 1] for c in batch])
+        sym01 = gal.encode_inav_stream(eph, page0, n_pairs)
+        sym = 1.0 - 2.0 * sym01.astype(np.float64)
+        coeffs = _range_fit(one, tow0, dur, rx_ecef)
+        _, clk = eph_mod.sat_pos_clock(one, np.array([tow0]))
+        render_signal(coeffs, float(clk[0]), gal.e1b_boc_code(eph.prn),
+                      gal.BOC_RATE, sym, gal.SYMBOL_RATE_SPS, page0,
+                      tow0, n_samples, fs, C.GPS_L1_FREQ_HZ, 0.0,
+                      amplitudes[k], out=out)
+
+        rho0 = geometric_range(one, np.array([tow0]), rx_ecef)[0]
+        rho1 = geometric_range(one, np.array([tow0 + 0.5]), rx_ecef)[0]
+        doppler = -(rho1 - rho0) / 0.5 / C.SPEED_OF_LIGHT \
+            * C.GPS_L1_FREQ_HZ
+        t_tx0 = tow0 - rho0 / C.SPEED_OF_LIGHT + clk[0]
+        cp = (gal.BOC_RATE * t_tx0) % gal.BOC_LEN
+        truths.append(SatTruth(
+            prn=eph.prn, range_m=float(rho0), doppler_hz=float(doppler),
+            code_phase_chips=float(cp),
+            pseudorange_m=float(rho0 - C.SPEED_OF_LIGHT * clk[0])))
+
+    if noise_std > 0.0:
+        rng = np.random.default_rng(seed)
+        out = out + (rng.normal(0.0, noise_std, n_samples)
+                     + 1j * rng.normal(0.0, noise_std, n_samples))
+    return out, truths, rx_ecef
+
+
+# ---------------------------------------------------------------------------
+# GLONASS L1OF constellation
+# ---------------------------------------------------------------------------
+
+def glo_geometric_range(geph, t, rx_ecef: np.ndarray,
+                        light_time_iters: int = 2) -> np.ndarray:
+    """GLONASS range at reception time t: RK4 state extrapolation from tb
+    + light-time iteration + Sagnac rotation."""
+    t = np.asarray(t, np.float64)
+    tau = np.full_like(t, 0.085)
+    pos0 = np.asarray(geph.pos_m, np.float64)
+    vel0 = np.asarray(geph.vel_mps, np.float64)
+    acc = np.asarray(geph.acc_mps2, np.float64)
+    for _ in range(light_time_iters + 1):
+        dt = t - tau - geph.tb_s
+        pos = np.stack([eph_mod.glonass_extrapolate(pos0, vel0, acc,
+                                                    float(d)) for d in dt])
+        pos = pvt.sagnac_rotate(pos, tau)
+        rho = np.linalg.norm(pos - rx_ecef, axis=-1)
+        tau = rho / C.SPEED_OF_LIGHT
+    return rho
+
+
+def simulate_glonass_constellation(gephs: Sequence,
+                                   rx_lla: tuple[float, float, float],
+                                   t0: float, n_samples: int, fs: float,
+                                   center_freq_hz: float | None = None,
+                                   amplitudes: Sequence[float] | None = None,
+                                   noise_std: float = 0.0, seed: int = 0,
+                                   min_elevation_deg: float = 10.0):
+    """Geometry-true L1OF capture: FDMA carriers + live GNAV strings.
+
+    gephs: glonass.GloEphemeris records (freq_ch + pos/vel/acc at tb + tau/
+    gamma); satellite motion is the same RK4 force model the receiver's
+    satPos extrapolation uses, so the loop closes exactly. The reference
+    has no GLONASS simulator at all (gps-sdr-sim is GPS-only).
+    """
+    center_freq_hz = center_freq_hz or C.GLO_G1_BASE_FREQ_HZ
+    rx_ecef = pvt.lla_to_ecef(*rx_lla)
+    out = np.zeros(n_samples, dtype=np.complex128)
+    truths = []
+    amplitudes = amplitudes or [1.0] * len(gephs)
+
+    dur = n_samples / fs
+    cyc0 = np.floor(t0 / 8.0) * 8.0 - 8.0
+    n_cycles = int(np.ceil((dur + t0 - cyc0) / 8.0)) + 2
+
+    for k, g in enumerate(gephs):
+        pos0 = np.stack([eph_mod.glonass_extrapolate(
+            np.asarray(g.pos_m, np.float64),
+            np.asarray(g.vel_mps, np.float64),
+            np.asarray(g.acc_mps2, np.float64), float(t0 - g.tb_s))])
+        e_, n_, u_ = pvt.topocentric(rx_ecef, pos0[0] - rx_ecef)
+        el = np.rad2deg(np.arctan2(u_, np.hypot(e_, n_)))
+        if el < min_elevation_deg:
+            continue
+        sym01 = glo.encode_gnav_stream(g, cyc0, n_cycles)
+        sym = 1.0 - 2.0 * sym01.astype(np.float64)
+        carrier = codes_ops.glonass_carrier_hz(g.freq_ch)
+        dur_grid = np.linspace(0.0, dur, max(int(np.ceil(dur)) + 2, 5))
+        rho_g = glo_geometric_range(g, t0 + dur_grid, rx_ecef)
+        coeffs = np.polyfit(dur_grid, rho_g, 2)
+        clk0 = -g.tau_s + g.gamma * (t0 - g.tb_s)
+        render_signal(coeffs, clk0, codes_ops.glonass_code(), C.GLO_CHIP_RATE_HZ,
+                      sym, glo.SYMBOL_RATE_SPS, cyc0, t0, n_samples, fs,
+                      carrier, carrier - center_freq_hz, amplitudes[k],
+                      out=out)
+
+        rho0 = float(rho_g[0])
+        rho1 = glo_geometric_range(g, np.array([t0 + 0.5]), rx_ecef)[0]
+        doppler = -(rho1 - rho0) / 0.5 / C.SPEED_OF_LIGHT * carrier
+        t_tx0 = t0 - rho0 / C.SPEED_OF_LIGHT + clk0
+        cp = (C.GLO_CHIP_RATE_HZ * t_tx0) % C.GLO_CODE_LEN
+        truths.append(SatTruth(
+            prn=g.freq_ch, range_m=rho0, doppler_hz=float(doppler),
+            code_phase_chips=float(cp),
+            pseudorange_m=float(rho0 - C.SPEED_OF_LIGHT * clk0)))
 
     if noise_std > 0.0:
         rng = np.random.default_rng(seed)

@@ -11,10 +11,14 @@
   distances rtol 1e-5 and its grid fix within one grid step; TDOA onsets
   equal, lags within 1e-3 samples and the hyperbolic position within 2 m
   (tests/test_torch_localization.py says why).
-- What needs the streaming receiver raises NotImplementedError; no card
-  and no device raises RuntimeError.
+- `analyze_capture(system='galileo')` on the same set equals the JAX
+  package's; an unknown system raises ValueError. What needs the
+  streaming receiver raises NotImplementedError; no card and no device
+  raises RuntimeError.
 - The port's CLI in a subprocess (`--device cpu`) prints the JAX CLI's
-  JSON keys and values on the same files; unported flags exit 2.
+  JSON keys and values on the same files (`detect` also with `--system
+  galileo`; `receiver --system sbas` on a 2.5 s SBAS capture, its MT12
+  rows); unported flags exit 2.
 """
 import contextlib
 import io
@@ -227,9 +231,21 @@ def test_streaming_receiver_features_raise(capture_set, kw):
 
 
 def test_other_systems_and_no_card_raise(capture_set, monkeypatch):
-    with pytest.raises(ValueError, match="ROADMAP A5"):
+    """Galileo runs the batch path as the JAX package's does (its default
+    2.048 MS/s: B1's n = 8192 on the card); an unknown system, and no card
+    with no device, raise."""
+    kw = dict(streaming=False, system="galileo")
+    want = jpipe.analyze_capture(capture_set[:1], **kw)
+    got = tpipe.analyze_capture(capture_set[:1], device="cpu", **kw)
+    _same_analysis(got, want)
+    assert got.receiver.system == "galileo" and got.receiver.epoch_ms == 4.0
+    assert [c.prn for c in got.receiver.channels] == list(range(1, 37))
+    assert [c.acquired for c in got.receiver.channels] == \
+        [c.acquired for c in want.receiver.channels]
+    assert len(got.telemetry.records) == 10 and len(got.events) == 1
+    with pytest.raises(ValueError, match="unknown system"):
         tpipe.analyze_capture(capture_set[:1], streaming=False,
-                              system="galileo", device="cpu")
+                              system="beidou", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tpipe.analyze_capture(capture_set, streaming=False,
@@ -307,15 +323,73 @@ def test_cli_localize_calibrate_receiver_match_jax(capture_set):
     assert got == want
 
 
+@pytest.fixture(scope="module")
+def sbas_bin(tmp_path_factory):
+    """2.5 s of SBAS PRN 129 (tests/test_sbas_channel.py's channel: +1250
+    Hz, code phase 317.25 chips, MT12 messages of week 310 from ToW
+    345600 s, noise 0.8), x12 in a uint8 .bin."""
+    import jax
+    from gps_jamming_tpu.models.receiver import sbas as jsbas
+    from gps_jamming_tpu.ops import iq as jiq
+    from gps_jamming_tpu.sim import gps as jsim
+    sym = jsbas.encode_stream([jsbas.build_mt12(345600.0 + k, 310,
+                                                preamble_idx=k % 3)
+                               for k in range(3)])
+    sat = jsim.SatelliteSignal(prn=129, doppler_hz=1250.0,
+                               code_phase_chips=317.25,
+                               nav_bits=tuple((2 * sym - 1).tolist()),
+                               bit_periods=2)
+    x = jsim.scene([sat], int(2.5 * FS), FS, noise_std=0.8,
+                   key=jax.random.PRNGKey(11))
+    path = str(tmp_path_factory.mktemp("sbas") / "sbas.bin")
+    jiq.write_iq_file(path, (np.asarray(x) * 12.0).astype(np.complex64))
+    return path
+
+
+def test_cli_receiver_sbas_matches_jax(sbas_bin):
+    """`receiver --system sbas`: the JAX CLI's keys and values, MT12
+    message rows included, and no fix."""
+    r = _port_cli("receiver", sbas_bin, "--system", "sbas")
+    assert r.returncode == 0, r.stderr[-2000:]
+    got = json.loads(r.stdout)
+    want = _jax_cli("receiver", sbas_bin, "--system", "sbas")
+    assert _keys(got) == _keys(want)
+    for k in ("decoded_prns", "messages", "filter", "n_fixes", "fix"):
+        assert got[k] == want[k], k
+    assert [a["prn"] for a in got["acquired"]] == \
+        [a["prn"] for a in want["acquired"]]
+    assert got["messages"] and got["n_fixes"] == 0 and got["fix"] is None
+    assert {(m["prn"], m["mt"], m["week"]) for m in got["messages"]} == \
+        {(129, 12, 310)}
+    assert all(m["tow_s"] in (345600.0, 345601.0, 345602.0)
+               for m in got["messages"])
+
+
+def test_cli_detect_galileo_matches_jax(capture_set):
+    """`detect --batch-receiver --system galileo` on the jammed set: the
+    JAX CLI's keys and the values that must match."""
+    r = _port_cli("detect", *capture_set, "--batch-receiver", "--system",
+                  "galileo")
+    assert r.returncode == 0, r.stderr[-2000:]
+    got = json.loads(r.stdout)
+    want = _jax_cli("detect", *capture_set, "--batch-receiver", "--system",
+                    "galileo")
+    assert _keys(got) == _keys(want)
+    for k in ("power_ranges_bytes", "events", "n_events", "last_safe_fix",
+              "fix", "acquired_prns"):
+        assert got[k] == want[k], k
+    np.testing.assert_allclose(got["localization"]["distances"],
+                               want["localization"]["distances"], rtol=1e-5)
+    assert got["n_events"] == 1
+
+
 @pytest.mark.parametrize("argv,item", [
     (["detect", "a.bin"], "A6"),
     (["detect", "a.bin", "--no-receiver", "--checkpoint", "c"], "A6"),
     (["detect", "a.bin", "--batch-receiver", "--resume"], "A6"),
     (["detect", "a.bin", "--batch-receiver", "--wire-bits", "4"], "A6"),
     (["detect", "a.bin", "--devices", "4"], "A8"),
-    (["detect", "a.bin", "--batch-receiver", "--system", "galileo"], "A5"),
-    (["receiver", "a.bin", "--streaming"], "A6"),
-    (["receiver", "a.bin", "--system", "sbas"], "A5")])
+    (["receiver", "a.bin", "--streaming"], "A6")])
 def test_cli_refuses_unported_flags(argv, item, capsys):
     assert tcli.main(argv) == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err

@@ -9,7 +9,8 @@ acquisition Dopplers (exact: the same grid), the fine-Doppler handover of
 every selected channel within 0.05 Hz (float32 sums of 32 ms in another
 order), and the per-epoch mean tracked C/N0 within 0.05 dB (the tracking
 loops' tolerance, tests/test_torch_tracking.py). Too short for a decode:
-no channel is decoded and no fix is formed, in either package.
+no channel is decoded and no fix is formed, in either package. Galileo,
+GLONASS and SBAS run the same comparison on short captures of their own.
 """
 import numpy as np
 import pytest
@@ -90,15 +91,82 @@ def test_receiver_handover_and_tracking_match_jax(both, capture):
                                       "decode", "pvt"}
 
 
+def _other_system_capture(system):
+    """(x, fs, acq_cfg pair, skip_epochs) of a 0.3 s JAX-rendered capture:
+    the closed-loop tests' Galileo shell at 4.096 MS/s (std acquisition
+    over 4 periods and +/-3.5 kHz, to keep the CPU's search small), their
+    GLONASS shell at 4 MS/s, and the SBAS channel test's PRN 129 at 2.048
+    MS/s with its three MT12 messages."""
+    import jax
+    from gps_jamming_tpu.models.receiver import sbas as jsbas
+    from gps_jamming_tpu.sim import constellation as jcon
+    from gps_jamming_tpu.sim import gps as jsim
+    from tests.test_multiconstellation_e2e import _gal_shell, _glo_shell
+    kw = {}
+    if system == "galileo":
+        fs = 4.096e6
+        x, _, _ = jcon.simulate_galileo_constellation(
+            _gal_shell(), RX_LLA, TOE + 30.0, int(0.3 * fs), fs,
+            noise_std=0.3, seed=1)
+        kw = dict(n_integration=4, doppler_max_hz=3500.0,
+                  doppler_step_hz=250.0)
+        skip = 20
+    elif system == "glonass":
+        fs = 4e6
+        x, _, _ = jcon.simulate_glonass_constellation(
+            _glo_shell(27030.0, 27000.0), RX_LLA, 27030.0, int(0.3 * fs),
+            fs, noise_std=0.3, seed=3)
+        skip = 100
+    else:
+        fs = FS
+        sym = jsbas.encode_stream([
+            jsbas.build_mt12(TOE + k, 310, preamble_idx=k % 3)
+            for k in range(3)])
+        sat = jsim.SatelliteSignal(
+            prn=129, doppler_hz=1250.0, code_phase_chips=317.25,
+            nav_bits=tuple((2 * sym - 1).tolist()), bit_periods=2)
+        x = np.asarray(jsim.scene([sat], int(0.3 * fs), fs, noise_std=0.8,
+                                  key=jax.random.PRNGKey(11)))
+        skip = 100
+    return (x.astype(np.complex64), fs,
+            (AcquisitionConfig(**kw), JAcquisitionConfig(**kw)), skip)
+
+
 @pytest.mark.parametrize("system", ["galileo", "glonass", "sbas"])
 def test_other_systems_raise(system):
-    x = torch.zeros(40_960, dtype=torch.complex64)
-    with pytest.raises(ValueError, match="ROADMAP A5"):
-        trx.run_receiver(x, FS, system=system)
-    with pytest.raises(ValueError, match="ROADMAP A5"):
-        trx._eph_complete(system, None)
+    """Galileo, GLONASS and SBAS run the chain as the JAX package's
+    `run_receiver` does, on a 0.3 s capture with a skip_epochs that leaves
+    the decoders most of it: the same ids, acquired set, code phases and
+    acquisition Dopplers (exact), the same tracked spans, and the
+    per-epoch mean C/N0 within 0.1 dB (the closed loop's spread,
+    tests/test_torch_tracking.py). Too short for a decode: no channel
+    decodes, no message, no fix, in either package (SBAS decodes its
+    tracked channel, to an empty message list). Only a system the
+    receiver does not know raises."""
+    x, fs, (cfg, jcfg), skip = _other_system_capture(system)
+    got = trx.run_receiver(torch.from_numpy(x), fs, acq_cfg=cfg,
+                           system=system, skip_epochs=skip)
+    want = jrx.run_receiver(x, fs, acq_cfg=jcfg, system=system,
+                            skip_epochs=skip)
+    assert [c.prn for c in got.channels] == [c.prn for c in want.channels]
+    acq = [c.prn for c in got.channels if c.acquired]
+    assert acq == [c.prn for c in want.channels if c.acquired]
+    assert len(acq) >= (1 if system == "sbas" else 4)
+    for g, w in zip(got.channels, want.channels):
+        if w.acquired:
+            assert g.code_phase_samples == w.code_phase_samples
+            assert g.doppler_hz == w.doppler_hz
+        assert g.obs is None and w.obs is None
+        assert not g.messages and g.messages == w.messages
+    assert got.tracked_spans == want.tracked_spans
+    assert got.epoch_ms == want.epoch_ms
+    np.testing.assert_allclose(got.cn0_epochs, want.cn0_epochs, rtol=0,
+                               atol=0.1)
+    assert not got.fixes and not want.fixes
+    assert set(got.stage_seconds) == {"acquire", "refine", "track",
+                                      "decode", "pvt"}
     with pytest.raises(ValueError, match="unknown system"):
-        trx.run_receiver(x, FS, system="beidou")
+        trx.run_receiver(torch.from_numpy(x[:40_960]), FS, system="beidou")
 
 
 def test_ephemeris_classes_share_fields():
