@@ -83,7 +83,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
    port's CLI `receiver --system sbas` in a child process: an MT12 of week
    310 within 0.5 s of a sent ToW, no fix, B1 launched. Each prints its
    stage times and its multiple of real time;
-7. print the per-kernel JSON line, the card line, and the success line.
+7. the streaming product path on the card (the native capture reader,
+   built by g++ in phase 2, feeds it): (a) phase 5's clean .bin through
+   the port's CLI `detect` with its defaults (the streaming receiver, 32
+   slots, 4 s segments, wire_bits 'auto') in a child process: a fix
+   within 30 m, at least 4 decoded, no event, one record per 100 ms, B1
+   launched once per acquisition attempt, the stage times, the
+   receiver's own split (`last_profile`) and the multiple of real time;
+   (b) the same render with a seeded broadband jam from 4 to 7 s (400 x 12,
+   clipped at the uint8 rails) through `analyze_capture(segment_s=2.0,
+   pvt_filter='ekf')`: one power range and one event over the jam, the
+   tracked list thinner in it, a satellite tracked before it tracked
+   again after it, a health reset and the reset satellite acquired again
+   after the jam; (c) on that file cut to 10 s, an
+   uninterrupted run, a run killed by its sink after 6 s and a resumed
+   run: events, records and the jamming trace bitwise equal; (d)
+   `StreamProcessor` over the clean .bin: B2 once per 2M-sample block,
+   the ranges of `power_profile_file`;
+8. print the per-kernel JSON line, the card line, and the success line.
 
 Each kernel's entry in the JSON line, and each of its shapes, carries
 `bound_ms`: the least time the card could take for the same work, the
@@ -194,6 +211,40 @@ print(json.dumps({"launches": {"welch_psd": cuda_psd.LAUNCHES,
                   "main_s": time.perf_counter() - t0}), file=sys.stderr)
 sys.exit(rc)
 """
+# run in a child process by phase 7a: the port's CLI with
+# `pipeline.analyze_capture` wrapped to write, at its end, the kernels'
+# launch counts, the stage times, the streaming receiver's own split
+# (`last_profile`) and the decoded satellites to stderr
+STREAM_CLI_WITH_COUNTS = """
+import json, sys, time
+from gps_jamming_tpu_torch import cli
+from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf, cuda_psd
+from gps_jamming_tpu_torch.runtime import pipeline
+out = {}
+analyze = pipeline.analyze_capture
+def counted(*a, **k):
+    res = analyze(*a, **k)
+    rx = res.receiver
+    out.update(stage_seconds=res.stage_seconds,
+               last_profile=rx.stage_seconds, elapsed_s=res.elapsed_s,
+               decoded=[c.prn for c in rx.channels
+                        if c.obs is not None and c.obs.eph.complete],
+               spans=rx.tracked_spans, n_fixes=len(rx.fixes))
+    return res
+pipeline.analyze_capture = counted
+t0 = time.perf_counter()
+rc = cli.main(sys.argv[1:])
+out.update(launches={"welch_psd": cuda_psd.LAUNCHES, "pcf": cuda_pcf.LAUNCHES,
+                     "caf_std": cuda_caf.LAUNCHES},
+           main_s=time.perf_counter() - t0)
+print(json.dumps(out), file=sys.stderr)
+sys.exit(rc)
+"""
+STREAM_JAM_S = (4.0, 7.0)         # phase 7b's broadband jam (see
+# streaming_jammed: it must crush two whole 2 s segments' lower quartile)
+STREAM_JAM_AMP = 400.0            # before RX_SCALE: clipped at the rails
+STREAM_CUT_S = 10.0               # phase 7c's max_seconds
+STREAM_KILL_S = 6.0               # phase 7c's sink kills after this record
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
 
@@ -989,6 +1040,244 @@ def sbas_cli(fx: dict, card: str) -> dict:
     return launches
 
 
+def profile_line(prof: dict) -> str:
+    """The streaming receiver's own split (`last_profile`), host s."""
+    return ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in prof.items())
+
+
+def streaming_cli(fx: dict, card: str) -> dict:
+    """Phase 7a: the clean 20.8 s GPS .bin through the port's CLI `detect`
+    with its defaults (the streaming receiver, 32 slots, 4 s segments,
+    wire_bits 'auto'), in a child process (STREAM_CLI_WITH_COUNTS).
+    Returns the launches of that run."""
+    with tempfile.TemporaryDirectory() as td:
+        tel = os.path.join(td, "tel.jsonl")
+        cmd = [sys.executable, "-c", STREAM_CLI_WITH_COUNTS, "detect",
+               fx["bin"], "--telemetry-out", tel]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall = time.perf_counter() - t0
+        fail_unless(r.returncode == 0, f"detect exited {r.returncode}: "
+                                       f"{r.stderr[-3000:]}")
+        with open(tel) as f:
+            recs = [json.loads(line) for line in f if line.strip()]
+    out = json.loads(r.stdout)
+    extra = json.loads(r.stderr.strip().splitlines()[-1])
+    launches, prof = extra["launches"], extra["last_profile"]
+    st = extra["stage_seconds"]
+    err = ecef_error(out["fix"], fx["rx_ecef"])
+    n_ep = max(b for _, _, b in extra["spans"])
+    print(f"streaming detect (CLI, defaults): {RX_SECONDS} s at {FS / 1e6} "
+          f"MS/s, {n_ep} epochs in whole 4 s segments; acquired "
+          f"{out['acquired_prns']}, decoded {extra['decoded']}, "
+          f"{extra['n_fixes']} fixes, best fix error {err:.2f} m; events "
+          f"{out['events']}; {len(recs)} records; {len(extra['spans'])} "
+          f"spans; launches {launches}", flush=True)
+    print(f"streaming detect times (host s, each ending in a read): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+          + f"; the receiver's split: {profile_line(prof)}; tracking "
+          f"{1e3 * prof['scan'] / max(n_ep, 1):.4f} ms per epoch of 32 "
+          f"slots; elapsed_s {extra['elapsed_s']:.3f} = "
+          f"{RX_SECONDS / extra['elapsed_s']:.3f}x real time; cli.main "
+          f"{extra['main_s']:.3f} s; the process {wall:.3f} s; card {card}",
+          flush=True)
+    fail_unless(launches["pcf"] == prof["n_acquire_calls"] >= 1,
+                f"B1 launches {launches['pcf']} against "
+                f"{prof['n_acquire_calls']} acquisition attempts")
+    fail_unless(len(extra["decoded"]) >= 4,
+                f"streaming detect decoded only {extra['decoded']}")
+    fail_unless(err < 30.0, f"streaming detect fix error {err:.2f} m")
+    fail_unless(out["n_events"] == 0, f"events on the clean capture: "
+                                      f"{out['events']}")
+    check_records(recs, fx["n_samples"])
+    return launches
+
+
+def write_stream_jam(fx: dict, path: str) -> int:
+    """The phase 5 render plus a seeded broadband jam (unit-variance
+    complex noise x STREAM_JAM_AMP, the JAX tests' jammers.broadband at
+    amplitude 400) over STREAM_JAM_S, x RX_SCALE into a uint8 .bin, which
+    clips the jam at the rails. Returns the jam's first sample."""
+    from gps_jamming_tpu_torch.ops import iq
+    x = np.load(fx["npy"])
+    s0, s1 = (int(t * FS) for t in STREAM_JAM_S)
+    rng = np.random.default_rng(3)
+    x[s0:s1] += STREAM_JAM_AMP * (rng.standard_normal(s1 - s0)
+                                  + 1j * rng.standard_normal(s1 - s0))
+    iq.write_iq_file(path, x * RX_SCALE)
+    return s0
+
+
+def streaming_jammed(fx: dict, card: str) -> tuple[dict, dict]:
+    """Phases 7b and 7c on the jammed render: (b) `analyze_capture(
+    streaming=True, segment_s=2.0, pvt_filter='ekf')`: one power range and
+    one event over the jam, the tracked list thinner in the jam, a
+    satellite tracked before it tracked again after it, a health reset and
+    the reset satellite acquired again after the jam. The jam covers 4-7
+    s, as the JAX package's test_checkpoint_resume_across_jam_resets: the
+    C/N0 reset needs two consecutive segments whose lower quartile is
+    under 15 dB-Hz, and a 5-8 s jam crushes only the 6-8 s segment (the
+    estimate's smoothing keeps 4-6 s's quartile above 15; card, PERF.md,
+    PR 8), so it resets nothing;
+    (c) the bitwise checkpoint and resume of the JAX package's
+    test_detect_checkpoint_resume_bitwise on the file cut to
+    STREAM_CUT_S: uninterrupted, killed by its sink after STREAM_KILL_S,
+    resumed. Returns the launches of (b) and of (c)'s three runs."""
+    from gps_jamming_tpu_torch.runtime import pipeline
+
+    class Kill(Exception):
+        pass
+
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "jam.bin")
+        t0 = time.perf_counter()
+        jam0 = write_stream_jam(fx, path)
+        write_s = time.perf_counter() - t0
+        reset_launches()
+        res = pipeline.analyze_capture([path], segment_s=2.0,
+                                       pvt_filter="ekf")
+        jam_launches = read_launches()
+        rx, prof = res.receiver, res.receiver.stage_seconds
+        recs = res.telemetry.records
+
+        def tracked(t0_, t1_):
+            return [set(r["tracked"]) for r in recs
+                    if t0_ < r["elapsed_time"] < t1_]
+
+        j0, j1 = STREAM_JAM_S
+        n_ep = rx.cn0_epochs.size
+        pre, mid, post = (tracked(j0 - 2.0, j0), tracked(j0 + 2.0, j1),
+                          tracked(j1 + 3.0, n_ep / 1e3))
+        pre_all = set().union(*pre) if pre else set()
+        post_all = set().union(*post) if post else set()
+        resets = [(s, a, b) for s, a, b in rx.tracked_spans if b < n_ep]
+        back = sorted({s for s, _, _ in resets} & {
+            s for s, a, _ in rx.tracked_spans if a >= j1 * 1e3})
+        print(f"streaming jammed (analyze_capture, 2 s segments, EKF): jam "
+              f"[{j0}, {j1}) s at {STREAM_JAM_AMP} x {RX_SCALE} (clipped); "
+              f".bin written in {write_s:.1f} s; power ranges "
+              f"{res.power_ranges} (jam from byte {2 * jam0}); events "
+              f"{res.events}; tracked per record: before the jam max "
+              f"{max(map(len, pre), default=0)}, in it max "
+              f"{max(map(len, mid), default=0)}, after it max "
+              f"{max(map(len, post), default=0)}; tracked before and after "
+              f"{sorted(pre_all & post_all)}; spans {rx.tracked_spans}; "
+              f"{len(resets)} health resets, re-acquired after the jam "
+              f"{back}; {len(rx.fixes)} fixes; "
+              f"launches {jam_launches}", flush=True)
+        print(f"streaming jammed times (host s): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in
+                          res.stage_seconds.items())
+              + f"; the receiver's split: {profile_line(prof)}; elapsed_s "
+              f"{res.elapsed_s:.3f} = {RX_SECONDS / res.elapsed_s:.3f}x "
+              f"real time; card {card}", flush=True)
+        chunk_b = 2 * 32768
+        fail_unless(len(res.power_ranges) == 1
+                    and abs(res.power_ranges[0][0] - 2 * jam0) <= chunk_b
+                    and abs(res.power_ranges[0][1] - 2 * STREAM_JAM_S[1]
+                            * FS) <= chunk_b,
+                    f"power ranges {res.power_ranges}")
+        fail_unless(len(res.events) == 1 and abs(
+            res.events[0]["start_time"] - j0) < 0.5,
+            f"events {res.events}")
+        fail_unless(max(map(len, mid), default=0)
+                    < max(map(len, pre), default=0),
+                    "the jam did not thin the tracked list")
+        fail_unless(bool(pre_all & post_all),
+                    "no satellite tracked before the jam came back after it")
+        fail_unless(bool(resets), "no health reset")
+        fail_unless(bool(back), "no reset satellite re-acquired after "
+                                "the jam")
+        fail_unless(jam_launches["pcf"] == prof["n_acquire_calls"],
+                    f"B1 launches {jam_launches} against "
+                    f"{prof['n_acquire_calls']} acquisition attempts")
+
+        # 7c: killed and resumed == uninterrupted, bitwise
+        kw = dict(localize=False, max_seconds=STREAM_CUT_S)
+        ck = os.path.join(td, "detect.ckpt")
+        live1, live2 = [], []
+
+        def killing_sink(rec):
+            live1.append(rec)
+            if rec["elapsed_time"] > STREAM_KILL_S:
+                raise Kill()
+
+        reset_launches()
+        t0 = time.perf_counter()
+        ref = pipeline.analyze_capture([path], **kw)
+        t1 = time.perf_counter()
+        killed = False
+        try:
+            pipeline.analyze_capture([path], checkpoint_path=ck,
+                                     checkpoint_every_s=4.0,
+                                     emit_every_s=4.0, sink=killing_sink,
+                                     **kw)
+        except Kill:
+            killed = True
+        t2 = time.perf_counter()
+        got = pipeline.analyze_capture([path], checkpoint_path=ck,
+                                       checkpoint_every_s=4.0,
+                                       emit_every_s=4.0, resume=True,
+                                       sink=live2.append, **kw)
+        t3 = time.perf_counter()
+        ck_launches = read_launches()
+        same = (json.dumps(got.events, sort_keys=True)
+                == json.dumps(ref.events, sort_keys=True)
+                and json.dumps(got.telemetry.records, sort_keys=True)
+                == json.dumps(ref.telemetry.records, sort_keys=True)
+                and bool(np.array_equal(got.flags_trace["jamming"],
+                                        ref.flags_trace["jamming"]))
+                and got.receiver.tracked_spans == ref.receiver.tracked_spans
+                and bool(np.array_equal(got.receiver.cn0_epochs,
+                                        ref.receiver.cn0_epochs)))
+        print(f"streaming checkpoint/resume ({STREAM_CUT_S} s, 4 s "
+              f"segments): uninterrupted {t1 - t0:.3f} s, killed after "
+              f"{live1[-1]['elapsed_time'] if live1 else None} s of records "
+              f"({t2 - t1:.3f} s), resumed {t3 - t2:.3f} s ({len(live2)} "
+              f"live records); events {got.events}; records "
+              f"{len(got.telemetry.records)}; bitwise equal: {same}; "
+              f"launches {ck_launches}", flush=True)
+        fail_unless(killed and live1, "the sink did not kill the run")
+        fail_unless(os.path.exists(ck + ".rx"), "no receiver checkpoint")
+        fail_unless(same, "the resumed run differs from the "
+                          "uninterrupted one")
+        fail_unless(len(ref.events) >= 1, "no event in the cut capture")
+    return jam_launches, ck_launches
+
+
+def stream_processor(fx: dict, card: str) -> dict:
+    """Phase 7d: `StreamProcessor` over the clean 20.8 s .bin: B2 once per
+    2M-sample block, the profile's ranges those of `power_profile_file`,
+    its power map within rtol 1e-5. Returns the launches."""
+    from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from gps_jamming_tpu_torch.models import detector
+    from gps_jamming_tpu_torch.runtime import streaming
+    reset_launches()
+    t0 = time.perf_counter()
+    res = streaming.StreamProcessor().process_file(fx["bin"])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    ref = detector.power_profile_file(fx["bin"], CFG.detector)
+    rel = float(((res.profile.power_map - ref.power_map).abs()
+                 / ref.power_map.abs()).max())
+    ref_ranges = detector.power_profile_ranges(ref, CFG.detector)
+    peak = float(np.argmax(res.psd))
+    print(f"StreamProcessor: {res.n_blocks} blocks of "
+          f"{streaming.StreamProcessor().block} samples in {wall:.3f} s "
+          f"({RX_SECONDS / wall:.1f}x real time); ranges {res.ranges} "
+          f"(power_profile_file {ref_ranges}), power map max rel diff "
+          f"{rel:.2e}; PSD peak bin {peak:.0f}; "
+          f"launches {launches}; card {card}", flush=True)
+    fail_unless(launches["welch_psd"] == res.n_blocks,
+                f"B2 launched {launches['welch_psd']} times for "
+                f"{res.n_blocks} blocks")
+    fail_unless(res.ranges == ref_ranges, "StreamProcessor ranges differ")
+    fail_unless(rel <= 1e-5, f"power map rel diff {rel:.2e}")
+    return launches
+
+
 def phases(args_cli, start_render) -> int:
     """Every phase after the CUDA check. `start_render(name)` starts a
     receiver fixture's render (`render_fixture`) in a worker process and
@@ -1021,12 +1310,20 @@ def phases(args_cli, start_render) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"device {name}; nvidia-smi: {card}", flush=True)
 
-    # 2. build
+    # 2. build: the kernels, and the native capture reader (g++)
     t0 = time.perf_counter()
     lib_path = build.build()
     build.load()
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    from gps_jamming_tpu_torch.native import reader as native_reader
+    t0 = time.perf_counter()
+    fail_unless(native_reader.native_available()
+                and native_reader.quantpack_available(),
+                f"the native capture reader did not build: "
+                f"{native_reader.build_error()}")
+    print(f"native reader: {native_reader.library_path().name} (rdr_open, "
+          f"rdr_quantpack) in {time.perf_counter() - t0:.1f} s", flush=True)
 
     rng = np.random.default_rng(20261016)
     cap = make_capture(rng)
@@ -1600,7 +1897,16 @@ def phases(args_cli, start_render) -> int:
     glo_launches = glonass_receiver(fx["glonass"], dev, card)
     sbas_launches = sbas_cli(fx["sbas"], card)
 
-    # 7. results
+    # 7. the streaming product path: (a) the CLI's default `detect` on the
+    # clean GPS capture, (b) a jammed copy through analyze_capture, (c)
+    # checkpoint and resume on it, (d) StreamProcessor
+    t0 = time.perf_counter()
+    st_cli = streaming_cli(fx_gps, card)
+    st_jam, st_ck = streaming_jammed(fx_gps, card)
+    st_proc = stream_processor(fx_gps, card)
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 8. results
     for k in kernels:
         k["launches"] = (std_launches if k["name"] == "caf_std"
                          else launches)[k["name"]]
@@ -1612,7 +1918,11 @@ def phases(args_cli, start_render) -> int:
             "analyze_capture_jammed": prod_launches[k["name"]],
             "analyze_capture_galileo": gal_launches[k["name"]],
             "run_receiver_glonass": glo_launches[k["name"]],
-            "cli_receiver_sbas": sbas_launches[k["name"]]}
+            "cli_receiver_sbas": sbas_launches[k["name"]],
+            "cli_detect_streaming": st_cli[k["name"]],
+            "analyze_capture_streaming_jammed": st_jam[k["name"]],
+            "streaming_checkpoint_resume": st_ck[k["name"]],
+            "stream_processor": st_proc[k["name"]]}
         k["library_ms"] = None
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,19 +1,20 @@
 """Command line of the port (counterpart of gps_jamming_tpu.cli's
 detect, localize, calibrate and receiver verbs):
 
-    python -m gps_jamming_tpu_torch detect a0.bin a1.bin a2.bin --batch-receiver
+    python -m gps_jamming_tpu_torch detect a0.bin a1.bin a2.bin
+    python -m gps_jamming_tpu_torch detect cap.bin --checkpoint d.ckpt
     python -m gps_jamming_tpu_torch localize a0.bin a1.bin a2.bin
     python -m gps_jamming_tpu_torch calibrate capture.bin
-    python -m gps_jamming_tpu_torch receiver capture.bin
+    python -m gps_jamming_tpu_torch receiver capture.bin [--streaming]
 
 The verbs take the JAX package's flags and print its JSON keys. Each runs
 on the card unless `--device` names another device (`--device cpu`).
-`--system` takes the JAX CLI's systems (GPS, Galileo, GLONASS; `receiver`
-also SBAS, whose messages it prints). Flags that need what the port does
-not have yet exit with status 2 and name the ROADMAP item: the streaming
-receiver and its `--checkpoint`, `--resume` and `--wire-bits` (A6; so
-`detect` needs `--batch-receiver` or `--no-receiver`, and `receiver`
-refuses `--streaming`), and `--devices` (A8).
+`detect` runs the streaming receiver unless `--batch-receiver` (or
+`--no-receiver`) is given; `receiver --streaming` runs it over segments
+of `--segment-seconds`. `--system` takes the JAX CLI's systems (GPS,
+Galileo, GLONASS; `receiver` also SBAS, whose messages it prints).
+`--devices` (the sharded analysis, ROADMAP A8) is not ported yet and exits
+with status 2.
 """
 from __future__ import annotations
 
@@ -64,7 +65,6 @@ def _refuse(verb: str, refused: list[tuple[str, str]]) -> int:
     return 2
 
 
-A6 = "ROADMAP A6 (the streaming receiver)"
 A8 = "ROADMAP A8 (multi-device)"
 
 
@@ -74,26 +74,19 @@ def _device(args):
 
 
 def cmd_detect(args) -> int:
-    receiver_on = not args.no_receiver
-    refused = [(flags, item) for flags, item, bad in [
-        ("--devices", A8, args.devices),
-        ("the streaming receiver (no --batch-receiver; give "
-         "--batch-receiver or --no-receiver)", A6,
-         receiver_on and not args.batch_receiver),
-        ("--checkpoint", A6, args.checkpoint),
-        ("--resume", A6, args.resume),
-        ("--wire-bits", A6, args.wire_bits != "auto")] if bad]
-    if refused:
-        return _refuse("detect", refused)
+    if args.devices:
+        return _refuse("detect", [("--devices", A8)])
     from .runtime import pipeline
     positions = _parse_positions(args.positions, len(args.files))
     res = pipeline.analyze_capture(
         args.files, antenna_positions=positions,
         cfg=_config_with_overrides(args),
-        run_receiver=receiver_on, localize=not args.no_localize,
+        run_receiver=not args.no_receiver, localize=not args.no_localize,
         max_seconds=args.max_seconds, system=args.system, hold=args.hold,
         sample_rate=args.sample_rate, pvt_filter=args.filter,
-        streaming=not args.batch_receiver, device=_device(args))
+        streaming=not args.batch_receiver, wire_bits=args.wire_bits,
+        checkpoint_path=args.checkpoint, resume=args.resume,
+        device=_device(args))
     out = {
         "power_ranges_bytes": res.power_ranges,
         "events": res.events,
@@ -156,24 +149,32 @@ def cmd_calibrate(args) -> int:
 
 
 def cmd_receiver(args) -> int:
-    refused = [(flags, item) for flags, item, bad in [
-        ("--streaming", A6, args.streaming),
-        ("--checkpoint", A6, args.checkpoint),
-        ("--resume", A6, args.resume),
-        ("--wire-bits", A6, args.wire_bits != "auto")] if bad]
-    if refused:
-        return _refuse("receiver", refused)
     import torch
 
     from .models.receiver import receiver as rx_mod
     from .ops import iq
     from .runtime import telemetry
-    x = iq.read_iq_file(args.file, convention="centered",
-                        count=(int(args.max_seconds * args.sample_rate) * 2
-                               if args.max_seconds else -1))
-    res = rx_mod.run_receiver(torch.from_numpy(x).to(_device(args)),
-                              args.sample_rate, system=args.system,
-                              pvt_filter=args.filter)
+    if args.streaming:
+        # bounded device memory: a segment window whatever the capture's
+        # length
+        from .runtime import rx_stream
+        srx = rx_stream.StreamingReceiver(
+            args.sample_rate, system=args.system,
+            segment_s=args.segment_seconds, pvt_filter=args.filter,
+            device=_device(args))
+        res = srx.process_file(
+            args.file, convention="centered",
+            max_samples=(None if args.max_seconds is None
+                         else int(args.max_seconds * args.sample_rate)),
+            checkpoint_path=args.checkpoint, resume=args.resume,
+            wire_bits=args.wire_bits)
+    else:
+        x = iq.read_iq_file(args.file, convention="centered",
+                            count=(int(args.max_seconds * args.sample_rate)
+                                   * 2 if args.max_seconds else -1))
+        res = rx_mod.run_receiver(torch.from_numpy(x).to(_device(args)),
+                                  args.sample_rate, system=args.system,
+                                  pvt_filter=args.filter)
     fix = res.best_fix
     held = False
     if args.hold and fix is not None:
@@ -253,15 +254,17 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--filter", default="wls", choices=["wls", "ekf"],
                    help="PVT filter: wls (blsFilter parity) or ekf")
     d.add_argument("--batch-receiver", action="store_true",
-                   help="the acquire-once whole-capture receiver (the "
-                        "streaming receiver is ROADMAP A6)")
+                   help="the acquire-once whole-capture receiver "
+                        "(default: the streaming receiver)")
     d.add_argument("--wire-bits", type=_wire_bits, default="auto",
                    choices=["auto", 8, 4, 2, 1],
-                   help="streaming receiver upload width (ROADMAP A6)")
+                   help="streaming receiver upload width: auto = 2-bit "
+                        "above 10 MB/s of raw bytes, else 8-bit")
     d.add_argument("--checkpoint",
-                   help="streaming detect checkpoint (ROADMAP A6)")
+                   help="streaming detect checkpoint file (the receiver's "
+                        "state goes to <file>.rx)")
     d.add_argument("--resume", action="store_true",
-                   help="resume --checkpoint (ROADMAP A6)")
+                   help="resume from --checkpoint")
     d.add_argument("--devices", type=int,
                    help="sharded analysis over N devices (ROADMAP A8)")
     _add_device(d)
@@ -291,16 +294,16 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--hold", action="store_true",
                    help="hold-position output filter (gnssdec -h)")
     r.add_argument("--streaming", action="store_true",
-                   help="segmented receiver (ROADMAP A6)")
+                   help="the segmented, self-healing receiver")
     r.add_argument("--segment-seconds", type=float, default=4.0,
-                   help="streaming segment length (ROADMAP A6)")
+                   help="streaming segment length")
     r.add_argument("--checkpoint",
-                   help="streaming receiver checkpoint (ROADMAP A6)")
+                   help="streaming receiver checkpoint file")
     r.add_argument("--resume", action="store_true",
-                   help="resume --checkpoint (ROADMAP A6)")
+                   help="resume from --checkpoint")
     r.add_argument("--wire-bits", type=_wire_bits, default="auto",
                    choices=["auto", 8, 4, 2, 1],
-                   help="streaming upload width (ROADMAP A6)")
+                   help="streaming upload width")
     r.add_argument("--filter", default="wls", choices=["wls", "ekf"],
                    help="PVT filter: wls (blsFilter parity) or ekf")
     _add_device(r)

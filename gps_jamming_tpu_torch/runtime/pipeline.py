@@ -1,6 +1,5 @@
-"""End-to-end analysis pipeline, batch form (counterpart of
-gps_jamming_tpu.runtime.pipeline: `analyze_capture(streaming=False)`, and
-`streaming=True` without the receiver).
+"""End-to-end analysis pipeline (counterpart of
+gps_jamming_tpu.runtime.pipeline).
 
 The reference's GPSAnalysisThread (`app/worker.py`) as one in-process
 pipeline over the device and host decode:
@@ -11,14 +10,17 @@ pipeline over the device and host decode:
   4. on events: RSSI triangulation + TDOA         (worker.py:567-611)
   5. telemetry records, sdrout.c JSON schema      (worker.py:277-361)
 
-The streaming receiver (segments, channel health resets, checkpoint and
-resume, live sinks and packed upload widths) is ROADMAP A6 and not ported
-yet: `analyze_capture` raises NotImplementedError where a call needs it.
+`analyze_capture(streaming=True)`, the default, is the product path: the
+file pre-scan in bounded memory and the self-healing segmented receiver
+(`rx_stream.StreamingReceiver.process_file`), with live telemetry sinks
+and a detect-level checkpoint. `streaming=False` reads the whole capture
+and runs the acquire-once batch receiver.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import pickle
 import time
 from typing import Sequence
 
@@ -32,7 +34,7 @@ from ..models import detector, rssi, tdoa
 from ..models.receiver import observables as obs_mod
 from ..models.receiver import receiver as rx_mod
 from ..ops import iq as iq_ops
-from . import telemetry
+from . import rx_stream, telemetry
 
 TELEMETRY_MS = 100             # status cadence (sdrmain.c:210)
 
@@ -279,49 +281,59 @@ def analyze_capture(paths: Sequence[str],
     ui_mainwindow.py:653 -> worker.py:477-547), on `device` (None: the
     card; raises RuntimeError where there is none).
 
-    streaming=False: the whole first capture is read and sent to the
-    device, pre-scanned there, and run through the acquire-once batch
-    receiver of `system` (`run_receiver`); then the detector and the
-    telemetry records on the host, and, on a detected event with >= 2
-    antennas, RSSI and TDOA localization, each antenna sent to the device
-    one at a time. streaming=True with run_receiver=False: the file
-    pre-scan in bounded memory, the detector, and the streamed
-    localization (`triangulate_files`, `localize_files`).
+    streaming=True (the default, the product path): the file pre-scan in
+    bounded memory, then the self-healing segmented receiver
+    (`rx_stream.StreamingReceiver.process_file`: channel health resets,
+    re-acquisition after jamming, ephemeris reuse; sdrmain.c:248-400 and
+    :417-511), whose device memory stays at a segment window whatever
+    the capture's length; then the detector and the telemetry records on
+    the host, and on an event with >= 2 antennas the streamed RSSI and
+    TDOA localization (`triangulate_files`, `localize_files`).
+    streaming=False: the whole first capture goes to the device and
+    through the acquire-once batch receiver (`run_receiver`); sink,
+    wire_bits, segment_s, emit_every_s and the checkpoint options are
+    then ignored, as in the JAX package.
 
-    system: the receiver chain's constellation, 'gps', 'galileo',
-    'glonass' or 'sbas' (messages only, no fix); another raises
-    ValueError. The telemetry frames count 1 ms epochs at every system,
-    as the JAX package's (`build_telemetry_frames`). hold: freeze the
-    REPORTED position while the fix is held (the reference's -h filter,
-    sdrout.c:141-183); the telemetry always carries the hold flag.
-    sample_rate: default the per-system front-end rate (10 MS/s for
-    GLONASS, else the front end's 2.048 MS/s). pvt_filter: 'wls' or 'ekf'.
-    A TDOA failure (no onset, too short) leaves tdoa_result None, as in
-    the reference.
+    system: 'gps', 'galileo', 'glonass' or 'sbas' (messages only, no fix);
+    another raises ValueError. hold: freeze the REPORTED position while the
+    fix is held (sdrout.c:141-183). sample_rate: default the per-system
+    front-end rate (10 MS/s for GLONASS, else 2.048 MS/s). pvt_filter:
+    'wls' or 'ekf'. segment_s: the streaming receiver's segment length.
+    sink: callable(record), the live telemetry: records are built and
+    pushed every ~emit_every_s of capture while segments still process
+    (the frame at the covered edge is held back to the next emission);
+    the result still carries the authoritative log. wire_bits: "auto", 8,
+    4, 2 or 1, the receiver's upload width (`process_file`).
+    checkpoint_path: persist the power profile and ranges, the
+    receiver's state (chained at <path>.rx, every checkpoint_every_s)
+    and the emission cursor, so that a killed run resumed with
+    resume=True gives the same events and records as an uninterrupted
+    one; a checkpoint of another invocation raises ValueError. Live
+    emission on resume is at-least-once. A TDOA failure (no onset, too
+    short) leaves tdoa_result None, as in the reference.
 
-    Raises NotImplementedError for what needs the streaming receiver
-    (ROADMAP A6): streaming=True with the receiver on, a sink, a
-    checkpoint_path, resume, or a value other than the default of
-    wire_bits, segment_s, emit_every_s or checkpoint_every_s, which only
-    that receiver reads.
+    stage_seconds holds the host time of each stage ('prescan',
+    'receiver', 'detector', 'records', 'rssi', 'tdoa'); the streaming
+    receiver's own split is its result's stage_seconds
+    (`StreamingReceiver.last_profile`).
     """
-    refused = [name for name, bad in (
-        ("streaming=True with the receiver", streaming and run_receiver),
-        ("sink", sink is not None),
-        ("checkpoint_path", checkpoint_path is not None),
-        ("resume", resume),
-        ("wire_bits", wire_bits != "auto"),
-        ("segment_s", segment_s != 4.0),
-        ("emit_every_s", emit_every_s != 8.0),
-        ("checkpoint_every_s", checkpoint_every_s != 60.0)) if bad]
-    if refused:
-        raise NotImplementedError(
-            f"analyze_capture: {', '.join(refused)}: the streaming receiver "
-            "(segments, checkpoint and resume, live sinks, packed upload "
-            "widths) is ROADMAP A6 and not ported yet")
     dev = as_device(device)
     t_start = time.time()
     secs: dict[str, float] = {}
+    ck_state: dict | None = None
+    if checkpoint_path is not None and streaming:
+        meta = {"paths": list(paths), "system": system,
+                "max_seconds": max_seconds}
+        if resume and os.path.exists(checkpoint_path):
+            with open(checkpoint_path, "rb") as f:
+                ck_state = pickle.load(f)
+            if ck_state["meta"] != meta:
+                raise ValueError(
+                    f"detect checkpoint was written for "
+                    f"{ck_state['meta']}, not this invocation")
+        else:
+            ck_state = {"profile": None, "ranges": None, "emitted": 0,
+                        "meta": meta}
     if sample_rate is not None:
         fs = float(sample_rate)
     elif system == "glonass":
@@ -337,16 +349,24 @@ def analyze_capture(paths: Sequence[str],
     # 1. power pre-scan (F1 map)
     t0 = time.perf_counter()
     x = None
-    if streaming:
-        prof = detector.power_profile_file(paths[0], cfg.detector,
-                                           max_samples=n_samples, device=dev)
+    if ck_state is not None and ck_state["profile"] is not None:
+        ranges = ck_state["ranges"]        # resume: skip the file re-scan
     else:
-        raw = np.fromfile(paths[0], dtype=np.uint8, count=2 * n_samples)
-        x = iq_ops.int8_to_complex(
-            torch.from_numpy(iq_ops.uint8_np_to_int8(raw)).to(dev))
-        del raw
-        prof = detector.power_profile(x, cfg.detector)
-    ranges = detector.power_profile_ranges(prof, cfg.detector)
+        if streaming:
+            prof = detector.power_profile_file(
+                paths[0], cfg.detector, max_samples=n_samples, device=dev)
+        else:
+            raw = np.fromfile(paths[0], dtype=np.uint8, count=2 * n_samples)
+            x = iq_ops.int8_to_complex(
+                torch.from_numpy(iq_ops.uint8_np_to_int8(raw)).to(dev))
+            del raw
+            prof = detector.power_profile(x, cfg.detector)
+        ranges = detector.power_profile_ranges(prof, cfg.detector)
+        if ck_state is not None:
+            ck_state["profile"] = {f: getattr(prof, f).cpu().numpy()
+                                   for f in prof._fields}
+            ck_state["ranges"] = ranges
+            rx_stream.save_atomic(checkpoint_path, ck_state)
     ranges_pad, n_ranges = detector.ranges_to_padded(ranges)
     secs["prescan"] = time.perf_counter() - t0
 
@@ -354,8 +374,61 @@ def analyze_capture(paths: Sequence[str],
     res = None
     if run_receiver:
         t0 = time.perf_counter()
-        res = rx_mod.run_receiver(x, fs, system=system,
-                                  pvt_filter=pvt_filter)
+        if streaming:
+            srx = rx_stream.StreamingReceiver(
+                fs, system=system, segment_s=segment_s,
+                pvt_filter=pvt_filter, device=dev)
+            segment_cb = None
+            if sink is not None:
+                live_hold = telemetry.HoldPositionFilter()
+                emitted = [ck_state["emitted"] if ck_state else 0]
+                emit_frames = max(int(emit_every_s * 1000 / TELEMETRY_MS),
+                                  1)
+
+                def segment_cb(done, n_total, snapshot):
+                    ms_cov = int(done * srx.seg_epochs * srx.su["epoch_ms"])
+                    n_frames = ms_cov // TELEMETRY_MS
+                    if n_frames == 0 or (n_frames - emitted[0] < emit_frames
+                                         and done < n_total):
+                        return
+                    part = snapshot()          # decode + PVT so far
+                    pf = build_telemetry_frames(part, ms_cov, n_epoch, cfg)
+                    # the flags of the frames so far: the detector is a
+                    # causal loop, so it needs none of the JAX package's
+                    # padding to a bucket (`_detector_trace_bucketed`,
+                    # which keeps XLA from compiling per length)
+                    _, ptrace = detector.run_detector(
+                        pf, ranges_pad, n_ranges, cfg.detector)
+                    pjam = np.asarray(ptrace.is_jamming)
+                    # hold back the boundary frame mid-run: its epoch sits
+                    # at the covered edge, where its TRACKED/DECODED lists
+                    # are empty here but not in the final log
+                    stop = n_frames - 1 if done < n_total else n_frames
+                    for f, rec, fix in iter_records(
+                            part, pf, hold, live_hold,
+                            start_frame=emitted[0]):
+                        if f >= stop:
+                            break
+                        rec["jamming"] = bool(pjam[f]) \
+                            if f < pjam.size else False
+                        sink(rec)
+                    emitted[0] = stop
+                    if ck_state is not None:
+                        ck_state["emitted"] = stop
+                        rx_stream.save_atomic(checkpoint_path, ck_state)
+
+            res = srx.process_file(
+                paths[0], convention="centered",
+                max_samples=(None if max_seconds is None
+                             else int(max_seconds * fs)),
+                segment_cb=segment_cb, wire_bits=wire_bits,
+                checkpoint_path=(checkpoint_path + ".rx"
+                                 if ck_state is not None else None),
+                checkpoint_every_s=checkpoint_every_s, resume=resume)
+            res.stage_seconds = dict(srx.last_profile)
+        else:
+            res = rx_mod.run_receiver(x, fs, system=system,
+                                      pvt_filter=pvt_filter)
         secs["receiver"] = time.perf_counter() - t0
     del x
     n_epochs = n_samples // n_epoch

@@ -27,7 +27,12 @@ card without a launch, and acquisition equals the CPU's; where only a TPU
 kernel takes it (32768, Galileo E1B at 8.192 MS/s) the card raises, with no
 launch. The localization ops
 and the batch product path (`pipeline.analyze_capture(streaming=False)`)
-on the card equal the CPU on a seeded 1 s 3-antenna jammed set.
+on the card equal the CPU on a seeded 1 s 3-antenna jammed set. The
+streaming receiver's wire unpacks equal the CPU's for every byte; on a
+4.5 s jammed GPS capture it gives the CPU's spans, B1 once per
+acquisition attempt, the tracker within phase 5b's limits, and a killed
+and resumed run equals the uninterrupted one bitwise; its window upload
+overlaps running compute and is read only after its event.
 """
 import numpy as np
 import pytest
@@ -535,3 +540,141 @@ def test_cli_runs_on_the_card_by_default(dev, tmp_path):
         if loc in g:
             np.testing.assert_allclose(g[loc]["distances"],
                                        c[loc]["distances"], rtol=1e-4)
+
+
+# --- the streaming receiver on the card --------------------------------------
+
+WIRE_CONVS = (("i8", np.float32(0.5), np.float32(1.0)),
+              ("i8", np.float32(0.5), np.float32(1.0 / 127.5)),
+              ("i4", np.float32(3.25)), ("i2", np.float32(12.0)),
+              ("i1", np.float32(20.0)))
+
+
+@pytest.mark.parametrize("conv", WIRE_CONVS, ids=lambda c: str(c[0]))
+def test_wire_unpack_on_cuda_matches_cpu(dev, conv):
+    """`StreamingReceiver._ingest` of every byte value on the card equals
+    the CPU's exactly (the wire unpack is integer bit work and one float32
+    multiply-add)."""
+    from gps_jamming_tpu_torch.runtime import rx_stream
+    rx = rx_stream.StreamingReceiver(1.024e6, n_slots=2, segment_s=0.25)
+    rx._ingest_conv = conv
+    b = np.arange(256, dtype=np.uint8).view(np.int8)
+    planes = torch.from_numpy(np.stack([b, b[::-1]]).copy())
+    g = rx._ingest(planes.to(dev))
+    assert g.is_cuda and g.dtype == torch.complex64
+    assert torch.equal(g.cpu(), rx._ingest(planes))
+
+
+_RX_FS = 1.024e6
+_JAM_S = (1.5, 3.0)
+
+
+@pytest.fixture(scope="module")
+def jammed_gps_bin(tmp_path_factory):
+    """4.5 s of the 24-satellite GPS shell at 1.024 MS/s (the port's NumPy
+    renderer, seed 6), a seeded broadband jam of amplitude 400 from 1.5 to
+    3.0 s, x12 into a uint8 .bin (tests/test_torch_rx_stream.py's)."""
+    from gps_jamming_tpu_torch.ops import iq
+    from gps_jamming_tpu_torch.sim import constellation
+    n = int(4.5 * _RX_FS)
+    x, _, _ = constellation.simulate_constellation(
+        constellation.gps_shell(345600.0), (50.06, 19.94, 219.0),
+        345600.0 - 1.3, n, _RX_FS, noise_std=0.4, seed=6)
+    rng = np.random.default_rng(3)
+    s0, s1 = int(_JAM_S[0] * _RX_FS), int(_JAM_S[1] * _RX_FS)
+    x[s0:s1] += 400.0 * (rng.standard_normal(s1 - s0)
+                         + 1j * rng.standard_normal(s1 - s0))
+    path = str(tmp_path_factory.mktemp("rxs") / "jam.bin")
+    iq.write_iq_file(path, x * 12.0)
+    return path
+
+
+def _stream_rx(device=None):
+    from gps_jamming_tpu_torch.runtime import rx_stream
+    return rx_stream.StreamingReceiver(_RX_FS, n_slots=4, segment_s=0.5,
+                                       device=device)
+
+
+def test_streaming_receiver_on_cuda_matches_cpu(dev, jammed_gps_bin):
+    """The streaming receiver on the card against the CPU on a jammed
+    capture: B1 launched once per acquisition attempt, the same spans (a
+    reset and a re-acquisition among them), and on the clean epochs after
+    the pull-in carr_freq within 0.05 Hz and code_rem within 1e-3 chips
+    (chip_smoke.py phase 5b's limits)."""
+    before = cuda_pcf.LAUNCHES
+    rx_g = _stream_rx()
+    g = rx_g.process_file(jammed_gps_bin)
+    assert cuda_pcf.LAUNCHES - before == rx_g.last_profile["n_acquire_calls"]
+    rx_c = _stream_rx("cpu")
+    c = rx_c.process_file(jammed_gps_bin)
+    assert set(g.tracked_spans) == set(c.tracked_spans)
+    end = c.cn0_epochs.size
+    assert any(b < end for _, _, b in g.tracked_spans)
+    sats = [s for s, _, _ in g.tracked_spans]
+    assert any(sats.count(s) > 1 for s in sats)
+    j0, j1 = int(_JAM_S[0] * 1000), int(_JAM_S[1] * 1000)
+    civ = {(iv.sat_id, iv.start_epoch): iv for iv in rx_c.last_intervals}
+    for iv in rx_g.last_intervals:
+        w = civ[(iv.sat_id, iv.start_epoch)]
+        local = np.arange(iv.n_epochs)
+        glob = iv.start_epoch + local
+        m = ((glob < j0) & (local >= 1000)) | (
+            (iv.start_epoch >= j1) & (local >= 500))
+        if not m.any():
+            continue
+        assert np.abs(iv.carr_freq[m] - w.carr_freq[m]).max() <= 0.05
+        d = np.abs(iv.code_rem[m].astype(np.float64) - w.code_rem[m])
+        assert np.minimum(d, 1023.0 - d).max() <= 1e-3
+
+
+def test_streaming_resume_on_cuda_is_bitwise(dev, jammed_gps_bin, tmp_path):
+    """A run killed after segment 5 and resumed from its checkpoint equals
+    the uninterrupted run on the card exactly."""
+    class Kill(Exception):
+        pass
+
+    def kill(done, n_total, snapshot):
+        if done == 5:
+            raise Kill()
+
+    rx_a = _stream_rx()
+    a = rx_a.process_file(jammed_gps_bin)
+    ck = str(tmp_path / "rx.ckpt")
+    with pytest.raises(Kill):
+        _stream_rx().process_file(jammed_gps_bin, checkpoint_path=ck,
+                                  checkpoint_every_s=1.0, segment_cb=kill)
+    rx_c = _stream_rx()
+    c = rx_c.process_file(jammed_gps_bin, checkpoint_path=ck,
+                          checkpoint_every_s=1.0, resume=True)
+    assert c.tracked_spans == a.tracked_spans
+    assert np.array_equal(c.cn0_epochs, a.cn0_epochs)
+    for x, y in zip(rx_a.last_intervals, rx_c.last_intervals, strict=True):
+        for f in ("i_prompt", "code_rem", "carr_freq", "cn0"):
+            assert np.array_equal(getattr(x, f), getattr(y, f)), f
+
+
+def test_window_upload_overlaps_compute_and_waits_on_its_event(dev):
+    """The IO worker's upload runs on its own stream while the consumer's
+    stream is busy, and the consumer reads the window only after waiting
+    on the upload's event: the copy completes before the running
+    matrix products do, and the window read after `_take` is the host's."""
+    import threading
+    rx = _stream_rx()
+    w = np.random.default_rng(9).integers(-128, 128, (2, 1 << 23),
+                                          dtype=np.int8)
+    a = torch.randn(8192, 8192, device=dev)
+    torch.cuda.synchronize()
+    for _ in range(30):                          # ~1 s of float32 GEMMs
+        a = a @ a
+        a = a / a.abs().max()
+    busy = torch.cuda.current_stream(dev)
+    out = {}
+    t = threading.Thread(target=lambda: out.update(r=rx._upload(w)))
+    t.start()
+    t.join()
+    d, ev = out["r"]
+    assert ev is not None and ev.query()          # the copy has landed
+    assert not busy.query(), "the GEMMs ended before the upload: no overlap"
+    got = rx._take(d, ev)
+    assert torch.equal(got.cpu(), torch.from_numpy(w))
+    torch.cuda.synchronize()

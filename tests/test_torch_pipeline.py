@@ -12,13 +12,17 @@
   equal, lags within 1e-3 samples and the hyperbolic position within 2 m
   (tests/test_torch_localization.py says why).
 - `analyze_capture(system='galileo')` on the same set equals the JAX
-  package's; an unknown system raises ValueError. What needs the
-  streaming receiver raises NotImplementedError; no card and no device
-  raises RuntimeError.
+  package's; an unknown system raises ValueError; no card and no device
+  raises RuntimeError. The default call (the streaming receiver) equals
+  the JAX package's, and with streaming=False the streaming receiver's
+  options are ignored, as there
+  (tests/test_torch_stream_pipeline.py holds the streaming path itself).
 - The port's CLI in a subprocess (`--device cpu`) prints the JAX CLI's
   JSON keys and values on the same files (`detect` also with `--system
   galileo`; `receiver --system sbas` on a 2.5 s SBAS capture, its MT12
-  rows); unported flags exit 2.
+  rows); in process, the streaming receiver's flags (`detect` by
+  default, `--checkpoint`, `--resume`, `--wire-bits`, `receiver
+  --streaming`) do too; `--devices` (ROADMAP A8) exits 2.
 """
 import contextlib
 import io
@@ -225,9 +229,26 @@ def test_analyze_capture_single_antenna_and_max_seconds(capture_set):
                                 dict(streaming=False, emit_every_s=1.0),
                                 dict(streaming=False,
                                      checkpoint_every_s=5.0)])
-def test_streaming_receiver_features_raise(capture_set, kw):
-    with pytest.raises(NotImplementedError, match="A6"):
-        tpipe.analyze_capture(capture_set, device="cpu", **kw)
+def test_streaming_options_match_jax(capture_set, kw, tmp_path):
+    """The default call (the streaming receiver; the 1 s captures hold no
+    whole 4 s segment) and, with streaming=False, each option only the
+    streaming receiver reads, which the batch path ignores as the JAX
+    package's does."""
+    kw = dict(kw)
+    if "checkpoint_path" in kw:
+        kw["checkpoint_path"] = str(tmp_path / "x.ckpt")
+    if kw:
+        kw.update(run_receiver=False, localize=False)
+    want = jpipe.analyze_capture(capture_set, antenna_positions=ANTS, **kw)
+    got = tpipe.analyze_capture(capture_set, antenna_positions=ANTS,
+                                device="cpu", **kw)
+    _same_analysis(got, want)
+    assert len(got.events) == 1
+    assert not os.path.exists(tmp_path / "x.ckpt")
+    if not kw:
+        assert got.receiver.tracked_spans == want.receiver.tracked_spans == []
+        assert got.receiver.cn0_epochs.size == 0
+        assert len(got.telemetry.records) == 10
 
 
 def test_other_systems_and_no_card_raise(capture_set, monkeypatch):
@@ -383,13 +404,29 @@ def test_cli_detect_galileo_matches_jax(capture_set):
     assert got["n_events"] == 1
 
 
+@pytest.mark.parametrize("argv", [
+    ["detect"],
+    ["detect", "--no-receiver", "--checkpoint", "CKPT"],
+    ["detect", "--batch-receiver", "--resume"],
+    ["detect", "--batch-receiver", "--wire-bits", "4"],
+    ["receiver", "--streaming", "--segment-seconds", "0.25"]])
+def test_cli_runs_the_streaming_flags(capture_set, argv, tmp_path, capsys):
+    """The flags of the streaming receiver run and print the JAX CLI's
+    keys and values, on the first 0.5 s of antenna 0."""
+    args = [argv[0], capture_set[0], "--max-seconds", "0.5"] + [
+        str(tmp_path / "d.ckpt") if a == "CKPT" else a for a in argv[1:]]
+    assert tcli.main(args + ["--device", "cpu"]) == 0
+    got = json.loads(capsys.readouterr().out)
+    want = _jax_cli(*args)
+    assert _keys(got) == _keys(want)
+    for k in ("power_ranges_bytes", "events", "n_events", "last_safe_fix",
+              "fix", "acquired_prns", "decoded_prns", "messages",
+              "filter", "n_fixes"):
+        assert got.get(k) == want.get(k), k
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["detect", "a.bin"], "A6"),
-    (["detect", "a.bin", "--no-receiver", "--checkpoint", "c"], "A6"),
-    (["detect", "a.bin", "--batch-receiver", "--resume"], "A6"),
-    (["detect", "a.bin", "--batch-receiver", "--wire-bits", "4"], "A6"),
-    (["detect", "a.bin", "--devices", "4"], "A8"),
-    (["receiver", "a.bin", "--streaming"], "A6")])
+    (["detect", "a.bin", "--devices", "4"], "A8")])
 def test_cli_refuses_unported_flags(argv, item, capsys):
     assert tcli.main(argv) == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err

@@ -146,3 +146,17 @@ def test_run_receiver_sends_an_array_to_the_card(no_card):
     res = receiver.run_receiver(torch.from_numpy(x), FS)
     assert len(res.channels) == 32
     assert not res.fixes
+
+
+def test_streaming_entry_points_default_to_the_card(no_card, tmp_path):
+    """The streaming receiver and the block processor run on the card
+    unless the caller names the CPU; no path carries on quietly there."""
+    from gps_jamming_tpu_torch.runtime import rx_stream, streaming
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rx_stream.StreamingReceiver(FS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        streaming.StreamProcessor()
+    rx = rx_stream.StreamingReceiver(FS, n_slots=2, segment_s=0.25,
+                                     device="cpu")
+    res = rx.process_file(_capture_bin(tmp_path), max_segments=0)
+    assert res.tracked_spans == [] and rx.device.type == "cpu"
