@@ -100,7 +100,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
    run: events, records and the jamming trace bitwise equal; (d)
    `StreamProcessor` over the clean .bin: B2 once per 2M-sample block,
    the ranges of `power_profile_file`;
-8. print the per-kernel JSON line, the card line, and the success line.
+8. the operator's verbs through the port's CLI (`cli.main`, the body of
+   `python -m gps_jamming_tpu_torch`), each in a child process that
+   counts the kernels' launches from 0: (a) `simulate` at the CLI's
+   defaults (3 antennas, jammer at (4, 3) m, 2.048 MS/s) over 8 s (16.4 M
+   samples per antenna, past the 2^24 samples where float32 time stops
+   being exact) with the jam from 2 s to EOF: chirp, broadband, pulsed and
+   a moving cw (to x = 8 m), and 2 s of clean and of spoofed GPS on one
+   antenna, each file checked (the jam's power range from 2.0 s, the
+   moving jammer receding), render seconds per second of capture; then
+   `detect` on the chirp set: one event from 2.0 s within one 16 ms
+   power chunk, RSSI within 2 m of (4, 3), B1 launched; (b) `spectrum` on
+   phase 5's clean .bin: 20 rows of 1 s, B2 launched once per row, every
+   row against `welch_psd_plain` on the card, the .npz written, and B2's
+   time per 2.048 M-sample row (16 rows, the batch `spectrogram_file`
+   takes); (c) `report` on the chirp set: its six files (plus
+   prn_series.png where the receiver tracked), events and localization
+   equal to (a)'s `detect`, the waterfall rows equal to `spectrum`'s on
+   the same file; then `analyze` on its telemetry.jsonl, `info` on the
+   files and `record --dry-run` (where matplotlib is missing, a line says
+   so and `report` is left out); (d) `serve` on a free port: a /control
+   start runs to completion (>= 9 records per second of capture, an
+   event, the triangulation within 2 m of (4, 3), B1 launched), a second
+   start stopped at once ("stopped by user"), a third start equal to the
+   first, and `analyze_capture(sink=HttpSink(url))` in this process
+   posting records that the dashboard counts;
+9. print the per-kernel JSON line, the card line, and the success line.
 
 Each kernel's entry in the JSON line, and each of its shapes, carries
 `bound_ms`: the least time the card could take for the same work, the
@@ -115,6 +140,7 @@ measured time), `launches_per_step` (per main-path step) and `library_ms`
 transforms, one part of their work only.
 """
 import argparse
+import importlib.util
 import json
 import math
 import multiprocessing
@@ -247,6 +273,72 @@ STREAM_CUT_S = 10.0               # phase 7c's max_seconds
 STREAM_KILL_S = 6.0               # phase 7c's sink kills after this record
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
+# run in a child process by phase 8: `cli.main` once per argv of the JSON
+# list in argv[1], each call's stdout, exit code, seconds and kernel
+# launches (counted from 0 for the call) printed as one JSON list on the
+# last line; every `analyze_capture` result (events, ranges,
+# localization, stage times) and every `spectrogram_file` array (saved
+# into argv[2]) of a call is kept beside it
+OPERATOR_CLI = """
+import contextlib, io, json, os, sys, time
+import numpy as np
+from gps_jamming_tpu_torch import cli
+from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf, cuda_psd, spectral
+from gps_jamming_tpu_torch.runtime import pipeline
+runs, dump = [], sys.argv[2]
+analyze, spectrogram_file = pipeline.analyze_capture, spectral.spectrogram_file
+def counted(*a, **k):
+    res = analyze(*a, **k)
+    runs[-1]["analyses"].append({
+        "events": res.events, "power_ranges": res.power_ranges,
+        "localization": res.localization, "elapsed_s": res.elapsed_s,
+        "stage_seconds": res.stage_seconds,
+        "n_records": len(res.telemetry.records)})
+    return res
+def saved(*a, **k):
+    sg = spectrogram_file(*a, **k)
+    path = os.path.join(dump, f"sg{len(runs)}_{len(runs[-1]['sg'])}.npy")
+    np.save(path, sg)
+    runs[-1]["sg"].append(path)
+    return sg
+pipeline.analyze_capture, spectral.spectrogram_file = counted, saved
+for argv in json.loads(sys.argv[1]):
+    cuda_psd.LAUNCHES = cuda_pcf.LAUNCHES = cuda_caf.LAUNCHES = 0
+    runs.append({"argv": argv, "analyses": [], "sg": []})
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    runs[-1].update(rc=rc, seconds=time.perf_counter() - t0,
+                    out=json.loads(buf.getvalue()),
+                    launches={"welch_psd": cuda_psd.LAUNCHES,
+                              "pcf": cuda_pcf.LAUNCHES,
+                              "caf_std": cuda_caf.LAUNCHES})
+print(json.dumps(runs, default=str))
+"""
+# run in a child process by phase 8d: the port's `serve` verb; SIGUSR1
+# writes the kernels' launch counts so far to argv[1] (the counts of a
+# serving process, read while it keeps serving)
+SERVE_WITH_COUNTS = """
+import json, os, signal, sys
+from gps_jamming_tpu_torch import cli
+from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf, cuda_psd
+def counts(*_):
+    with open(sys.argv[1] + ".tmp", "w") as f:
+        json.dump({"welch_psd": cuda_psd.LAUNCHES, "pcf": cuda_pcf.LAUNCHES,
+                   "caf_std": cuda_caf.LAUNCHES}, f)
+    os.replace(sys.argv[1] + ".tmp", sys.argv[1])
+signal.signal(signal.SIGUSR1, counts)
+sys.exit(cli.main(sys.argv[2:]))
+"""
+OP_SECONDS = 8.0                  # phase 8a's captures: 16.4 M samples,
+OP_JAM_START = 2.0                # past 2^24; the jam from 2 s to EOF
+OP_KINDS = ("chirp", "broadband", "pulsed")
+OP_SHORT_SECONDS = 2.0            # phase 8a's clean and spoof captures
+OP_REPORT_FILES = ("histogram.png", "waterfall.png", "power.png",
+                   "report.html", "telemetry.jsonl", "positions.csv")
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def fail_unless(cond, msg):
@@ -1278,6 +1370,387 @@ def stream_processor(fx: dict, card: str) -> dict:
     return launches
 
 
+def operator_cli(argvs: list, td: str, label: str,
+                 timeout: int = 900) -> list:
+    """Phase 8: `argvs` through the port's CLI in one child process
+    (OPERATOR_CLI); fails unless the child and every call exit 0. Returns
+    the runs: argv, out (the verb's JSON), rc, seconds, launches,
+    analyses, sg (paths of the spectrograms)."""
+    dump = tempfile.mkdtemp(dir=td)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", OPERATOR_CLI,
+                        json.dumps(argvs), dump], capture_output=True,
+                       text=True, timeout=timeout, cwd=ROOT)
+    fail_unless(r.returncode == 0, f"{label}: the CLI child exited "
+                                   f"{r.returncode}: {r.stderr[-3000:]}")
+    runs = json.loads(r.stdout.strip().splitlines()[-1])
+    for run in runs:
+        fail_unless(run["rc"] == 0, f"{label}: {run['argv']} exited "
+                                    f"{run['rc']}")
+    print(f"{label}: {len(runs)} CLI calls in one child, the process "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return runs
+
+
+def sum_launches(runs) -> dict:
+    return {k: sum(r["launches"][k] for r in runs)
+            for k in ("welch_psd", "pcf", "caf_std")}
+
+
+def first_range_start_s(path: str) -> tuple[float, list]:
+    """The start (s) of the first high-power range of `path` by the
+    port's file pre-scan on the card, and every range (bytes)."""
+    from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from gps_jamming_tpu_torch.models import detector
+    prof = detector.power_profile_file(path, CFG.detector)
+    ranges = detector.power_profile_ranges(prof, CFG.detector)
+    fail_unless(bool(ranges), f"no power range in {path}")
+    return ranges[0][0] / 2 / FS, ranges
+
+
+def operator_simulate(td: str, card: str) -> dict:
+    """Phase 8a: `simulate` at the CLI's defaults (3 antennas at (0, 0),
+    (3, 0), (0, 3) m, jammer at (4, 3) m, 2.048 MS/s, noise 1 LSB) over
+    OP_SECONDS with the jam from OP_JAM_START to EOF, for chirp,
+    broadband, pulsed and a moving cw (to x = 8 m), and 2 s of clean and
+    spoofed GPS on one antenna; then `detect` on the chirp set: one event
+    from 2.0 s within one 16 ms power chunk, RSSI within 2 m of (4, 3).
+    Returns the sets, the telemetry path and the launches."""
+    d = os.path.join(td, "op")
+    os.makedirs(d)
+    jam = ["--seconds", str(OP_SECONDS), "--start", str(OP_JAM_START),
+           "--duration", str(OP_SECONDS - OP_JAM_START)]
+    outs = {k: os.path.join(d, k) for k in OP_KINDS + ("moving", "clean",
+                                                       "spoof")}
+    argvs = [["simulate", "--kind", k, "--out", outs[k]] + jam
+             for k in OP_KINDS]
+    argvs.append(["simulate", "--kind", "cw", "--jammer-end-x", "8",
+                  "--out", outs["moving"]] + jam)
+    short = ["--antennas", "1", "--seconds", str(OP_SHORT_SECONDS)]
+    argvs += [["simulate", "--kind", k, "--out", outs[k]] + short
+              for k in ("clean", "spoof")]
+    chirp = [f"{outs['chirp']}{i}.bin" for i in range(3)]
+    tel = os.path.join(d, "detect_telemetry.jsonl")
+    argvs.append(["detect", *chirp, "--telemetry-out", tel])
+    runs = operator_cli(argvs, td, "phase 8a")
+    sims, det = runs[:-1], runs[-1]
+    n = int(OP_SECONDS * FS)
+    for run in sims:
+        secs = (OP_SHORT_SECONDS if run["out"]["scenario"]["kind"]
+                in ("clean", "spoof") else OP_SECONDS)
+        for p in run["out"]["written"]:
+            fail_unless(os.path.getsize(p) == 2 * int(secs * FS),
+                        f"{p}: {os.path.getsize(p)} bytes")
+        print(f"simulate {' '.join(run['argv'][1:3])}: "
+              f"{len(run['out']['written'])} x {secs} s in "
+              f"{run['seconds']:.3f} s = {run['seconds'] / secs:.4f} s per "
+              f"s of capture; launches {run['launches']}; card {card}",
+              flush=True)
+    for k in OP_KINDS:
+        s0, ranges = first_range_start_s(f"{outs[k]}0.bin")
+        print(f"simulate {k}: antenna 0's power ranges (bytes) {ranges}",
+              flush=True)
+        fail_unless(abs(s0 - OP_JAM_START) <= 32768 / FS,
+                    f"{k}: the jam starts at {s0:.4f} s")
+    x = np.fromfile(f"{outs['moving']}0.bin", np.uint8)
+    pw = (x.astype(np.float32) - 127.5) ** 2
+    head, tail = pw[: 2 * 32768].mean(), pw[-2 * 32768:].mean()
+    print(f"simulate moving cw: antenna 0's power at the start "
+          f"{head:.2f}, at the end {tail:.2f} (the jammer 5 -> 8.5 m "
+          "away)", flush=True)
+    fail_unless(head > 2.0 * tail, "the moving jammer does not recede")
+    clean = np.fromfile(f"{outs['clean']}0.bin", np.uint8)
+    fail_unless(clean.std() > 1.0, "the clean capture is flat")
+    fake = sims[-1]["out"]["scenario"]["fake_ecef"]
+    fail_unless(np.linalg.norm(fake) > 6.3e6, f"spoof fake_ecef {fake}")
+
+    out, an = det["out"], det["analyses"][0]
+    ev = out["events"]
+    loc = out["localization"]
+    xy = loc["location_meters"] if loc and loc.get("success") else None
+    err = float(np.hypot(xy[0] - 4.0, xy[1] - 3.0)) if xy else float("inf")
+    print(f"detect on the simulated chirp set: events {ev}; RSSI "
+          f"{xy} ({err:.3f} m from (4, 3)); TDOA pairs "
+          f"{len((out['tdoa'] or {}).get('pairs', []))}; stage seconds "
+          f"{an['stage_seconds']}; elapsed_s {an['elapsed_s']:.3f} = "
+          f"{OP_SECONDS / an['elapsed_s']:.3f}x real time; cli.main "
+          f"{det['seconds']:.3f} s; launches {det['launches']}; card "
+          f"{card}", flush=True)
+    fail_unless(len(ev) == 1, f"detect found {len(ev)} events")
+    # (the reference's event rows carry byte offsets in start_sample)
+    fail_unless(abs(ev[0]["start_time"] - OP_JAM_START) <= 32768 / FS,
+                f"the event starts at {ev[0]['start_time']} s")
+    fail_unless(err < 2.0, f"RSSI {err:.3f} m from the jammer")
+    fail_unless(det["launches"]["pcf"] >= 1, "detect did not launch B1")
+    return {"chirp": chirp, "clean": f"{outs['clean']}0.bin",
+            "telemetry": tel, "detect": det, "n": n,
+            "launches": {"simulate": sum_launches(sims),
+                         "detect": det["launches"]}}
+
+
+def operator_spectrum(fx: dict, td: str, card: str, kernels: list) -> dict:
+    """Phase 8b: `spectrum` on phase 5's clean 20.8 s .bin (1 s chunks,
+    nperseg 1024): B2 launched once per row, the .npz written, every row
+    within the kernel's tolerance of `welch_psd_plain` on the card (rtol
+    1e-3, atol 1e-4 * max, in linear PSD); then B2's time per row at
+    2.048 M samples over 16 rows, the batch spectrogram_file takes, beside
+    the plain version's. Returns the launches."""
+    from gps_jamming_tpu_torch.ops import cuda_psd, iq, spectral
+    npz = os.path.join(td, "spectrum.npz")
+    (run,) = operator_cli([["spectrum", fx["bin"], "--out", npz]], td,
+                          "phase 8b")
+    out = run["out"]
+    rows, chunk = out["chunks"], int(FS)
+    fail_unless(os.path.exists(npz), "spectrum wrote no .npz")
+    with np.load(npz) as z:
+        sg = z["spectrogram_db"]
+    fail_unless(sg.shape == (rows, 1024) and rows == int(RX_SECONDS),
+                f"spectrum rows {sg.shape}")
+    fail_unless(run["launches"]["welch_psd"] == rows,
+                f"B2 launched {run['launches']['welch_psd']} times for "
+                f"{rows} rows")
+    raw = np.fromfile(fx["bin"], np.uint8, count=2 * rows * chunk)
+    x = iq.bytes_to_iq_f32(torch.from_numpy(raw).cuda(), scale=127.5)
+    x = iq.remove_dc(x.reshape(rows, chunk))
+    ref = spectral.welch_psd_plain(x, FS, 1024)
+    got = 10.0 ** (torch.from_numpy(sg).cuda().double() / 10.0) - 1e-15
+    ref_s = torch.fft.fftshift(ref, dim=-1)
+    ok, abs_err, rel = close(got, ref_s, 1e-3,
+                             1e-4 * float(ref_s.max()))
+    db_err = float((torch.from_numpy(sg).cuda()
+                    - spectral.psd_db_shifted(ref)).abs().max())
+    xb = x[:16].contiguous()
+    ms, plain_ms = time_pair(lambda: cuda_psd.welch_psd_fused(xb, FS, 1024),
+                             lambda: cuda_psd.welch_psd_reference(
+                                 xb, FS, 1024), reps=5, inner=2)
+    segs = (chunk - 1024) // 512 + 1
+    row = with_bound({"rows": 16, "n": chunk, "ms": ms / 16,
+                      "plain_ms": plain_ms / 16, "max_abs_err": abs_err,
+                      "max_rel_err": rel, "max_db_err": db_err},
+                     fft_flops(segs, 1024) + 10.0 * segs * 1024,
+                     8.0 * chunk + 4.0 * 1024)
+    next(k for k in kernels if k["name"] == "welch_psd")[
+        "spectrogram_row"] = row
+    del x, ref, got, ref_s, xb
+    torch.cuda.empty_cache()
+    print(f"spectrum: {rows} rows of {chunk} samples, {out}; cli.main "
+          f"{run['seconds']:.3f} s; B2 launches {run['launches']}; rows "
+          f"against welch_psd_plain on the card: max_abs_err "
+          f"{abs_err:.3e}, max_rel_err {rel:.3e} (rtol 1e-3, atol "
+          f"1e-4*max), {db_err:.2e} dB; B2 per row {row['ms']:.4f} ms, "
+          f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}), share {row['bound_share']:.3f}; card "
+          f"{card}", flush=True)
+    fail_unless(ok, "the spectrogram rows disagree with welch_psd_plain")
+    return run["launches"]
+
+
+def operator_report(sim: dict, td: str, card: str, have_mpl: bool) -> dict:
+    """Phase 8c: `report` on 8a's chirp set (its six files, plus
+    prn_series.png where the receiver tracked; events and localization
+    equal to 8a's `detect`; the waterfall rows equal to the `spectrum`
+    verb's on the same file), then `analyze` on its telemetry (8a's
+    detect telemetry without matplotlib), `info` on the files and
+    `record --dry-run`. Returns the launches."""
+    rep = os.path.join(td, "report")
+    sp = os.path.join(td, "report_spectrum.npz")
+    tel = os.path.join(rep, "telemetry.jsonl") if have_mpl \
+        else sim["telemetry"]
+    argvs = ([["report", *sim["chirp"], "--out", rep],
+              ["spectrum", sim["chirp"][0], "--out", sp]] if have_mpl
+             else [])
+    argvs += [["analyze", tel, "--ref-lat", "50.06", "--ref-lon", "19.94"],
+              ["info", *sim["chirp"], sim["clean"]],
+              ["record", "--dry-run", "--antennas", "3"]]
+    runs = operator_cli(argvs, td, "phase 8c")
+    launches = {"welch_psd": 0, "pcf": 0, "caf_std": 0}
+    if have_mpl:
+        rp, spr = runs[0], runs[1]
+        launches = rp["launches"]
+        files = rp["out"]["files"]
+        fail_unless(list(OP_REPORT_FILES) == files[:6]
+                    and set(files[6:]) <= {"prn_series.png"},
+                    f"report files {files}")
+        for f in files:
+            fail_unless(os.path.getsize(os.path.join(rep, f)) > 0,
+                        f"report wrote an empty {f}")
+        a, b = rp["analyses"][0], sim["detect"]["analyses"][0]
+        fail_unless(a["events"] == b["events"]
+                    and a["power_ranges"] == b["power_ranges"],
+                    f"report events {a['events']} != detect's "
+                    f"{b['events']}")
+        la, lb = a["localization"], b["localization"]
+        dloc = max(abs(u - v) for u, v in zip(
+            la["location_meters"] + la["distances"],
+            lb["location_meters"] + lb["distances"]))
+        fail_unless(dloc <= 1e-4, f"report localization {dloc:.2e} m "
+                                  "from detect's")
+        w_rep, w_spec = np.load(rp["sg"][0]), np.load(spr["sg"][0])
+        fail_unless(np.array_equal(w_rep, w_spec),
+                    "the report's waterfall differs from spectrum's")
+        fail_unless(rp["launches"]["welch_psd"] == w_rep.shape[0]
+                    == int(OP_SECONDS),
+                    f"report: B2 {rp['launches']} for {w_rep.shape[0]} "
+                    "waterfall rows")
+        print(f"report: {rp['out']}; events and ranges equal detect's, "
+              f"localization within {dloc:.2e} m; waterfall "
+              f"{w_rep.shape} equal to spectrum's; cli.main "
+              f"{rp['seconds']:.3f} s (analyze_capture "
+              f"{a['elapsed_s']:.3f} s); launches {rp['launches']}; card "
+              f"{card}", flush=True)
+    an, info, rec = runs[-3:]
+    with open(tel) as f:
+        n_fix = sum(1 for line in f if line.strip()
+                    and json.loads(line)["position"]["nsat"] > 0)
+    fail_unless(len(an["out"]) == 1 and an["out"][0]["n_fixes"] == n_fix,
+                f"analyze: {an['out']} ({n_fix} fixes in the log)")
+    sizes = [row["iq_samples"] for row in info["out"]]
+    fail_unless(sizes == [sim["n"]] * 3 + [int(OP_SHORT_SECONDS * FS)],
+                f"info: {sizes}")
+    cmds = rec["out"]["commands"]
+    fail_unless(len(cmds) == 3 and all(c[-1][0] == "rtl_sdr" for c in cmds),
+                f"record --dry-run: {cmds}")
+    print(f"analyze {an['out']}; info {[r['duration_s'] for r in info['out']]}"
+          f" s; record --dry-run: {len(cmds)} rtl_sdr commands, tools "
+          f"{rec['out']['tools']}", flush=True)
+    return launches
+
+
+def _http(url: str, body: dict | None = None):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def operator_serve(sim: dict, td: str, card: str) -> dict:
+    """Phase 8d: `serve` in a child process on a free port. A /control
+    start on 8a's chirp set runs to completion (at least 9 records per
+    second of capture, an event, the triangulation within 2 m of (4, 3),
+    B1 launched); a second start stopped at once ("stopped by user", the
+    stop raised inside the streaming receiver's segment callback); a
+    third start runs to the first one's state; then
+    `analyze_capture(sink=HttpSink(url))` in this process posts to /data,
+    and the dashboard counts what HttpSink sent. Returns the launches of
+    the serving process and of the sink's run."""
+    import signal
+    import socket
+
+    from gps_jamming_tpu_torch.runtime import pipeline, telemetry
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    counts = os.path.join(td, "serve_counts.json")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", SERVE_WITH_COUNTS, counts, "serve",
+         "--port", str(port)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    ants = [[0.0, 0.0], [3.0, 0.0], [0.0, 3.0]]
+
+    def state(timeout=600.0, until=None):
+        deadline = time.time() + timeout
+        while True:
+            if proc.poll() is not None:
+                err = proc.communicate()[1]
+                raise RuntimeError(f"serve exited: {err[-3000:]}")
+            try:
+                st = _http(f"{base}/state.json")[1]
+                if until is None or until(st):
+                    return st
+            except OSError:
+                pass
+            fail_unless(time.time() < deadline, "serve: timed out")
+            time.sleep(0.05)
+
+    def read_counts():
+        if os.path.exists(counts):
+            os.remove(counts)
+        proc.send_signal(signal.SIGUSR1)
+        deadline = time.time() + 30
+        while not os.path.exists(counts):
+            fail_unless(time.time() < deadline, "serve: no counts")
+            time.sleep(0.05)
+        with open(counts) as f:
+            return json.load(f)
+
+    def start(extra=None):
+        code, r = _http(f"{base}/control", {
+            "action": "start", "files": sim["chirp"], "positions": ants,
+            **(extra or {})})
+        fail_unless(code == 200, f"serve: start refused: {r}")
+
+    try:
+        t0 = time.perf_counter()
+        st = state(timeout=120)
+        print(f"serve: answering after {time.perf_counter() - t0:.3f} s, "
+              f"status {st['status']!r}", flush=True)
+        t0 = time.perf_counter()
+        start()
+        st1 = state(until=lambda s: s["running"] is False)
+        t_run = time.perf_counter() - t0
+        c1 = read_counts()
+        tri = st1["triangulation"] or {}
+        xy = tri.get("location_meters")
+        err = float(np.hypot(xy[0] - 4.0, xy[1] - 3.0)) if xy else 1e9
+        print(f"serve: start -> {st1['status']!r} in {t_run:.3f} s = "
+              f"{OP_SECONDS / t_run:.3f}x real time; {st1['records']} "
+              f"records, events {st1['events']}, triangulation {xy} "
+              f"({err:.3f} m from (4, 3)); launches {c1}; card {card}",
+              flush=True)
+        fail_unless(st1["status"] == "analysis complete", st1["status"])
+        fail_unless(st1["records"] >= 9 * OP_SECONDS,
+                    f"{st1['records']} records for {OP_SECONDS} s")
+        fail_unless(len(st1["events"]) >= 1 and err < 2.0,
+                    "serve: no event or the triangulation is off")
+        fail_unless(c1["pcf"] >= 1, f"serve did not launch B1: {c1}")
+        start()
+        code, r = _http(f"{base}/control", {"action": "stop"})
+        fail_unless(code == 200, f"serve: stop refused: {r}")
+        st2 = state(until=lambda s: s["running"] is False)
+        print(f"serve: start then stop -> {st2['status']!r}", flush=True)
+        fail_unless(st2["status"] == "stopped by user", st2["status"])
+        t0 = time.perf_counter()
+        start()
+        st3 = state(until=lambda s: s["running"] is False)
+        t_run3 = time.perf_counter() - t0
+        print(f"serve: third start -> {st3['status']!r} in {t_run3:.3f} s,"
+              f" {st3['records']} records", flush=True)
+        fail_unless(st3["status"] == "analysis complete"
+                    and st3["records"] == st1["records"]
+                    and st3["events"] == st1["events"],
+                    "serve: the third start differs from the first")
+        c3 = read_counts()
+        sink = telemetry.HttpSink(f"{base}/data", timeout_s=5.0)
+        before = st3["records"]
+        reset_launches()
+        res = pipeline.analyze_capture(sim["chirp"], [tuple(a) for a in ants],
+                                       sink=sink)
+        sink_launches = read_launches()
+        after = state()["records"]
+        print(f"HttpSink: analyze_capture posted {sink.sent} records "
+              f"({sink.errors} errors) of {len(res.telemetry.records)}; "
+              f"the dashboard counted {after - before}; launches "
+              f"{sink_launches}", flush=True)
+        fail_unless(sink.errors == 0 and sink.sent >= 1
+                    and after - before == sink.sent,
+                    "the dashboard did not count HttpSink's records")
+    finally:
+        proc.terminate()
+        try:
+            proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+    return {"serve": c3, "http_sink": sink_launches, "serve_s": t_run}
+
+
 def phases(args_cli, start_render) -> int:
     """Every phase after the CUDA check. `start_render(name)` starts a
     receiver fixture's render (`render_fixture`) in a worker process and
@@ -1906,7 +2379,23 @@ def phases(args_cli, start_render) -> int:
     st_proc = stream_processor(fx_gps, card)
     print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 8. results
+    # 8. the operator's verbs through the CLI, each in a child process:
+    # (a) simulate and detect, (b) spectrum, (c) report, analyze, info and
+    # record --dry-run, (d) serve
+    t0 = time.perf_counter()
+    op_td = tempfile.mkdtemp(prefix="op_", dir=os.path.dirname(fx_gps["bin"]))
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    if not have_mpl:
+        print("phase 8c: the module matplotlib is not installed: `report` "
+              "is not run (analyze, info and record --dry-run are)",
+              flush=True)
+    sim = operator_simulate(op_td, card)
+    spec_launches = operator_spectrum(fx_gps, op_td, card, kernels)
+    rep_launches = operator_report(sim, op_td, card, have_mpl)
+    srv = operator_serve(sim, op_td, card)
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 9. results
     for k in kernels:
         k["launches"] = (std_launches if k["name"] == "caf_std"
                          else launches)[k["name"]]
@@ -1922,7 +2411,13 @@ def phases(args_cli, start_render) -> int:
             "cli_detect_streaming": st_cli[k["name"]],
             "analyze_capture_streaming_jammed": st_jam[k["name"]],
             "streaming_checkpoint_resume": st_ck[k["name"]],
-            "stream_processor": st_proc[k["name"]]}
+            "stream_processor": st_proc[k["name"]],
+            "cli_simulate": sim["launches"]["simulate"][k["name"]],
+            "cli_detect_simulated": sim["launches"]["detect"][k["name"]],
+            "cli_spectrum": spec_launches[k["name"]],
+            "cli_report": rep_launches[k["name"]],
+            "serve_three_starts": srv["serve"][k["name"]],
+            "analyze_capture_http_sink": srv["http_sink"][k["name"]]}
         k["library_ms"] = None
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,7 +5,8 @@ Replaces gps_jamming_tpu/ops/pallas_psd.py (`welch_psd_fused` -> `_run` ->
 `_make_kernel`). Same contract: two-sided Welch PSD of a 1-D complex64
 signal, 50 % overlap, periodic Hann window, per-segment detrend, density
 scaling, natural FFT order; every nperseg the TPU kernel takes up to 16384
-(and 64), in one launch.
+(and 64), in one launch per signal. The wrapper also takes (rows, n), one
+launch per row (the spectrogram's chunks).
 
 A CPU tensor takes the plain version (`welch_psd_reference`); a CUDA tensor
 launches the kernel or raises.
@@ -20,7 +21,7 @@ import torch
 from ..device import check_tensor
 from ..kernels import build
 
-# Kernel launches made by `welch_psd_fused` (one per call on a CUDA tensor).
+# Kernel launches made by `welch_psd_fused` (one per row on a CUDA tensor).
 LAUNCHES = 0
 
 # The mixed-radix nperseg of the TPU kernel up to 16384
@@ -69,7 +70,12 @@ def _scratch(nperseg: int, device: torch.device, stream: int) -> torch.Tensor:
 
 def welch_psd_fused(x: torch.Tensor, sample_rate: float, nperseg: int = 1024,
                     detrend: bool = True) -> torch.Tensor:
-    """Welch PSD of a 1-D complex64 signal -> (nperseg,) float32."""
+    """Welch PSD of a complex64 signal (n,) -> (nperseg,) float32, or of
+    each row of (rows, n) -> (rows, nperseg).
+
+    On the card each row is one launch on the current stream, writing its
+    own row of the output; the rows share the scratch, whose tickets each
+    launch leaves at zero, and launches on one stream run in order."""
     global LAUNCHES
     if x.device.type == "cpu":
         return welch_psd_reference(x, sample_rate, nperseg, detrend)
@@ -79,22 +85,30 @@ def welch_psd_fused(x: torch.Tensor, sample_rate: float, nperseg: int = 1024,
         raise ValueError(f"welch_psd_fused: nperseg {nperseg} is neither a "
                          "power of two in [64, 16384] nor one of "
                          f"{MIXED_NPERSEG}")
-    check_tensor(x, "x", torch.complex64, (None,))
-    n = x.shape[0]
+    if x.dim() not in (1, 2):
+        raise ValueError(f"welch_psd_fused: expected (n,) or (rows, n), "
+                         f"got {tuple(x.shape)}")
+    check_tensor(x, "x", torch.complex64, (None,) * x.dim())
+    n = x.shape[-1]
     if n < nperseg:
         raise ValueError(f"welch_psd_fused: {n} samples < nperseg {nperseg}")
+    rows = 1 if x.dim() == 1 else x.shape[0]
     n_segs = 1 + (n - nperseg) // (nperseg // 2)
     win, wsum2 = _window(nperseg, x.device)
     tab = build.reg_twiddles(nperseg, x.device)
-    out = torch.empty(nperseg, dtype=torch.float32, device=x.device)
+    out = torch.empty(x.shape[:-1] + (nperseg,), dtype=torch.float32,
+                      device=x.device)
     scale = 1.0 / (sample_rate * wsum2) / n_segs
     lib = build.load()
+    x_row, out_row = n * x.element_size(), nperseg * out.element_size()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         scratch = _scratch(nperseg, x.device, stream)
-        err = lib.gjt_welch_psd(
-            x.data_ptr(), win.data_ptr(), tab.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), nperseg, n_segs, int(detrend), scale, stream)
-    build.check(err, "gjt_welch_psd")
-    LAUNCHES += 1
+        for r in range(rows):
+            err = lib.gjt_welch_psd(
+                x.data_ptr() + r * x_row, win.data_ptr(), tab.data_ptr(),
+                scratch.data_ptr(), out.data_ptr() + r * out_row, nperseg,
+                n_segs, int(detrend), scale, stream)
+            build.check(err, "gjt_welch_psd")
+            LAUNCHES += 1
     return out

@@ -104,7 +104,9 @@ def haversine_m(lat1_deg, lon1_deg, lat2_deg, lon2_deg):
     r = 6_371_000.0
     p1, p2 = torch.deg2rad(_t(lat1_deg)), torch.deg2rad(_t(lat2_deg))
     dp = p2 - p1
-    dl = torch.deg2rad(_t(lon2_deg) - _t(lon1_deg))
+    # the longitude difference in the inputs' own precision (float64 for
+    # Python numbers), as the JAX package takes it, before float32
+    dl = torch.deg2rad(_t(lon2_deg - lon1_deg))
     a = torch.sin(dp / 2) ** 2 + torch.cos(p1) * torch.cos(p2) \
         * torch.sin(dl / 2) ** 2
     return 2 * r * torch.arcsin(torch.sqrt(a))

@@ -53,8 +53,20 @@ def bytes_to_iq_f32(raw: torch.Tensor, *, centered: bool = True,
     if centered:
         x = x - 127.5
     if scale is not None:
-        x = x / scale
+        # divide by a tensor: CUDA turns a division by a Python float into
+        # a multiply by its reciprocal, one ulp off the CPU's quotient
+        x = x / torch.full((), scale, dtype=torch.float32, device=x.device)
     return torch.complex(x[..., 0::2], x[..., 1::2])
+
+
+def uint8_to_complex(raw: torch.Tensor) -> torch.Tensor:
+    """Canonical ingest: x - 127.5, unscaled (detector / TDOA convention)."""
+    return bytes_to_iq_f32(raw, centered=True, scale=None)
+
+
+def uint8_to_complex_normalized(raw: torch.Tensor) -> torch.Tensor:
+    """(x - 127.5)/127.5 in [-1, 1] (RSSI / spectral convention)."""
+    return bytes_to_iq_f32(raw, centered=True, scale=127.5)
 
 
 def remove_dc(iq: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -76,6 +88,18 @@ def frame_nonoverlap(x: torch.Tensor, frame_len: int) -> torch.Tensor:
         x.shape[:-1] + (n_frames, frame_len))
 
 
+def pad_to_multiple(x: torch.Tensor, multiple: int, dim: int = -1,
+                    value: float = 0.0) -> torch.Tensor:
+    """Right-pad `dim` so that its length is a multiple of `multiple`."""
+    pad = (-x.shape[dim]) % multiple
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, torch.full(shape, value, dtype=x.dtype,
+                                    device=x.device)], dim=dim)
+
+
 def read_iq_file(path: str, *, convention: str = "centered",
                  count: int = -1, offset_bytes: int = 0) -> np.ndarray:
     """Host-side read of a .bin capture -> numpy complex64."""
@@ -94,8 +118,22 @@ def read_iq_file(path: str, *, convention: str = "centered",
     return (f[0::2] + 1j * f[1::2]).astype(np.complex64)
 
 
-def write_iq_file(path: str, iq_float: np.ndarray) -> None:
-    """Write centered float I/Q as RTL-SDR uint8: clip to [-128, 127], +128."""
+def to_uint8_bytes(iq_float: torch.Tensor) -> torch.Tensor:
+    """Centered complex I/Q -> interleaved RTL-SDR uint8 bytes on the
+    tensor's device: clip to [-128, 127], truncate to int16, +128 (the
+    arithmetic of `write_iq_file`)."""
+    inter = torch.view_as_real(iq_float.to(torch.complex64).reshape(-1))
+    clipped = inter.reshape(-1).clamp(-128.0, 127.0)
+    return (clipped.to(torch.int16) + 128).to(torch.uint8)
+
+
+def write_iq_file(path: str, iq_float) -> None:
+    """Write centered float I/Q as RTL-SDR uint8: clip to [-128, 127], +128.
+    A tensor is converted on its own device (`to_uint8_bytes`), so only
+    the bytes cross to the host."""
+    if isinstance(iq_float, torch.Tensor):
+        to_uint8_bytes(iq_float).cpu().numpy().tofile(path)
+        return
     inter = np.empty(iq_float.size * 2, dtype=np.float32)
     inter[0::2] = np.real(iq_float)
     inter[1::2] = np.imag(iq_float)

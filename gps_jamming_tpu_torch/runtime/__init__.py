@@ -1,2 +1,3 @@
-"""Host runtime of the port: telemetry records and the analysis pipeline
+"""Host runtime of the port: telemetry records, the analysis pipeline,
+the streaming receiver, the live dashboard and the capture orchestration
 (counterparts of gps_jamming_tpu.runtime)."""

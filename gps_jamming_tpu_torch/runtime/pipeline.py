@@ -417,14 +417,19 @@ def analyze_capture(paths: Sequence[str],
                         ck_state["emitted"] = stop
                         rx_stream.save_atomic(checkpoint_path, ck_state)
 
-            res = srx.process_file(
-                paths[0], convention="centered",
-                max_samples=(None if max_seconds is None
-                             else int(max_seconds * fs)),
-                segment_cb=segment_cb, wire_bits=wire_bits,
-                checkpoint_path=(checkpoint_path + ".rx"
-                                 if ck_state is not None else None),
-                checkpoint_every_s=checkpoint_every_s, resume=resume)
+            try:
+                res = srx.process_file(
+                    paths[0], convention="centered",
+                    max_samples=(None if max_seconds is None
+                                 else int(max_seconds * fs)),
+                    segment_cb=segment_cb, wire_bits=wire_bits,
+                    checkpoint_path=(checkpoint_path + ".rx"
+                                     if ck_state is not None else None),
+                    checkpoint_every_s=checkpoint_every_s, resume=resume)
+            finally:
+                # also when the sink raised (a dashboard's stop): the
+                # workers must not outlive the run
+                srx.close()
             res.stage_seconds = dict(srx.last_profile)
         else:
             res = rx_mod.run_receiver(x, fs, system=system,

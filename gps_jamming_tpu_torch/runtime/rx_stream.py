@@ -300,6 +300,14 @@ class StreamingReceiver:
         return (self.seg_epochs * self.n_epoch + self.su["n_code"]
                 + self.n_epoch)
 
+    def close(self) -> None:
+        """Stop the IO and decode workers (after a finished run, or one a
+        segment_cb aborted) and drop the upload stream; the receiver
+        cannot run again after it."""
+        self._io_pool.shutdown(wait=True, cancel_futures=True)
+        self._dec_pool.shutdown(wait=True, cancel_futures=True)
+        self._upload_stream = None
+
     # -- entry points ------------------------------------------------------
     def process(self, x, verbose: bool = False,
                 segment_cb=None) -> ReceiverResult:

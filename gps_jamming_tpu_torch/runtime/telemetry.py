@@ -8,11 +8,9 @@ Schema-compatible with the gnssdec JSON POST (`sdrout.c:213-325`):
  innovation}]}
 so the reference's analysis scripts (helpers/get_csv.py,
 helpers/analyze_position.py, analiza_wielo.py) work unchanged against this
-framework's output. No HTTP loopback — records are plain dicts the caller
-streams to disk or a callback (the reference's socket POST was an artifact
-of its two-process split; here detection consumes them in-process).
-The loopback POST sink (`HttpSink`) belongs to the streaming product path
-and is not ported yet.
+framework's output. Records are plain dicts the caller streams to disk
+or a callback; `HttpSink` is the callback that POSTs them to a loopback
+endpoint, as gnssdec does (sdrout.c:10-57), for the live dashboard.
 """
 from __future__ import annotations
 
@@ -292,3 +290,38 @@ class TelemetryLog:
         return [(r["elapsed_time"], r["position"]["lat"],
                  r["position"]["lon"]) for r in self.records
                 if r["position"]["nsat"] > 0]
+
+
+class HttpSink:
+    """POST each record as JSON to a loopback endpoint: wire parity with
+    gnssdec's socket POST to http://127.0.0.1:1234/data (sdrout.c:10-57),
+    so reference-side consumers (the GUI's receiver worker.py:24, the
+    headless harness helpers/get_csv.py, helpers/test_http_server.py) and
+    the port's dashboard work unchanged against this framework.
+    """
+
+    def __init__(self, url: str = "http://127.0.0.1:1234/data",
+                 timeout_s: float = 1.0):
+        self.url = url
+        self.timeout_s = timeout_s
+        self.sent = 0
+        self.errors = 0
+
+    def __call__(self, rec: dict) -> bool:
+        import urllib.error
+        import urllib.request
+        body = json.dumps(rec).encode()
+        req = urllib.request.Request(
+            self.url, data=body,
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=self.timeout_s):
+                pass
+            self.sent += 1
+            return True
+        except (urllib.error.URLError, OSError):
+            self.errors += 1
+            return False
+
+    def post_all(self, log: "TelemetryLog") -> int:
+        return sum(1 for r in log.records if self(r))

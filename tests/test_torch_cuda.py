@@ -27,7 +27,11 @@ card without a launch, and acquisition equals the CPU's; where only a TPU
 kernel takes it (32768, Galileo E1B at 8.192 MS/s) the card raises, with no
 launch. The localization ops
 and the batch product path (`pipeline.analyze_capture(streaming=False)`)
-on the card equal the CPU on a seeded 1 s 3-antenna jammed set. The
+on the card equal the CPU on a seeded 1 s 3-antenna jammed set. B2 also
+runs over (rows, n), one launch per row, each row the plain version's,
+as the spectrogram sends its chunks; the simulator on the card equals the
+CPU in its deterministic parts; the dashboard starts, stops and restarts
+an analysis on the card. The
 streaming receiver's wire unpacks equal the CPU's for every byte; on a
 4.5 s jammed GPS capture it gives the CPU's spans, B1 once per
 acquisition attempt, the tracker within phase 5b's limits, and a killed
@@ -678,3 +682,184 @@ def test_window_upload_overlaps_compute_and_waits_on_its_event(dev):
     got = rx._take(d, ev)
     assert torch.equal(got.cpu(), torch.from_numpy(w))
     torch.cuda.synchronize()
+
+
+# --- the operator's verbs: B2 over rows, the simulator, the dashboard -----
+
+@pytest.mark.parametrize("rows,n,nperseg", [(16, 1 << 17, 1024),
+                                            (3, 9 * 1536 // 2 + 77, 1536),
+                                            (1, 4096, 64)])
+def test_welch_kernel_over_rows_matches_plain(dev, rows, n, nperseg):
+    """B2 over (rows, n): one launch per row, each row equal to the plain
+    version of that row (the tolerance of test_welch_kernel_matches_plain),
+    and bit-equal to the 1-D call on the row."""
+    x = _cplx((rows, n), seed=rows + n, dev=dev)
+    before = cuda_psd.LAUNCHES
+    got = cuda_psd.welch_psd_fused(x, FS, nperseg)
+    torch.cuda.synchronize()
+    assert cuda_psd.LAUNCHES == before + rows
+    assert got.shape == (rows, nperseg)
+    for r in range(rows):
+        ref = spectral.welch_psd_plain(x[r], FS, nperseg)
+        torch.testing.assert_close(got[r], ref, rtol=1e-3,
+                                   atol=1e-4 * float(ref.max()))
+        assert torch.equal(got[r], cuda_psd.welch_psd_fused(x[r], FS,
+                                                            nperseg))
+
+
+def test_spectrogram_runs_b2_per_chunk_on_cuda(dev, tmp_path):
+    """spectral.welch_psd sends a 2-D or 3-D CUDA input to B2, one launch
+    per row; the spectrogram of a file has one row per chunk, the same on
+    the card as on the CPU within 1e-3 dB, at every batch size; an nperseg
+    B2 does not take (32768) stays plain."""
+    x = _cplx((2, 3, 1 << 15), seed=4, dev=dev)
+    before = cuda_psd.LAUNCHES
+    got = spectral.welch_psd(x, FS, 1024)
+    assert cuda_psd.LAUNCHES == before + 6 and got.shape == (2, 3, 1024)
+    spectral.welch_psd(_cplx((2, 1 << 16), seed=5, dev=dev), FS, 32768)
+    assert cuda_psd.LAUNCHES == before + 6
+    from gps_jamming_tpu_torch.ops import iq
+    rng = np.random.default_rng(3)
+    n = 20 * 32768 + 99
+    iq.write_iq_file(str(tmp_path / "c.bin"),
+                     (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+                     * 8.0)
+    cpu = spectral.spectrogram_file(str(tmp_path / "c.bin"), FS, 32768,
+                                    1024, device="cpu")
+    for b in (1, 3, 16):
+        before = cuda_psd.LAUNCHES
+        got = spectral.spectrogram_file(str(tmp_path / "c.bin"), FS, 32768,
+                                        1024, batch_chunks=b)
+        assert cuda_psd.LAUNCHES == before + 20
+        np.testing.assert_allclose(got, cpu, atol=1e-3, rtol=0)
+
+
+def test_simulator_on_cuda_matches_cpu(dev, tmp_path):
+    """The deterministic simulator on the card against the CPU: the time
+    ramp bit for bit (sample_times divides by a tensor), the waveforms
+    within 4 ulp of their amplitude (cos and sin), the gate, roll and
+    envelopes exactly on equal inputs, and the written bytes within 1 LSB
+    with under 1e-3 of them differing."""
+    from gps_jamming_tpu_torch.ops import codes
+    from gps_jamming_tpu_torch.sim import glo, gps, jammers, mix, scenario
+    n = (1 << 24) + 4096
+    assert torch.equal(codes.sample_times(n, FS, dev).cpu(),
+                       codes.sample_times(n, FS, "cpu"))
+    m = 1 << 18
+    for fn in (jammers.cw, jammers.chirp, jammers.pulsed):
+        torch.testing.assert_close(fn(m, FS, device=dev).cpu(),
+                                   fn(m, FS, device="cpu"), rtol=0,
+                                   atol=2.4e-7)
+    sat = gps.SatelliteSignal(prn=17, doppler_hz=-3210.5,
+                              code_phase_chips=12.75, amplitude=2.5,
+                              nav_bits=(1, -1, -1, 1), bit_periods=20)
+    torch.testing.assert_close(gps.ca_baseband(sat, m, FS, dev).cpu(),
+                               gps.ca_baseband(sat, m, FS, "cpu"), rtol=0,
+                               atol=2.4e-7 * 2.5)
+    gs = glo.GloSignal(freq_ch=2, doppler_hz=-700.0, symbols=(0, 1, 1))
+    torch.testing.assert_close(glo.baseband(gs, 30000, 10e6, device=dev)
+                               .cpu(), glo.baseband(gs, 30000, 10e6,
+                                                    device="cpu"),
+                               rtol=0, atol=2.4e-7)
+    a = jammers.chirp(m, FS, device="cpu")
+    b = jammers.cw(m, FS, device="cpu") * 30.0
+    for f in (lambda u, v: mix.inject_static(u, v, FS, 0.00123456, 0.05,
+                                             2.0),
+              lambda u, v: mix.spoof_mix(u, v, FS, 0.01, 0.02, 4.0),
+              lambda u, v: mix.finalize_uint8_domain(u * 200.0 + v)):
+        assert torch.equal(f(a.to(dev), b.to(dev)).cpu(), f(a, b))
+    d = torch.tensor([5.0, 15.0, 12.0, 30.0])
+    assert torch.equal(mix.trajectory_power_profile(d.to(dev), 7, 20.0)
+                       .cpu(), mix.trajectory_power_profile(d, 7, 20.0))
+    ants = [(0.0, 0.0), (3.0, 0.0), (0.0, 3.0)]
+    for kind in ("cw", "chirp", "pulsed"):
+        scn = scenario.JammerScenario(kind=kind, position_m=(4.0, 3.0),
+                                      start_s=0.1, duration_s=10.0)
+        pg = [str(tmp_path / f"g{i}.bin") for i in range(3)]
+        pc = [str(tmp_path / f"c{i}.bin") for i in range(3)]
+        scenario.write_capture_set(scn, ants, pg, m, FS, noise_std=0.0)
+        scenario.write_capture_set(scn, ants, pc, m, FS, noise_std=0.0,
+                                   device="cpu")
+        for p, q in zip(pg, pc):
+            x = np.fromfile(p, np.uint8).astype(np.int16)
+            y = np.fromfile(q, np.uint8).astype(np.int16)
+            assert np.abs(x - y).max() <= 1 and np.mean(x != y) < 1e-3
+    # the noise: seeded on the card, unit variance per component
+    scn = scenario.JammerScenario(kind="broadband", start_s=0.0,
+                                  duration_s=1.0, seed=3)
+    z = scenario.render_antenna_capture(scn, (0.0, 0.0), m, FS,
+                                        noise_std=0.0)
+    assert torch.equal(z, scenario.render_antenna_capture(
+        scn, (0.0, 0.0), m, FS, noise_std=0.0))
+    amp = scenario.jammer_amplitude_at(scn, float(np.hypot(10.0, 5.0)))
+    v = float(z.real.double().var()) / amp ** 2
+    assert abs(v - 1.0) < 0.03
+
+
+def test_dashboard_start_stop_start_on_cuda(dev, tmp_path):
+    """The controller's analysis thread on the card: a run to completion
+    (1 s: no whole receiver segment, so no B1 launch), a stop in the
+    middle of a streaming analysis ("stopped by user", no receiver worker
+    left), and a restart equal to the first run."""
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from gps_jamming_tpu_torch.runtime import dashboard
+    paths, ants = _jammed_set(tmp_path)
+    long_path = str(tmp_path / "long.bin")
+    np.random.default_rng(0).integers(
+        0, 256, int(2 * 20.0 * FS), dtype=np.uint8).tofile(long_path)
+    state = dashboard.DashboardState()
+    ctl = dashboard.AnalysisController(state)
+    assert ctl.device.type == "cuda"
+    srv = dashboard.make_server(state, port=0, controller=ctl)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def post(body):
+        req = urllib.request.Request(f"{base}/control",
+                                     data=json.dumps(body).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return r.status
+        except urllib.error.HTTPError as e:
+            return e.code
+
+    def get():
+        with urllib.request.urlopen(f"{base}/state.json", timeout=5) as r:
+            return json.loads(r.read())
+
+    def run_to_end():
+        before = cuda_pcf.LAUNCHES
+        assert post({"action": "start", "files": paths,
+                     "positions": [list(a) for a in ants]}) == 200
+        ctl.join(600)
+        st = get()
+        assert st["status"] == "analysis complete", st["status"]
+        assert cuda_pcf.LAUNCHES == before       # 1 s: no whole segment
+        return st
+
+    def workers():
+        return sorted(t.name for t in threading.enumerate()
+                      if t.name.startswith(("rx-io", "rx-dec")))
+
+    try:
+        before_threads = workers()
+        first = run_to_end()
+        assert len(first["events"]) == 1 and first["records"] == 10
+        # stop at once: on the card a segment of noise takes well under
+        # a poll's reach, so the flag is set before the first emission
+        assert post({"action": "start", "files": [long_path],
+                     "emit_every_s": 0.1}) == 200
+        assert post({"action": "stop"}) == 200
+        ctl.join(300)
+        assert get()["status"] == "stopped by user"
+        assert workers() == before_threads
+        again = run_to_end()
+        for k in ("records", "events", "triangulation"):
+            assert again[k] == first[k], k
+    finally:
+        srv.shutdown()
+        srv.server_close()

@@ -5,8 +5,10 @@
   constants and Galileo E1B code table equal the JAX package's.
 - Card first: with no CUDA device, the entry points that are given no
   device (`entry.entry()`, `detector.power_profile_file`, `run_receiver` on
-  a numpy array) raise RuntimeError; named "cpu", or given a CPU tensor,
-  they run.
+  a numpy array, the streaming receiver, the simulator's writers,
+  `spectrogram_file`, the dashboard's `replay_analysis` and
+  `AnalysisController`) raise RuntimeError; named "cpu", or given a CPU
+  tensor, they run.
 """
 import dataclasses
 import enum
@@ -160,3 +162,51 @@ def test_streaming_entry_points_default_to_the_card(no_card, tmp_path):
                                      device="cpu")
     res = rx.process_file(_capture_bin(tmp_path), max_segments=0)
     assert res.tracked_spans == [] and rx.device.type == "cpu"
+
+
+def _operator_entry_points(tmp_path):
+    """(name, call given no device, call on the CPU) of the simulator
+    writers, the spectrogram and the dashboard's analysis."""
+    from gps_jamming_tpu_torch.ops import spectral
+    from gps_jamming_tpu_torch.runtime import dashboard
+    from gps_jamming_tpu_torch.sim import scenario
+    scn = scenario.JammerScenario(kind="cw", position_m=(4.0, 3.0),
+                                  start_s=0.0, duration_s=1.0)
+    out = str(tmp_path / "w.bin")
+    cap = _capture_bin(tmp_path)
+
+    def writers(**kw):
+        scenario.write_capture_set(scn, [(0.0, 0.0)], [out], 4096, FS,
+                                   noise_std=1.0, **kw)
+        scenario.write_moving_capture_set(scn, [(0.0, 0.0)], (-4.0, 3.0),
+                                          [out], 4096, FS, **kw)
+        scenario.write_clean_capture(out, (50.06, 19.94, 219.0), 2048, FS,
+                                     **kw)
+        scenario.write_spoof_capture(out, (50.06, 19.94, 219.0),
+                                     (50.3, 20.2, 15000.0), 2048, FS, **kw)
+        return os.path.getsize(out) == 2 * 2048
+
+    def analysis(**kw):
+        state = dashboard.DashboardState()
+        dashboard.replay_analysis(state, [cap], run_receiver=False, **kw)
+        return state.snapshot()["status"] == "analysis complete"
+
+    return [
+        ("simulator writers", writers),
+        ("spectrogram_file",
+         lambda **kw: spectral.spectrogram_file(
+             cap, FS, 32768, 1024, **kw).shape == (3, 1024)),
+        ("replay_analysis", analysis),
+        ("AnalysisController",
+         lambda **kw: dashboard.AnalysisController(
+             dashboard.DashboardState(), **kw).device.type == "cpu"),
+    ]
+
+
+@pytest.mark.parametrize("which", range(4))
+def test_operator_entry_points_default_to_the_card(no_card, tmp_path,
+                                                   which):
+    name, call = _operator_entry_points(tmp_path)[which]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    assert call(device="cpu"), name
