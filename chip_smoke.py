@@ -125,7 +125,26 @@ Phases, in order; any failure raises and the exit code is non-zero:
    start stopped at once ("stopped by user"), a third start equal to the
    first, and `analyze_capture(sink=HttpSink(url))` in this process
    posting records that the dashboard counts;
-9. print the per-kernel JSON line, the card line, and the success line.
+9. the sharded analysis (`detect --devices`, `runtime/sharded.py` over
+   `parallel/{mesh,halo,fusion}.py`) on 8a's chirp set: (a)
+   `analyze_capture_sharded(paths, devices=[card] * 6)`, a 3 x 2
+   (antenna, time) mesh of one card: each antenna's ranges equal the
+   single-device pre-scan on the same samples (one range from 2.0 s), the
+   fused PSD within rtol 2e-4 of the mean of the per-antenna `welch_psd`,
+   3 acquisition rows, 3 TDOA pairs within 200 samples, B2 and B1 launched
+   6 times each; (b) `sharded_caf_acquire` on the capture head's blocks,
+   'pcf' (group_blocks 4, B1) and 'std' (the GPS grid, B3), each launched
+   6 times, against the per-antenna single-device search (rtol 2e-4,
+   atol 1e-3 * max) and bitwise equal on a second run, then each kernel
+   at the per-shard shape against its plain version (B2 over 8 192 512
+   samples, B1 and B3 over 8 periods); (c) `sharded_pair_xcorr`,
+   `caf_pair` and `lagrange_interp` on the card against the CPU, a
+   `Profiler` stage around B2, a `torch_trace` written with B1 in it; (d)
+   `detect ant0.bin --devices 1` through the CLI in a child: mesh 1 x 1,
+   its JSON equal to the API's; (e) (a) and (b) on distinct cards where
+   the machine has two or more (else a line says so); the host times of
+   (a) beside the single-device equivalents;
+10. print the per-kernel JSON line, the card line, and the success line.
 
 Each kernel's entry in the JSON line, and each of its shapes, carries
 `bound_ms`: the least time the card could take for the same work, the
@@ -330,6 +349,36 @@ def counts(*_):
     os.replace(sys.argv[1] + ".tmp", sys.argv[1])
 signal.signal(signal.SIGUSR1, counts)
 sys.exit(cli.main(sys.argv[2:]))
+"""
+# run in n child processes by phase 9e where the machine has two or more
+# cards: process r joins the group through `init_distributed` (NCCL for
+# CUDA tensors), holds antenna r of argv[5] as 2 time shards on card r and
+# runs the fused PSD and the head's PCF search across the processes;
+# process 0 saves both into argv[4]
+MULTIHOST_WORKER = """
+import json, sys
+import numpy as np, torch
+from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
+from gps_jamming_tpu_torch.ops import codes, iq
+from gps_jamming_tpu_torch.parallel import fusion, mesh as mesh_lib
+pid, n, coord, out = int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:5]
+paths, L, periods = json.loads(sys.argv[5]), int(sys.argv[6]), int(sys.argv[7])
+dev = torch.device("cuda", pid)
+torch.cuda.set_device(dev)
+assert mesh_lib.init_distributed(coord, n, pid, timeout_s=120)
+m = mesh_lib.multihost_mesh(n_antenna=n, devices=[dev] * 2)
+assert m.local_rows == (pid,) and m.distributed
+x = iq.read_iq_file(paths[pid], convention="centered", count=4 * L)
+x = x.reshape(1, 2, L)
+psd, _, pm = fusion.sharded_psd_and_power(x, m, 2.048e6, CFG.detector,
+                                          CFG.spectral)
+surf = fusion.sharded_caf_acquire(
+    x[..., :periods * 2048], m, codes.gps_replica_table_host(2.048e6, 2048),
+    None, 2.048e6, method="pcf", group_blocks=periods // 2)
+if pid == 0:
+    np.savez(out, psd=psd.cpu().numpy(), pm=pm.cpu().numpy(),
+             surf=surf.cpu().numpy())
+torch.distributed.destroy_process_group()
 """
 OP_SECONDS = 8.0                  # phase 8a's captures: 16.4 M samples,
 OP_JAM_START = 2.0                # past 2^24; the jam from 2 s to EOF
@@ -1751,6 +1800,414 @@ def operator_serve(sim: dict, td: str, card: str) -> dict:
     return {"serve": c3, "http_sink": sink_launches, "serve_s": t_run}
 
 
+SHARD_DEVICES = 6                 # phase 9: a 3 x 2 mesh (3 antennas)
+SHARD_PERIODS = 8                 # code periods per shard, 2 groups of 4
+
+
+def shard_compare(label: str, got, want, rtol: float, atol_frac: float):
+    """Fails unless got is within rtol and atol_frac * max of want (on the
+    same device as got); returns the max abs error."""
+    want = want.to(got.device)
+    ok, abs_err, rel = close(got, want, rtol, atol_frac * float(want.max()))
+    print(f"{label}: max_abs_err {abs_err:.3e} max_rel_err {rel:.3e} "
+          f"(rtol {rtol}, atol {atol_frac}*max)", flush=True)
+    fail_unless(ok, f"{label} disagrees")
+    return abs_err
+
+
+def sharded_analysis(paths, devs, label, card) -> dict:
+    """Phase 9a (and 9e): `analyze_capture_sharded(paths, devices=devs)`
+    with the counts from 0: the mesh, each antenna's ranges equal to the
+    single-device pre-scan on the same samples (one range from 2.0 s), the
+    fused PSD within rtol 2e-4 of the mean of the per-antenna `welch_psd`
+    on the card, 3 acquisition rows, 3 TDOA pairs within 200 samples, B2
+    and B1 once per shard. Returns the output, the launches and the
+    checked arrays."""
+    from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from gps_jamming_tpu_torch.models import detector
+    from gps_jamming_tpu_torch.ops import iq, spectral
+    from gps_jamming_tpu_torch.parallel import fusion
+    from gps_jamming_tpu_torch.parallel import mesh as mesh_lib
+    from gps_jamming_tpu_torch.runtime import sharded
+    reset_launches()
+    t0 = time.perf_counter()
+    out = sharded.analyze_capture_sharded(paths, devices=devs)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    n_ant, n_time = len(paths), SHARD_DEVICES // len(paths)
+    fail_unless(out["mesh"] == {"antenna": n_ant, "time": n_time,
+                                "devices": SHARD_DEVICES},
+                f"{label}: mesh {out['mesh']}")
+    fail_unless(launches == {"welch_psd": SHARD_DEVICES,
+                             "pcf": SHARD_DEVICES, "caf_std": 0},
+                f"{label}: launches {launches}, expected B2 and B1 "
+                f"{SHARD_DEVICES} times each")
+    chunk = CFG.detector.power_chunk_samples
+    n = os.path.getsize(paths[0]) // 2
+    L = (n // (n_time * chunk)) * chunk
+    caps = [iq.read_iq_file(p, convention="centered", count=2 * L * n_time)
+            for p in paths]
+    xs = [torch.from_numpy(c).to(devs[0]) for c in caps]
+    for i, x in enumerate(xs):
+        want = detector.power_profile_ranges(
+            detector.power_profile(x, CFG.detector), CFG.detector)
+        got = out["per_antenna"][i]["power_ranges_bytes"]
+        fail_unless(got == want, f"{label}: antenna {i} ranges {got}, "
+                                 f"single-device {want}")
+        fail_unless(len(got) == 1 and abs(got[0][0] / 2 / FS - OP_JAM_START)
+                    <= chunk / FS, f"{label}: antenna {i} ranges {got}")
+    m = mesh_lib.make_mesh(n_ant, n_time, devices=devs)
+    psd, _, _ = fusion.sharded_psd_and_power(
+        mesh_lib.place_blocks([c.reshape(n_time, L) for c in caps], m), m,
+        FS, CFG.detector, CFG.spectral)
+    want = torch.stack([spectral.welch_psd(x, FS, CFG.spectral.nperseg)
+                        for x in xs]).mean(dim=0)
+    shard_compare(f"{label}: psd_fused vs the mean of welch_psd", psd, want,
+                  2e-4, 0.0)
+    peak_db = float(10.0 * np.log10(psd.cpu().numpy().max()))
+    fail_unless(peak_db == out["psd_fused_peak_db"],
+                f"{label}: psd_fused_peak_db {out['psd_fused_peak_db']} "
+                f"!= {peak_db}")
+    acq, tdoa = out["acquisition"], out["tdoa_pairs"]
+    fail_unless(acq is not None and len(acq) == n_ant
+                and all(len(r) == 4 for r in acq),
+                f"{label}: acquisition rows {acq}")
+    fail_unless(tdoa is not None and len(tdoa) == 3
+                and all(abs(r["lag_samples"]) < 200 for r in tdoa),
+                f"{label}: TDOA pairs {tdoa}")
+    print(f"{label}: analyze_capture_sharded on {out['mesh']}: {seconds:.3f}"
+          f" s (first call, the files' reads included); ranges "
+          f"{[a['power_ranges_bytes'] for a in out['per_antenna']]}; fused "
+          f"peak {out['psd_fused_peak_db']:.3f} dB at "
+          f"{out['psd_fused_peak_freq_hz']:.0f} Hz; acquisition "
+          f"{[(r[0]['prn'], r[0]['doppler_hz']) for r in acq]}; TDOA lags "
+          f"{[r['lag_samples'] for r in tdoa]}; launches {launches}; card "
+          f"{card}", flush=True)
+    return {"out": out, "launches": launches, "caps": caps, "L": L,
+            "psd": psd, "paths": list(paths)}
+
+
+def sharded_acquire(head, devs, label, card, freqs) -> dict:
+    """Phase 9b (and 9e): `fusion.sharded_caf_acquire` on the capture
+    head's blocks, 'pcf' (group_blocks 4, B1) and 'std' (the GPS grid,
+    B3), each launched once per shard, against the per-antenna
+    single-device search (rtol 2e-4, atol 1e-3 * max) and bitwise equal
+    on a second run. Returns the surfaces and the launches."""
+    from gps_jamming_tpu_torch.ops import caf, codes
+    from gps_jamming_tpu_torch.parallel import fusion
+    from gps_jamming_tpu_torch.parallel import mesh as mesh_lib
+    n_ant, n_time = head.shape[0], head.shape[1]
+    m = mesh_lib.make_mesh(n_ant, n_time, devices=devs)
+    planes = codes.gps_replica_table_host(FS, N_CODE)
+    rep = codes.replica_tensor(planes, devs[0])
+    res = {}
+    for method, name in (("pcf", "pcf"), ("std", "caf_std")):
+        def run():
+            return fusion.sharded_caf_acquire(
+                head, m, planes, freqs, FS, method=method,
+                group_blocks=SHARD_PERIODS // 2)
+        reset_launches()
+        surf = run()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        fail_unless(launches[name] == SHARD_DEVICES and sum(
+            launches.values()) == SHARD_DEVICES,
+            f"{label} {method}: launches {launches}")
+        err = 0.0
+        for a in range(n_ant):
+            x = torch.from_numpy(head[a].reshape(-1, N_CODE)).to(devs[0])
+            want = (caf.caf_accumulate_pcf(x, rep, FS, n_groups=2 * n_time)
+                    if method == "pcf" else
+                    caf.caf_accumulate(x, rep, freqs, FS))
+            err = max(err, shard_compare(
+                f"{label} {method}: antenna {a} vs the single-device search",
+                surf[a], want, 2e-4, 1e-3))
+        fail_unless(bool(torch.equal(surf, run())),
+                    f"{label} {method}: a second run differs")
+        res[method] = {"surf": surf, "launches": launches,
+                       "max_abs_err": err}
+        print(f"{label} {method}: surface {tuple(surf.shape)}, "
+              f"{SHARD_DEVICES} launches, bitwise repeatable; card {card}",
+              flush=True)
+    return res
+
+
+def shard_kernel_times(a: dict, dev, freqs, kernels: list, card: str):
+    """Each kernel at phase 9's per-shard shape on the card, against its
+    plain version: B2 over time shard 0 and its halo (8 192 512 samples,
+    nperseg 1024), B1 (surface) over 8 periods in 2 groups, B3 over 8
+    periods x 71 bins, 32 PRN x 2048 lags; CUDA-event times, bounds."""
+    from gps_jamming_tpu_torch.ops import codes, cuda_caf, cuda_pcf, cuda_psd
+    L = a["L"]
+    x = torch.from_numpy(a["caps"][0][:L + 512]).to(dev)
+    segs = (x.numel() - 1024) // 512 + 1
+    got = cuda_psd.welch_psd_fused(x, FS, 1024)
+    ref = cuda_psd.welch_psd_reference(x, FS, 1024)
+    ok, abs_err, rel = close(got, ref, 1e-3, 1e-4 * float(ref.max()))
+    fail_unless(ok, "B2 at the shard shape disagrees with its plain version")
+    ms, plain_ms = time_pair(lambda: cuda_psd.welch_psd_fused(x, FS, 1024),
+                             lambda: cuda_psd.welch_psd_reference(x, FS,
+                                                                  1024),
+                             reps=5, inner=3)
+    b2 = with_bound({"n": x.numel(), "ms": ms, "plain_ms": plain_ms,
+                     "max_abs_err": abs_err, "max_rel_err": rel},
+                    fft_flops(segs, 1024) + 10.0 * segs * 1024,
+                    8.0 * x.numel() + 4.0 * 1024)
+    blocks = x[: SHARD_PERIODS * N_CODE].reshape(SHARD_PERIODS, N_CODE)
+    rep = codes.gps_replica_table(FS, N_CODE, dev)
+    y = cuda_pcf.pcf_prologue(blocks, FS, n_groups=2)
+    n_c = cuda_pcf.n_coarse(FS, N_CODE, 7000.0)
+    args = (y, rep, n_c, 6, 2)
+    ref = cuda_pcf.pcf_search_reference(*args)
+    ok, abs_err, rel = close(cuda_pcf.pcf_search(*args), ref, 1e-3,
+                             1e-4 * float(ref.max()))
+    fail_unless(ok, "B1 at the shard shape disagrees with its plain version")
+    ms, plain_ms = time_pair(lambda: cuda_pcf.pcf_search(*args),
+                             lambda: cuda_pcf.pcf_search_reference(*args),
+                             reps=5, inner=3)
+    b1 = with_bound({"ms": ms, "plain_ms": plain_ms, "max_abs_err": abs_err,
+                     "max_rel_err": rel},
+                    *b1_work(32, n_c, 6, 2, N_CODE, False))
+    ref = cuda_caf.caf_accumulate_reference(blocks, rep, freqs, FS)
+    ok, abs_err, rel = close(
+        cuda_caf.caf_accumulate_fused(blocks, rep, freqs, FS), ref, 1e-3,
+        1e-4 * float(ref.max()))
+    fail_unless(ok, "B3 at the shard shape disagrees with its plain version")
+    del ref
+    ms, plain_ms = time_pair(
+        lambda: cuda_caf.caf_accumulate_fused(blocks, rep, freqs, FS),
+        lambda: cuda_caf.caf_accumulate_reference(blocks, rep, freqs, FS),
+        reps=5, inner=3)
+    b3 = with_bound({"ms": ms, "plain_ms": plain_ms, "max_abs_err": abs_err,
+                     "max_rel_err": rel},
+                    *b3_work(32, len(freqs), SHARD_PERIODS, N_CODE))
+    for name, e, shape in (
+            ("welch_psd", b2, f"{x.numel()} samples, nperseg 1024"),
+            ("pcf", b1, f"32 PRN x {n_c} coarse x 6 rows x 2 groups x "
+                        f"{N_CODE}"),
+            ("caf_std", b3, f"32 PRN x {len(freqs)} bins x {SHARD_PERIODS} "
+                            f"x {N_CODE}")):
+        next(k for k in kernels if k["name"] == name)["sharded_shard"] = e
+        print(f"per shard, {name} ({shape}): kernel {e['ms']:.4f} ms, plain "
+              f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']}), share {e['bound_share']:.3f}, "
+              f"max_abs_err {e['max_abs_err']:.3e}; card {card}",
+              flush=True)
+
+
+def sharded_extras(a: dict, head: np.ndarray, dev, td: str, card: str):
+    """Phase 9c: `sharded_pair_xcorr` on the card against the pair math on
+    a CPU mesh (rtol 3e-3, atol 1e-3 * max, the same argmax); `caf_pair`
+    (rtol 3e-3) and `lagrange_interp` (rtol 1e-5) on the card against the
+    CPU; a `Profiler` stage around B2 on the card (its result against the
+    plain version on the CPU); a `torch_trace` around a sharded PCF
+    search written, with B1's correlate kernel in it."""
+    from gps_jamming_tpu_torch.ops import caf, codes, interp, spectral
+    from gps_jamming_tpu_torch.parallel import fusion
+    from gps_jamming_tpu_torch.parallel import mesh as mesh_lib
+    from gps_jamming_tpu_torch.runtime import profiling
+    start = a["out"]["per_antenna"][0]["power_ranges_bytes"][0][0] // 2
+    sl = np.stack([c[start:start + 4096] for c in a["caps"]])
+    g = fusion.sharded_pair_xcorr(
+        sl, mesh_lib.make_mesh(3, 2, devices=[dev] * SHARD_DEVICES))
+    c = fusion.sharded_pair_xcorr(
+        sl, mesh_lib.make_mesh(3, 2, devices=["cpu"] * SHARD_DEVICES))
+    shard_compare("sharded_pair_xcorr card vs CPU", g, c, 3e-3, 1e-3)
+    fail_unless(bool(torch.equal(g.argmax(dim=-1).cpu(), c.argmax(dim=-1))),
+                "sharded_pair_xcorr: the lags differ from the CPU's")
+    freqs = caf.doppler_bins(5000.0, 1000.0)
+    a0, a1 = (torch.from_numpy(s) for s in sl[:2])
+    shard_compare("caf_pair card vs CPU",
+                  caf.caf_pair(a0.to(dev), a1.to(dev), freqs, FS),
+                  caf.caf_pair(a0, a1, freqs, FS), 3e-3, 1e-3)
+    xi = torch.tensor([0.0, 1.0, 2.0, 3.0])
+    yi, xq = 2.0 * xi ** 3 - xi + 1.0, torch.tensor([0.5, 1.5, 2.5])
+    shard_compare("lagrange_interp card vs CPU",
+                  interp.lagrange_interp(xi.to(dev), yi.to(dev), xq),
+                  interp.lagrange_interp(xi, yi, xq), 1e-5, 0.0)
+    prof = profiling.Profiler(profiling.EventLog())
+    x = torch.from_numpy(a["caps"][0][: 1 << 21])
+    with prof.stage("welch_psd", n_samples=x.numel()) as box:
+        box["out"] = spectral.welch_psd(x.to(dev), FS, 1024)
+    shard_compare("Profiler stage: B2 on the card vs the CPU", box["out"],
+                  spectral.welch_psd(x, FS, 1024), 1e-3, 1e-4)
+    (st,) = prof.report()
+    fail_unless(st["calls"] == 1 and st["samples_per_s"] > 0,
+                f"Profiler: {st}")
+    tdir = os.path.join(td, "trace")
+    with profiling.torch_trace(tdir):
+        fusion.sharded_caf_acquire(
+            head, mesh_lib.make_mesh(3, 2, devices=[dev] * SHARD_DEVICES),
+            codes.gps_replica_table_host(FS, N_CODE), None, FS,
+            method="pcf", group_blocks=SHARD_PERIODS // 2)
+        torch.cuda.synchronize()
+    path = os.path.join(tdir, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    n_b1 = sum("pcf_correlate" in str(ev.get("name", "")) for ev in events)
+    print(f"Profiler stage {st}; torch_trace: {os.path.getsize(path)} bytes,"
+          f" {len(events)} events, {n_b1} of B1's correlate kernel; card "
+          f"{card}", flush=True)
+    fail_unless(n_b1 >= 1, "torch_trace holds no B1 kernel")
+
+
+def multihost_cards(a: dict, b: dict, td: str, card: str, n_cards: int):
+    """Phase 9e, across processes: min(3, n_cards) processes, each one
+    antenna on its own card as 2 time shards, joined by `init_distributed`
+    on loopback (NCCL for the CUDA tensors): the fused PSD within rtol
+    2e-4 of the mean of those antennas' `welch_psd` and each antenna's PCF
+    surface within rtol 2e-4, atol 1e-3 * max of 9b's."""
+    import socket
+
+    from gps_jamming_tpu_torch.ops import spectral
+    n = min(3, n_cards)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = os.path.join(td, "multihost.npz")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MULTIHOST_WORKER, str(r), str(n),
+         f"127.0.0.1:{port}", out, json.dumps(a["paths"]), str(a["L"]),
+         str(SHARD_PERIODS)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(n)]
+    try:
+        res = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (_, err) in zip(procs, res):
+        fail_unless(p.returncode == 0, f"phase 9e: a process exited "
+                                       f"{p.returncode}: {err[-2000:]}")
+    got = np.load(out)
+    dev = a["psd"].device
+    want = torch.stack([spectral.welch_psd(torch.from_numpy(c).to(dev), FS,
+                                           1024)
+                        for c in a["caps"][:n]]).mean(dim=0)
+    shard_compare(f"phase 9e: {n} processes' fused PSD vs the mean of "
+                  "welch_psd", torch.from_numpy(got["psd"]).to(dev), want,
+                  2e-4, 0.0)
+    shard_compare(f"phase 9e: {n} processes' PCF surfaces vs 9b's",
+                  torch.from_numpy(got["surf"]).to(dev),
+                  b["pcf"]["surf"][:n], 2e-4, 1e-3)
+    print(f"phase 9e: {n} processes on {n} cards, the antenna gather over "
+          f"torch.distributed: {time.perf_counter() - t0:.1f} s; card "
+          f"{card}", flush=True)
+
+
+def sharded_phase(sim: dict, td: str, card: str, dev, kernels: list) -> dict:
+    """Phase 9: the sharded analysis (`detect --devices`) on 8a's chirp
+    set over a 3 x 2 mesh of six entries of the card: (a) the API, (b) the
+    sharded acquisition, the kernels at the per-shard shape, (c) the pair
+    xcorr, `caf_pair`, `lagrange_interp`, `Profiler` and `torch_trace`,
+    (d) the CLI in a child, (e) distinct cards where there are two or
+    more; the host times of (a) beside the single-device equivalents.
+    Returns the launches per path."""
+    from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from gps_jamming_tpu_torch.models import detector
+    from gps_jamming_tpu_torch.ops import caf, codes, iq, spectral
+    from gps_jamming_tpu_torch.parallel import fusion
+    from gps_jamming_tpu_torch.parallel import mesh as mesh_lib
+    from gps_jamming_tpu_torch.runtime import sharded
+    paths = sim["chirp"]
+    same = [dev] * SHARD_DEVICES
+    a = sharded_analysis(paths, same, "phase 9a", card)
+    L = a["L"]
+    head = np.stack([c.reshape(2, L)[:, : SHARD_PERIODS * N_CODE]
+                     for c in a["caps"]])
+    freqs = caf.doppler_bins(CFG.acquisition.doppler_max_hz,
+                             CFG.acquisition.doppler_step_hz)
+    b = sharded_acquire(head, same, "phase 9b", card, freqs)
+    shard_kernel_times(a, dev, freqs, kernels, card)
+    sharded_extras(a, head, dev, td, card)
+
+    # (d) the CLI in a child, one file on a 1 x 1 mesh, against the API
+    (run,) = operator_cli([["detect", paths[0], "--devices", "1"]], td,
+                          "phase 9d")
+    want = json.loads(json.dumps(sharded.analyze_capture_sharded(
+        paths[:1], n_devices=1)))
+    fail_unless(run["out"] == want, f"phase 9d: the CLI's JSON "
+                                    f"{run['out']} != the API's {want}")
+    # 8 s at 2.048 MS/s are 250 x 2 chunks: one shard and two trim alike
+    fail_unless(run["out"]["per_antenna"][0]
+                == json.loads(json.dumps(a["out"]["per_antenna"][0])),
+                "phase 9d: antenna 0 differs from 9a's")
+    fail_unless(run["launches"] == {"welch_psd": 1, "pcf": 1, "caf_std": 0},
+                f"phase 9d: launches {run['launches']}")
+    print(f"phase 9d: `detect {os.path.basename(paths[0])} --devices 1` in "
+          f"a child: mesh {run['out']['mesh']}, JSON equal to the API's; "
+          f"cli.main {run['seconds']:.3f} s; launches {run['launches']}",
+          flush=True)
+
+    # (e) distinct cards
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        spread = [torch.device("cuda", i % n_cards)
+                  for i in range(SHARD_DEVICES)]
+        e = sharded_analysis(paths, spread, "phase 9e", card)
+        shard_compare("phase 9e: psd_fused vs 9a's", e["psd"], a["psd"],
+                      2e-4, 0.0)
+        fail_unless(e["out"]["per_antenna"] == a["out"]["per_antenna"]
+                    and e["out"]["tdoa_pairs"] == a["out"]["tdoa_pairs"],
+                    "phase 9e: ranges or lags differ from 9a's")
+        be = sharded_acquire(head, spread, "phase 9e", card, freqs)
+        for method in ("pcf", "std"):
+            shard_compare(f"phase 9e {method}: distinct cards vs 9b",
+                          be[method]["surf"], b[method]["surf"], 2e-4, 1e-3)
+        multihost_cards(a, b, td, card, n_cards)
+    else:
+        print(f"phase 9e: not run: the machine has {n_cards} CUDA card, and "
+              "distinct cards need two or more", flush=True)
+
+    # the host seconds of (a) beside the single-device equivalents, each
+    # from the files and ending in a read: the API on a 3 x 1 mesh (one
+    # shard per antenna), the per-antenna ops on one device (read, upload,
+    # pre-scan, Welch PSD, the head's PCF search of 16 periods in 4
+    # groups; then the pair xcorr), and the files' reads alone
+    planes = codes.gps_replica_table_host(FS, N_CODE)
+
+    def read():
+        return [iq.read_iq_file(p, convention="centered", count=4 * L)
+                for p in paths]
+
+    def single_device():
+        rep = codes.replica_tensor(planes, dev)
+        psds, peaks = [], []
+        caps = read()
+        for c in caps:
+            x = torch.from_numpy(c).to(dev)
+            detector.power_profile_ranges(
+                detector.power_profile(x, CFG.detector), CFG.detector)
+            psds.append(spectral.welch_psd(x, FS, CFG.spectral.nperseg))
+            h = x.reshape(2, L)[:, : SHARD_PERIODS * N_CODE]
+            peaks.append(caf.caf_accumulate_pcf(
+                h.reshape(-1, N_CODE), rep, FS, n_groups=4).amax(dim=(1, 2)))
+        torch.stack(psds).mean(dim=0).cpu()
+        torch.stack(peaks).cpu()
+        fusion.sharded_pair_xcorr(
+            np.stack([c[:4096] for c in caps]),
+            mesh_lib.make_mesh(3, 1, devices=[dev] * 3)).argmax(-1).cpu()
+
+    times = {
+        "3x2": host_ms(lambda: sharded.analyze_capture_sharded(
+            paths, devices=same), reps=2),
+        "3x1": host_ms(lambda: sharded.analyze_capture_sharded(
+            paths, devices=[dev] * 3), reps=2),
+        "single": host_ms(single_device, reps=2),
+        "read": host_ms(read, reps=2)}
+    print(f"phase 9 host ms (median of 2 after a warm-up, each from the "
+          f"files and ending in a read): analyze_capture_sharded 3 x 2 on "
+          f"one card {times['3x2']:.1f}, 3 x 1 {times['3x1']:.1f}; the "
+          f"single-device equivalents {times['single']:.1f}; the three "
+          f"files' reads alone {times['read']:.1f}; card {card}", flush=True)
+    return {"sharded_analysis": a["launches"],
+            "sharded_acquire_pcf": b["pcf"]["launches"],
+            "sharded_acquire_std": b["std"]["launches"],
+            "cli_detect_devices": run["launches"], "host_ms": times}
+
+
 def phases(args_cli, start_render) -> int:
     """Every phase after the CUDA check. `start_render(name)` starts a
     receiver fixture's render (`render_fixture`) in a worker process and
@@ -2395,7 +2852,15 @@ def phases(args_cli, start_render) -> int:
     srv = operator_serve(sim, op_td, card)
     print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 9. results
+    # 9. the sharded analysis (`detect --devices`) on 8a's chirp set: (a)
+    # the API on a 3 x 2 mesh of the card, (b) the sharded acquisition,
+    # (c) the pair xcorr, caf_pair, lagrange_interp and the profiling, (d)
+    # the CLI in a child, (e) distinct cards where the machine has them
+    t0 = time.perf_counter()
+    shard = sharded_phase(sim, op_td, card, dev, kernels)
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 10. results
     for k in kernels:
         k["launches"] = (std_launches if k["name"] == "caf_std"
                          else launches)[k["name"]]
@@ -2417,7 +2882,10 @@ def phases(args_cli, start_render) -> int:
             "cli_spectrum": spec_launches[k["name"]],
             "cli_report": rep_launches[k["name"]],
             "serve_three_starts": srv["serve"][k["name"]],
-            "analyze_capture_http_sink": srv["http_sink"][k["name"]]}
+            "analyze_capture_http_sink": srv["http_sink"][k["name"]],
+            **{p: shard[p][k["name"]] for p in (
+                "sharded_analysis", "sharded_acquire_pcf",
+                "sharded_acquire_std", "cli_detect_devices")}}
         k["library_ms"] = None
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -20,9 +20,9 @@ that every verb accepts it. `detect` runs the streaming receiver unless
 `--batch-receiver` (or `--no-receiver`) is given; `receiver --streaming`
 runs it over segments of `--segment-seconds`. `--system` takes the JAX
 CLI's systems (GPS, Galileo, GLONASS; `receiver` also SBAS, whose
-messages it prints). `--devices` (the sharded analysis, ROADMAP A8) and
-the `benchmark` verb (ROADMAP A2) are not ported yet; `--devices` exits
-with status 2.
+messages it prints). `detect --devices N` runs the sharded analysis
+over an (antenna, time) mesh of the first N cards (`--device cpu`: N CPU
+entries). The `benchmark` verb (ROADMAP A2) is not ported yet.
 """
 from __future__ import annotations
 
@@ -65,25 +65,48 @@ def _config_with_overrides(args):
     return cfg
 
 
-def _refuse(verb: str, refused: list[tuple[str, str]]) -> int:
-    """Print what `verb` cannot run yet, by ROADMAP item, and return 2."""
-    for flags, item in refused:
-        print(f"{verb}: {flags} needs {item}, which is not ported yet",
-              file=sys.stderr)
-    return 2
-
-
-A8 = "ROADMAP A8 (multi-device)"
-
-
 def _device(args):
     from .device import as_device
     return as_device(args.device)
 
 
+def _mesh_devices(args):
+    """The devices of `detect --devices N`: N CPU entries under `--device
+    cpu`, else None (the first N visible cards)."""
+    if args.device is not None and _device(args).type == "cpu":
+        return ["cpu"] * args.devices
+    return None
+
+
 def cmd_detect(args) -> int:
     if args.devices:
-        return _refuse("detect", [("--devices", A8)])
+        # the sharded analysis over an (antenna, time) mesh; the flags of
+        # the serial receiver pipeline do not apply there: reject them
+        # loudly instead of silently ignoring them
+        unsupported = [name for name, bad in [
+            ("--checkpoint", args.checkpoint),
+            ("--resume", args.resume),
+            ("--hold", args.hold),
+            ("--filter ekf", args.filter != "wls"),
+            ("--batch-receiver", args.batch_receiver),
+            ("--wire-bits", args.wire_bits != "auto"),
+            ("--no-receiver", args.no_receiver),
+            ("--no-localize", args.no_localize),
+            ("--telemetry-out", args.telemetry_out),
+            ("--positions", args.positions)] if bad]
+        if unsupported:
+            print("--devices runs the sharded power/PSD/acquisition/"
+                  f"TDOA analysis; not supported there: "
+                  f"{', '.join(unsupported)}", file=sys.stderr)
+            return 2
+        from .runtime import sharded
+        out = sharded.analyze_capture_sharded(
+            args.files, n_devices=args.devices,
+            cfg=_config_with_overrides(args), system=args.system,
+            sample_rate=args.sample_rate, max_seconds=args.max_seconds,
+            devices=_mesh_devices(args))
+        print(json.dumps(out, default=_np_default, indent=2))
+        return 0
     from .runtime import pipeline
     positions = _parse_positions(args.positions, len(args.files))
     res = pipeline.analyze_capture(
@@ -570,7 +593,9 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--resume", action="store_true",
                    help="resume from --checkpoint")
     d.add_argument("--devices", type=int,
-                   help="sharded analysis over N devices (ROADMAP A8)")
+                   help="run the sharded analysis over N devices on an "
+                        "(antenna, time) mesh: the first N cards, or N "
+                        "CPU entries under --device cpu")
     _add_device(d)
     d.set_defaults(fn=cmd_detect)
 

@@ -1,5 +1,5 @@
 """Acquisition surfaces (counterpart of gps_jamming_tpu.ops.caf:
-`doppler_bins`, `caf_surface`, `caf_accumulate`, `caf_peak`,
+`doppler_bins`, `caf_surface`, `caf_accumulate`, `caf_pair`, `caf_peak`,
 `pcf_doppler_hz`, `pcf_profitable`, `caf_accumulate_pcf`,
 `caf_accumulate_pcf_fdma`).
 
@@ -46,13 +46,19 @@ def caf_surface(x: torch.Tensor, replica: torch.Tensor, freqs,
     noise floor by ~1e-4 relative; keeping the reference's arithmetic keeps
     the two packages' GLONASS std searches equal to that level.
     """
+    mf = torch.fft.fft(_doppler_mix(x, freqs, sample_rate), dim=-1)
+    v = torch.fft.ifft(mf[..., None, :, :] * replica[:, None, :], dim=-1)
+    return v.real * v.real + v.imag * v.imag
+
+
+def _doppler_mix(x: torch.Tensor, freqs, sample_rate: float) -> torch.Tensor:
+    """x (..., n) mixed down by each Doppler bin: (..., F, n), out[f, k] =
+    x[k] e^{-j2pi f k/fs}, the float32 phase in the order of the JAX
+    package's `_doppler_mix_p`."""
     t = codes.sample_times(x.shape[-1], sample_rate, x.device)
     f = torch.as_tensor(np.asarray(freqs, np.float32), device=x.device)
     phase = (-2.0 * math.pi) * f[:, None] * t[None, :]
-    osc = torch.polar(torch.ones_like(phase), phase)
-    mf = torch.fft.fft(x[..., None, :] * osc, dim=-1)      # (..., F, n)
-    v = torch.fft.ifft(mf[..., None, :, :] * replica[:, None, :], dim=-1)
-    return v.real * v.real + v.imag * v.imag
+    return x[..., None, :] * torch.polar(torch.ones_like(phase), phase)
 
 
 # The JAX package's gates for its Pallas acquisition kernels
@@ -123,6 +129,23 @@ def caf_accumulate(blocks: torch.Tensor, replica: torch.Tensor, freqs,
         return cuda_caf.caf_accumulate_reference(blocks, replica, freqs,
                                                  sample_rate)
     return cuda_caf.caf_accumulate_fused(blocks, replica, freqs, sample_rate)
+
+
+def caf_pair(a: torch.Tensor, b: torch.Tensor, freqs,
+             sample_rate: float) -> torch.Tensor:
+    """Signal-vs-signal CAF (delay x Doppler) for one antenna pair, in
+    plain torch (no TPU kernel computes it).
+
+    out[f] = |IFFT(FFT(a * e^{-j2pi f t}) * conj(FFT(b)))|^2 over circular
+    lags, both FFTs zero-padded to 2n so that lags are linear within +/- n.
+    a, b: (n,) complex64; freqs: (F,) Doppler bins [Hz]. Returns (F, 2n)
+    float32.
+    """
+    nfft = 2 * a.shape[-1]
+    af = torch.fft.fft(_doppler_mix(a, freqs, sample_rate), n=nfft, dim=-1)
+    bf = torch.fft.fft(b, n=nfft, dim=-1)
+    v = torch.fft.ifft(af * bf.conj()[..., None, :], dim=-1)
+    return v.real * v.real + v.imag * v.imag
 
 
 def caf_peak(power: torch.Tensor):

@@ -1,0 +1,176 @@
+"""Profiling and structured event tracing (counterpart of
+gps_jamming_tpu.runtime.profiling).
+
+The reference's observability is wall-clock stamping (`sdrmain.c:195-204`),
+a mutex-guarded message ring (`sdrout.c:66-81`), and the (compiled, unused)
+RTKLIB trace framework (`lib/rtklib/rtkcmn.c:463-505`). Here: a structured
+JSONL event log, throughput counters (samples/s per stage), stage timers
+that wait for the devices of their results, and a `torch.profiler` trace
+context that writes a Chrome trace.
+
+A CUDA result is waited for with `torch.cuda.synchronize` of its device;
+no device-to-host copy is needed.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import threading
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..device import as_device
+
+
+class EventLog:
+    """Append-only structured event log with an in-memory ring.
+
+    Replaces the reference's `add_message` 100-entry ring (sdrout.c:66-81):
+    thread-safe, typed events, optional JSONL persistence.
+    """
+
+    def __init__(self, path: str | None = None, ring_size: int = 1000):
+        self._lock = threading.Lock()
+        self._ring: list[dict] = []
+        self._ring_size = ring_size
+        self._fh = open(path, "a") if path else None
+        self._t0 = time.time()
+
+    def emit(self, kind: str, **fields) -> dict:
+        ev = {"t": round(time.time() - self._t0, 6), "kind": kind, **fields}
+        with self._lock:
+            self._ring.append(ev)
+            if len(self._ring) > self._ring_size:
+                del self._ring[: len(self._ring) - self._ring_size]
+            if self._fh:
+                self._fh.write(json.dumps(ev, default=_np_default) + "\n")
+                self._fh.flush()
+        return ev
+
+    def tail(self, n: int = 100) -> list[dict]:
+        with self._lock:
+            return list(self._ring[-n:])
+
+    def close(self) -> None:
+        with self._lock:
+            if self._fh:
+                self._fh.close()
+                self._fh = None
+
+
+def _np_default(o):
+    if isinstance(o, np.integer):
+        return int(o)
+    if isinstance(o, np.floating):
+        return float(o)
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    return str(o)
+
+
+@dataclass
+class StageStats:
+    """Rolling throughput stats for one pipeline stage."""
+    name: str
+    n_calls: int = 0
+    total_s: float = 0.0
+    total_samples: int = 0
+    _t_start: float = field(default=0.0, repr=False)
+
+    def start(self) -> None:
+        self._t_start = time.perf_counter()
+
+    def stop(self, n_samples: int = 0, out=None) -> float:
+        """End the timed region. Passing `out` (any nesting of tensors)
+        waits for their devices first (`sync`)."""
+        if out is not None:
+            sync(out)
+        dt = time.perf_counter() - self._t_start
+        self.n_calls += 1
+        self.total_s += dt
+        self.total_samples += int(n_samples)
+        return dt
+
+    @property
+    def samples_per_s(self) -> float:
+        return self.total_samples / self.total_s if self.total_s else 0.0
+
+    @property
+    def mean_ms(self) -> float:
+        return 1e3 * self.total_s / self.n_calls if self.n_calls else 0.0
+
+    def as_dict(self) -> dict:
+        return {"stage": self.name, "calls": self.n_calls,
+                "mean_ms": round(self.mean_ms, 3),
+                "samples_per_s": round(self.samples_per_s, 1)}
+
+
+def _cuda_devices(out, found: set) -> set:
+    if isinstance(out, torch.Tensor):
+        if out.is_cuda:
+            found.add(out.device)
+    elif isinstance(out, dict):
+        for v in out.values():
+            _cuda_devices(v, found)
+    elif isinstance(out, (list, tuple)):
+        for v in out:
+            _cuda_devices(v, found)
+    return found
+
+
+def sync(out) -> None:
+    """Wait until the work producing `out` is done: synchronise the device
+    of every CUDA tensor in a nesting of dicts, lists and tuples (named
+    tuples included). CPU tensors and other leaves are ready already."""
+    for dev in _cuda_devices(out, set()):
+        torch.cuda.synchronize(dev)
+
+
+class Profiler:
+    """Per-stage samples/s counters + event log."""
+
+    def __init__(self, event_log: EventLog | None = None):
+        self.stages: dict[str, StageStats] = {}
+        self.log = event_log
+
+    @contextlib.contextmanager
+    def stage(self, name: str, n_samples: int = 0):
+        """Time the block; put its result in the yielded dict under "out"
+        to wait for it before the clock stops."""
+        st = self.stages.setdefault(name, StageStats(name))
+        st.start()
+        box = {}
+        try:
+            yield box
+        finally:
+            dt = st.stop(n_samples, out=box.get("out"))
+            if self.log is not None:
+                self.log.emit("stage", stage=name, ms=round(dt * 1e3, 3),
+                              samples=n_samples)
+
+    def report(self) -> list[dict]:
+        return [s.as_dict() for s in self.stages.values()]
+
+
+@contextlib.contextmanager
+def torch_trace(log_dir: str, device=None):
+    """`torch.profiler` trace of the block, written to
+    `<log_dir>/trace.json` (Chrome trace format); yields the profile.
+
+    Traces host activity and, on the card (`device` None: the card,
+    RuntimeError where there is none), CUDA activity; `device="cpu"`
+    traces the host only. The counterpart of the JAX package's
+    `xla_trace`, except that a trace which cannot start or be written
+    raises instead of being skipped."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if as_device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -36,7 +36,11 @@ streaming receiver's wire unpacks equal the CPU's for every byte; on a
 4.5 s jammed GPS capture it gives the CPU's spans, B1 once per
 acquisition attempt, the tracker within phase 5b's limits, and a killed
 and resumed run equals the uninterrupted one bitwise; its window upload
-overlaps running compute and is read only after its event.
+overlaps running compute and is read only after its event. The sharded
+path on a mesh of one repeated card launches B1 or B3 once per shard and
+B2 once per time shard, and equals the single-device calls (rtol 2e-4,
+atol 1e-3 * max for the surfaces) and the CPU mesh; on two distinct
+cards, where the machine has them, it equals the repeated card bitwise.
 """
 import numpy as np
 import pytest
@@ -863,3 +867,121 @@ def test_dashboard_start_stop_start_on_cuda(dev, tmp_path):
     finally:
         srv.shutdown()
         srv.server_close()
+
+
+# --- the sharded path on a mesh of one repeated card ---------------------
+
+def _sharded_case(n_ant, n_time, block, seed):
+    from gps_jamming_tpu_torch.parallel import fusion
+    rng = np.random.default_rng(seed)
+    s = (rng.standard_normal((n_ant, n_time * block))
+         + 1j * rng.standard_normal((n_ant, n_time * block)))
+    s = s.astype(np.complex64)
+    return s, fusion.shard_blocks(s, n_ant, n_time, block)
+
+
+@pytest.mark.parametrize("method", ["pcf", "std"])
+def test_sharded_acquisition_on_a_repeated_card(dev, method):
+    """A 2 x 4 mesh of one card: one search per shard (B1 for 'pcf', B3
+    for 'std'), so LAUNCHES rises by 8; each antenna's surface equals the
+    single-device search of its 16 periods (rtol 2e-4, atol 1e-3 * max),
+    and a second run gives the same bits."""
+    from gps_jamming_tpu_torch.ops import caf, codes
+    from gps_jamming_tpu_torch.parallel import fusion
+    from gps_jamming_tpu_torch.parallel import mesh as mesh_lib
+    n_code, gb = 2048, 2
+    streams, blocks = _sharded_case(2, 4, 4 * n_code, seed=31)
+    planes = codes.gps_replica_table_host(FS, n_code)
+    freqs = caf.doppler_bins(7000.0, 500.0)
+    m = mesh_lib.make_mesh(2, 4, devices=[dev] * 8)
+    counter = cuda_pcf if method == "pcf" else cuda_caf
+    before = counter.LAUNCHES
+    surf = fusion.sharded_caf_acquire(blocks, m, planes, freqs, FS,
+                                      method=method, group_blocks=gb)
+    torch.cuda.synchronize()
+    assert counter.LAUNCHES == before + 8
+    assert surf.device == dev
+    rep = codes.replica_tensor(planes, dev)
+    for a in range(2):
+        x = torch.from_numpy(streams[a].reshape(-1, n_code)).to(dev)
+        want = (caf.caf_accumulate_pcf(x, rep, FS, n_groups=16 // gb)
+                if method == "pcf" else
+                caf.caf_accumulate(x, rep, freqs, FS))
+        _assert_close(surf[a], want, 2e-4, 1e-3 * float(want.max()))
+    again = fusion.sharded_caf_acquire(blocks, m, planes, freqs, FS,
+                                       method=method, group_blocks=gb)
+    assert torch.equal(surf, again)
+
+
+def test_sharded_psd_on_a_repeated_card(dev):
+    """A 2 x 4 mesh of one card: B2 once per time shard (8 launches); the
+    per-antenna PSDs within rtol 2e-4 of `welch_psd` of the whole stream on
+    the card (one launch each), the fused PSD of their mean, the power map
+    rtol 1e-5 of `chunk_power`."""
+    from gps_jamming_tpu_torch.config import DetectorConfig, SpectralConfig
+    from gps_jamming_tpu_torch.ops import power
+    from gps_jamming_tpu_torch.parallel import fusion
+    from gps_jamming_tpu_torch.parallel import mesh as mesh_lib
+    streams, blocks = _sharded_case(2, 4, 1 << 17, seed=32)
+    m = mesh_lib.make_mesh(2, 4, devices=[dev] * 8)
+    before = cuda_psd.LAUNCHES
+    fused, per_ant, pm = fusion.sharded_psd_and_power(
+        blocks, m, FS, DetectorConfig(), SpectralConfig())
+    torch.cuda.synchronize()
+    assert cuda_psd.LAUNCHES == before + 8
+    x = torch.from_numpy(streams).to(dev)
+    want = torch.stack([spectral.welch_psd(r, FS, 1024) for r in x])
+    assert cuda_psd.LAUNCHES == before + 10
+    _assert_close(per_ant, want, 2e-4, 0.0)
+    _assert_close(fused, want.mean(dim=0), 2e-4, 0.0)
+    _assert_close(pm, power.chunk_power(x, 32768), 1e-5, 0.0)
+
+
+def test_sharded_analysis_on_a_repeated_card_matches_cpu(dev, tmp_path):
+    """`analyze_capture_sharded` over 6 entries of one card against 6 CPU
+    entries on a 1 s jammed set: B2 and B1 six times each; ranges, PRNs,
+    Dopplers and lags equal, baseline and threshold rtol 1e-5, peaks rtol
+    2e-4, the fused peak within 1e-3 dB."""
+    from gps_jamming_tpu_torch.runtime import sharded
+    paths, _ = _jammed_set(tmp_path)
+    before = (cuda_psd.LAUNCHES, cuda_pcf.LAUNCHES)
+    g = sharded.analyze_capture_sharded(paths, devices=[dev] * 6)
+    assert (cuda_psd.LAUNCHES - before[0], cuda_pcf.LAUNCHES - before[1]) \
+        == (6, 6)
+    c = sharded.analyze_capture_sharded(paths, devices=["cpu"] * 6)
+    assert g["mesh"] == c["mesh"] == {"antenna": 3, "time": 2, "devices": 6}
+    assert abs(g["psd_fused_peak_db"] - c["psd_fused_peak_db"]) < 1e-3
+    assert g["psd_fused_peak_freq_hz"] == c["psd_fused_peak_freq_hz"]
+    for ga, ca in zip(g["per_antenna"], c["per_antenna"]):
+        assert ga["power_ranges_bytes"] == ca["power_ranges_bytes"] != []
+        for k in ("baseline", "threshold"):
+            assert ga[k] == pytest.approx(ca[k], rel=1e-5)
+    for ga, ca in zip(g["acquisition"], c["acquisition"]):
+        assert [(r["prn"], r["doppler_hz"]) for r in ga] == \
+            [(r["prn"], r["doppler_hz"]) for r in ca]
+        np.testing.assert_allclose([r["peak"] for r in ga],
+                                   [r["peak"] for r in ca], rtol=2e-4)
+    assert g["tdoa_pairs"] == c["tdoa_pairs"]
+
+
+def test_sharded_acquisition_on_distinct_cards(dev):
+    """Where the machine has two or more cards: the 'pcf' search on a
+    2 x 1 mesh of two distinct cards equals the repeated-card mesh bitwise
+    (each card runs the same kernel on the same shard), and each result
+    is read on the mesh's first card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from gps_jamming_tpu_torch.ops import codes
+    from gps_jamming_tpu_torch.parallel import fusion
+    from gps_jamming_tpu_torch.parallel import mesh as mesh_lib
+    _, blocks = _sharded_case(2, 1, 8 * 2048, seed=33)
+    planes = codes.gps_replica_table_host(FS, 2048)
+    two = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    got = fusion.sharded_caf_acquire(
+        blocks, mesh_lib.make_mesh(2, 1, devices=two), planes, None, FS,
+        method="pcf", group_blocks=4)
+    want = fusion.sharded_caf_acquire(
+        blocks, mesh_lib.make_mesh(2, 1, devices=[dev] * 2), planes, None,
+        FS, method="pcf", group_blocks=4)
+    assert got.device == two[0]
+    assert torch.equal(got, want)

@@ -22,7 +22,8 @@
   galileo`; `receiver --system sbas` on a 2.5 s SBAS capture, its MT12
   rows); in process, the streaming receiver's flags (`detect` by
   default, `--checkpoint`, `--resume`, `--wire-bits`, `receiver
-  --streaming`) do too; `--devices` (ROADMAP A8) exits 2.
+  --streaming`) do too; `--devices` with a flag of the serial pipeline
+  exits 2 with the JAX CLI's message.
 """
 import contextlib
 import io
@@ -425,8 +426,13 @@ def test_cli_runs_the_streaming_flags(capture_set, argv, tmp_path, capsys):
         assert got.get(k) == want.get(k), k
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["detect", "a.bin", "--devices", "4"], "A8")])
-def test_cli_refuses_unported_flags(argv, item, capsys):
-    assert tcli.main(argv) == 2
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+@pytest.mark.parametrize("argv", [
+    ["detect", "a.bin", "--devices", "4", "--checkpoint", "d.ckpt"]])
+def test_cli_refuses_unported_flags(argv, capsys):
+    """The sharded analysis rejects the serial pipeline's flags as the JAX
+    CLI does: exit 2 and its message."""
+    assert jcli.main(argv) == 2
+    want = capsys.readouterr().err
+    assert tcli.main(argv + ["--device", "cpu"]) == 2
+    assert capsys.readouterr().err == want
+    assert "not supported there: --checkpoint" in want

@@ -7,8 +7,9 @@
   device (`entry.entry()`, `detector.power_profile_file`, `run_receiver` on
   a numpy array, the streaming receiver, the simulator's writers,
   `spectrogram_file`, the dashboard's `replay_analysis` and
-  `AnalysisController`) raise RuntimeError; named "cpu", or given a CPU
-  tensor, they run.
+  `AnalysisController`, the mesh, the sharded analysis and its `detect
+  --devices`, the trace context) raise RuntimeError; named "cpu", or given
+  a CPU tensor, they run.
 """
 import dataclasses
 import enum
@@ -207,6 +208,47 @@ def _operator_entry_points(tmp_path):
 def test_operator_entry_points_default_to_the_card(no_card, tmp_path,
                                                    which):
     name, call = _operator_entry_points(tmp_path)[which]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    assert call(device="cpu"), name
+
+
+def _multi_device_entry_points(tmp_path):
+    """(name, call given no device, call on the CPU) of the mesh, the
+    sharded analysis, its CLI verb and the trace context."""
+    from gps_jamming_tpu_torch import cli
+    from gps_jamming_tpu_torch.parallel import mesh as mesh_lib
+    from gps_jamming_tpu_torch.runtime import profiling, sharded
+    caps = [_capture_bin(tmp_path / f"a{i}") for i in range(2)]
+
+    def trace(**kw):
+        with profiling.torch_trace(str(tmp_path / "tr"), **kw):
+            torch.ones(4).sum()
+        return os.path.getsize(tmp_path / "tr" / "trace.json") > 0
+
+    def mesh(**kw):
+        m = mesh_lib.make_mesh(1, None, ["cpu"] * 2 if kw else None)
+        return m.shape == {"antenna": 1, "time": 2}
+
+    return [
+        ("make_mesh", mesh),
+        ("analyze_capture_sharded",
+         lambda **kw: sharded.analyze_capture_sharded(
+             caps, n_devices=4, devices=["cpu"] * 4 if kw else None)[
+                 "mesh"] == {"antenna": 2, "time": 2, "devices": 4}),
+        ("detect --devices",
+         lambda **kw: cli.main(["detect", *caps, "--devices", "4"]
+                               + (["--device", "cpu"] if kw else [])) == 0),
+        ("torch_trace", trace),
+    ]
+
+
+@pytest.mark.parametrize("which", range(4))
+def test_multi_device_entry_points_default_to_the_card(no_card, tmp_path,
+                                                       which):
+    for i in range(2):
+        (tmp_path / f"a{i}").mkdir()
+    name, call = _multi_device_entry_points(tmp_path)[which]
     with pytest.raises(RuntimeError, match="CUDA"):
         call()
     assert call(device="cpu"), name
