@@ -46,7 +46,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    20.8 s capture of a 24-satellite shell (`sim/constellation.py`, NumPy,
    rendered in a worker process, as every receiver fixture is: this one
    while the kernels build and phases 3-4 run, phase 6's from the end of
-   phase 3 on), scaled to RTL-SDR uint8 and written as a .bin, then `pipeline.analyze_capture([bin], streaming=False)` on the
+   phase 3 on, phase 10's from the end of phase 6 on), scaled to RTL-SDR uint8 and written as a .bin, then `pipeline.analyze_capture([bin], streaming=False)` on the
    card (pre-scan, `run_receiver`, detector, telemetry records): at least
    4 channels decoded with the simulated ephemeris and a fix within 30 m
    (50 m in height); no jamming flagged, the last safe fix within 30 m,
@@ -144,7 +144,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
    its JSON equal to the API's; (e) (a) and (b) on distinct cards where
    the machine has two or more (else a line says so); the host times of
    (a) beside the single-device equivalents;
-10. print the per-kernel JSON line, the card line, and the success line.
+10. above 16384 points, where the rows of B1, B3 and B2 run the
+    four-step FFT (csrc/fft_large.cuh): each kernel at each new size
+    against its plain version at the CPU parity tests' tolerances (B1 at
+    32768 in its three modes on the Galileo E1B shape at 8.192 MS/s; B3 at
+    32768, 32000, 65536 and 131072; B2 at nperseg 32768 and 131072, 1-D
+    and (rows, n)); then (a) the Galileo fixture re-rendered at 8.192 MS/s
+    (a worker process) through `receiver --system galileo --sample-rate
+    8.192e6` in a child: B1 at 32768 launched, a fix within 30 m; (b)
+    `acquire_all(method='std')` on its first 40 ms: B3 once, the same
+    PRNs; (c) `spectral.welch_psd` at nperseg 65536 on phase 5's capture
+    plus a CW tone, torch.fft patched to raise: B2 once, the peak on the
+    tone;
+11. print the per-kernel JSON line, the card line, and the success line.
 
 Each kernel's entry in the JSON line, and each of its shapes, carries
 `bound_ms`: the least time the card could take for the same work, the
@@ -231,7 +243,14 @@ SBAS_DOPPLER_HZ = 1250.0
 SBAS_CODE_PHASE = 317.25          # chips at sample 0
 SBAS_WEEK = 310
 SBAS_NOISE = 0.8                  # rms per I/Q component, before x12
-FIXTURES = ("gps", "galileo", "glonass", "sbas")
+GAL8K_FS = 8.192e6                # phase 10: Galileo E1B at 8 samples a
+GAL8K_N = 32768                   # chip, one 4 ms code period above 16384
+LARGE_STD = ((32000, 8e6), (65536, 16.384e6), (131072, 32.768e6))
+LARGE_NPERSEG = (32768, 131072)   # B2 above 16384 (8 192 512 samples)
+TONE_NPERSEG = 65536              # phase 10c's Welch
+TONE_HZ = 312500.0                # bin 10000 of 65536 at 2.048 MS/s
+TONE_LSB = 1.0                    # amplitude over phase 5's 4.8 LSB noise
+FIXTURES = ("gps", "galileo", "glonass", "sbas", "galileo8k")
 # run in a child process by phase 6c: the port's CLI (`cli.main`, the
 # body of `python -m gps_jamming_tpu_torch`) with the kernels' launch
 # counts and run_receiver's stage times written to stderr at its end
@@ -379,6 +398,38 @@ if pid == 0:
     np.savez(out, psd=psd.cpu().numpy(), pm=pm.cpu().numpy(),
              surf=surf.cpu().numpy())
 torch.distributed.destroy_process_group()
+"""
+# run in a child process by phase 9c: three `torch_trace`s of the sharded
+# PCF search (a 3 x 2 mesh of the card) on the capture head saved at
+# argv[1], written under argv[2]; prints per trace (B1 launches, B1
+# correlate kernels in the trace, events, bytes) as one JSON list
+TRACE_CHILD = """
+import json, os, sys
+import numpy as np
+import torch
+from gps_jamming_tpu_torch.ops import codes, cuda_pcf
+from gps_jamming_tpu_torch.parallel import fusion
+from gps_jamming_tpu_torch.parallel import mesh as mesh_lib
+from gps_jamming_tpu_torch.runtime import profiling
+head, td = np.load(sys.argv[1]), sys.argv[2]
+dev = torch.device("cuda", 0)
+mesh = mesh_lib.make_mesh(3, 2, devices=[dev] * 6)
+rep = codes.gps_replica_table_host(2.048e6, 2048)
+held = []
+for k in range(3):
+    tdir = os.path.join(td, f"trace{k}")
+    before = cuda_pcf.LAUNCHES
+    with profiling.torch_trace(tdir):
+        fusion.sharded_caf_acquire(head, mesh, rep, None, 2.048e6,
+                                   method="pcf", group_blocks=4)
+        torch.cuda.synchronize()
+    path = os.path.join(tdir, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    held.append((cuda_pcf.LAUNCHES - before,
+                 sum("pcf_correlate" in str(e.get("name", "")) for e in events),
+                 len(events), os.path.getsize(path)))
+print(json.dumps(held))
 """
 OP_SECONDS = 8.0                  # phase 8a's captures: 16.4 M samples,
 OP_JAM_START = 2.0                # past 2^24; the jam from 2 s to EOF
@@ -1004,7 +1055,8 @@ def render_sbas(n: int) -> np.ndarray:
 def render_fixture(name: str, td: str) -> dict:
     """Render one receiver fixture (run in a worker process beside the
     phases) and write it into td as an RTL-SDR uint8 .bin at RX_SCALE: 'gps' (phase 5; its float render
-    also as .npy for phase 5c), 'galileo', 'glonass' and 'sbas' (phase 6).
+    also as .npy for phase 5c), 'galileo', 'glonass' and 'sbas' (phase 6),
+    'galileo8k' (phase 10: the Galileo fixture at 8.192 MS/s).
     Returns the paths, the truth and the render's host seconds."""
     from gps_jamming_tpu_torch.ops import iq
     from gps_jamming_tpu_torch.sim import constellation as con
@@ -1021,6 +1073,11 @@ def render_fixture(name: str, td: str) -> dict:
         x, truths, rx_ecef = con.simulate_galileo_constellation(
             con.galileo_shell(RX_TOE), RX_LLA, RX_TOE - 1.3,
             int(GAL_RX_SECONDS * GAL_RX_FS), GAL_RX_FS, noise_std=0.4,
+            seed=2)
+    elif name == "galileo8k":
+        x, truths, rx_ecef = con.simulate_galileo_constellation(
+            con.galileo_shell(RX_TOE), RX_LLA, RX_TOE - 1.3,
+            int(GAL_RX_SECONDS * GAL8K_FS), GAL8K_FS, noise_std=0.4,
             seed=2)
     elif name == "glonass":
         x, truths, rx_ecef = con.simulate_glonass_constellation(
@@ -2000,9 +2057,10 @@ def sharded_extras(a: dict, head: np.ndarray, dev, td: str, card: str):
     a CPU mesh (rtol 3e-3, atol 1e-3 * max, the same argmax); `caf_pair`
     (rtol 3e-3) and `lagrange_interp` (rtol 1e-5) on the card against the
     CPU; a `Profiler` stage around B2 on the card (its result against the
-    plain version on the CPU); a `torch_trace` around a sharded PCF
-    search written, with B1's correlate kernel in it."""
-    from gps_jamming_tpu_torch.ops import caf, codes, interp, spectral
+    plain version on the CPU); three `torch_trace`s around a sharded PCF
+    search in a fresh child process (TRACE_CHILD), each holding all 6 of
+    B1's correlate kernels."""
+    from gps_jamming_tpu_torch.ops import caf, interp, spectral
     from gps_jamming_tpu_torch.parallel import fusion
     from gps_jamming_tpu_torch.parallel import mesh as mesh_lib
     from gps_jamming_tpu_torch.runtime import profiling
@@ -2034,21 +2092,22 @@ def sharded_extras(a: dict, head: np.ndarray, dev, td: str, card: str):
     (st,) = prof.report()
     fail_unless(st["calls"] == 1 and st["samples_per_s"] > 0,
                 f"Profiler: {st}")
-    tdir = os.path.join(td, "trace")
-    with profiling.torch_trace(tdir):
-        fusion.sharded_caf_acquire(
-            head, mesh_lib.make_mesh(3, 2, devices=[dev] * SHARD_DEVICES),
-            codes.gps_replica_table_host(FS, N_CODE), None, FS,
-            method="pcf", group_blocks=SHARD_PERIODS // 2)
-        torch.cuda.synchronize()
-    path = os.path.join(tdir, "trace.json")
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    n_b1 = sum("pcf_correlate" in str(ev.get("name", "")) for ev in events)
-    print(f"Profiler stage {st}; torch_trace: {os.path.getsize(path)} bytes,"
-          f" {len(events)} events, {n_b1} of B1's correlate kernel; card "
+    # three traces of the sharded PCF search (6 shards, 6 launches of B1)
+    # in a fresh child process, each holding all 6 of B1's correlate
+    # kernels (C14: late in this long process the profiler drops them)
+    np.save(os.path.join(td, "trace_head.npy"), head)
+    r = subprocess.run(
+        [sys.executable, "-c", TRACE_CHILD, os.path.join(td,
+                                                         "trace_head.npy"),
+         td], capture_output=True, text=True, timeout=300, cwd=ROOT)
+    fail_unless(r.returncode == 0, f"the torch_trace child exited "
+                                   f"{r.returncode}: {r.stderr[-3000:]}")
+    held = json.loads(r.stdout.strip().splitlines()[-1])
+    print(f"Profiler stage {st}; torch_trace x3 in a child (launches, B1 "
+          f"correlate kernels in the trace, events, bytes): {held}; card "
           f"{card}", flush=True)
-    fail_unless(n_b1 >= 1, "torch_trace holds no B1 kernel")
+    fail_unless(all(h[0] == SHARD_DEVICES and h[1] == h[0] for h in held),
+                f"torch_trace lost B1 launches: {held}")
 
 
 def multihost_cards(a: dict, b: dict, td: str, card: str, n_cards: int):
@@ -2208,12 +2267,274 @@ def sharded_phase(sim: dict, td: str, card: str, dev, kernels: list) -> dict:
             "cli_detect_devices": run["launches"], "host_ms": times}
 
 
+def large_kernels(gal_blocks, gal_rep, dev, card) -> dict:
+    """Phase 10 (kernels): each kernel at each size above 16384 against its
+    plain version on the card, at the tolerances of the CPU parity tests
+    (surfaces rtol 2e-4, atol 2e-4 * max; stats max and sums rtol 1e-4,
+    the arg-lag exact on every row whose top two lags differ by more than
+    1e-4 relative; B2 as phase 3a, and bitwise repeatable): B1 at 32768 in
+    its three modes on the Galileo E1B shape at 8.192 MS/s (36 PRN x 57
+    coarse bins x 6 rows x 2 groups), B3 at 32768 on that capture (36 x 71
+    x 10) and at 32000 (v1 only), 65536 and 131072 (8 PRN x 35 bins x 4
+    periods), B2 at nperseg 32768 and 131072 on 8 192 512 samples and on
+    (2, 4 096 256). Returns {kernel: {size: entry}}, each entry with its
+    errors, CUDA-event times and bound."""
+    from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf, cuda_psd
+    from gps_jamming_tpu_torch.models.receiver import galileo
+    from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from gps_jamming_tpu_torch.models.receiver import acquisition as acq
+    from gps_jamming_tpu_torch.ops import caf
+    out = {"pcf": {}, "caf_std": {}, "welch_psd": {}}
+    n = GAL8K_N
+    n_prn = gal_rep.shape[0]
+    y = cuda_pcf.pcf_prologue(gal_blocks, GAL8K_FS)
+    n_c = cuda_pcf.n_coarse(GAL8K_FS, n, 7000.0)
+    args = (y, gal_rep, n_c, 6, 2)
+    ref = cuda_pcf.pcf_search_reference(*args)
+    surf = cuda_pcf.pcf_search(*args)
+    ok, abs_err, rel = close(surf, ref, 2e-4, 2e-4 * float(ref.max()))
+    fail_unless(ok, f"B1 at {n}: the surface disagrees with its plain "
+                    f"version (max_abs_err {abs_err:.3e})")
+    del surf
+    ms, plain_ms = time_pair(lambda: cuda_pcf.pcf_search(*args),
+                             lambda: cuda_pcf.pcf_search_reference(*args),
+                             3, 1)
+    out["pcf"]["surface_32768"] = with_bound(
+        {"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
+         "plain_ms": plain_ms}, *b1_work(n_prn, n_c, 6, 2, n, False))
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 1e-4 * top2[..., 0]
+    excl = acq.exclusion_half_width(n, CFG.acquisition,
+                                    float(galileo.BOC_LEN))
+    line = [f"surface {ms:.4f}/{plain_ms:.4f} ms (max_abs_err "
+            f"{abs_err:.3e})"]
+    for mode, ex in (("stats", excl), ("peak", -1)):
+        got = cuda_pcf.pcf_search(*args, stats_excl=ex)
+        want = cuda_pcf.surface_stats(ref, ex)
+        same = got[1] == want[1]
+        fail_unless(bool(same[clear].all()),
+                    f"B1 at {n} {mode}: the arg-lag differs on a row with a "
+                    "clear peak")
+        ok, abs_err, rel = close(got[0], want[0], 1e-4, 0.0)
+        fail_unless(ok, f"B1 at {n} {mode}: max disagrees (rel {rel:.3e})")
+        for j in (2, 3, 4):
+            sel = same if j != 3 else torch.ones_like(same)
+            ok_j, _, rel_j = close(got[j][sel], want[j][sel], 1e-4, 0.0)
+            fail_unless(ok_j if ex >= 0 else not bool(got[j].any()),
+                        f"B1 at {n} {mode}: plane {j} disagrees "
+                        f"(rel {rel_j:.3e})")
+        ms, plain_ms = time_pair(
+            lambda: cuda_pcf.pcf_search(*args, stats_excl=ex),
+            lambda: cuda_pcf.surface_stats(
+                cuda_pcf.pcf_search_reference(*args), ex), 3, 1)
+        out["pcf"][f"{mode}_32768"] = with_bound(
+            {"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
+             "plain_ms": plain_ms}, *b1_work(n_prn, n_c, 6, 2, n, True))
+        line.append(f"{mode} {ms:.4f}/{plain_ms:.4f} ms (arg-lag equal on "
+                    f"{int(same.sum())}/{same.numel()} rows, "
+                    f"{int(clear.sum())} with a clear peak)")
+    del ref
+    torch.cuda.empty_cache()
+    print(f"phase 10 B1 at {n} ({n_prn} PRN x {n_c * 6} rows x 2 groups, "
+          f"kernel/plain): " + "; ".join(line) + "; share of bound, stats "
+          f"{out['pcf']['stats_32768']['bound_share']:.3f}; card {card}",
+          flush=True)
+
+    std_freqs = caf.doppler_bins(7000.0, 200.0)
+    rng = np.random.default_rng(32768)
+    cases = [(n, GAL8K_FS, gal_blocks, gal_rep, std_freqs)]
+    for n_l, fs_l in LARGE_STD:
+        cases.append((n_l, fs_l, torch.from_numpy(complex_noise(
+            rng, 4 * n_l).astype(np.complex64).reshape(4, n_l)).to(dev),
+            torch.from_numpy(complex_noise(rng, 8 * n_l).astype(
+                np.complex64).reshape(8, n_l)).to(dev),
+            caf.doppler_bins(3400.0, 200.0)))
+    for n_l, fs_l, b_l, r_l, f_l in cases:
+        ref = cuda_caf.caf_accumulate_reference(b_l, r_l, f_l, fs_l)
+        got = cuda_caf.caf_accumulate_fused(b_l, r_l, f_l, fs_l)
+        ok, abs_err, rel = close(got, ref, 2e-4, 2e-4 * float(ref.max()))
+        fail_unless(ok, f"B3 at {n_l} disagrees with its plain version "
+                        f"(max_abs_err {abs_err:.3e})")
+        del ref, got
+        ms, plain_ms = time_pair(
+            lambda: cuda_caf.caf_accumulate_fused(b_l, r_l, f_l, fs_l),
+            lambda: cuda_caf.caf_accumulate_reference(b_l, r_l, f_l, fs_l),
+            3, 1)
+        e = with_bound({"max_abs_err": abs_err, "max_rel_err": rel,
+                        "ms": ms, "plain_ms": plain_ms},
+                       *b3_work(r_l.shape[0], len(f_l), b_l.shape[0], n_l))
+        out["caf_std"][str(n_l)] = e
+        print(f"phase 10 B3 at {n_l} ({r_l.shape[0]} PRN x {len(f_l)} bins "
+              f"x {b_l.shape[0]}): max_abs_err {abs_err:.3e} max_rel_err "
+              f"{rel:.3e} (rtol 2e-4, atol 2e-4*max); kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms; bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']}), share {e['bound_share']:.3f}", flush=True)
+        torch.cuda.empty_cache()
+
+    n_x = 8_192_512
+    x = torch.from_numpy(complex_noise(rng, n_x).astype(np.complex64)).to(
+        dev) + (0.3 - 0.2j)
+    for nps in LARGE_NPERSEG:
+        for shape in ((n_x,), (2, n_x // 2)):
+            xs = x.reshape(shape)
+            before = cuda_psd.LAUNCHES
+            got = cuda_psd.welch_psd_fused(xs, FS, nps)
+            fail_unless(cuda_psd.LAUNCHES - before == (1 if len(shape) == 1
+                                                       else 2),
+                        f"B2 at {nps} {shape}: not one launch per row")
+            ref = cuda_psd.welch_psd_reference(xs, FS, nps)
+            ok, abs_err, rel = close(got, ref, 1e-3, 1e-4 * float(ref.max()))
+            fail_unless(ok, f"B2 at nperseg {nps} {shape} disagrees with its"
+                            f" plain version (max_abs_err {abs_err:.3e})")
+            fail_unless(bool(torch.equal(got, cuda_psd.welch_psd_fused(
+                xs, FS, nps))), f"B2 at nperseg {nps}: two calls differ")
+            if len(shape) > 1:
+                continue
+            ms, plain_ms = time_pair(
+                lambda: cuda_psd.welch_psd_fused(xs, FS, nps),
+                lambda: cuda_psd.welch_psd_reference(xs, FS, nps), 5, 2)
+            segs = (n_x - nps) // (nps // 2) + 1
+            e = with_bound({"max_abs_err": abs_err, "max_rel_err": rel,
+                            "ms": ms, "plain_ms": plain_ms},
+                           fft_flops(segs, nps) + 10.0 * segs * nps,
+                           8.0 * n_x + 4.0 * nps)
+            out["welch_psd"][str(nps)] = e
+            print(f"phase 10 B2 at nperseg {nps} over {n_x} samples (and "
+                  f"(2, {n_x // 2}), a launch per row): max_abs_err "
+                  f"{abs_err:.3e} max_rel_err {rel:.3e} (rtol 1e-3, atol "
+                  f"1e-4*max), bitwise repeatable; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms; bound {e['bound_ms']:.4f} ms "
+                  f"({e['bound_by']}), share {e['bound_share']:.3f}",
+                  flush=True)
+    return out
+
+
+def large_path(fx8: dict, fx_gps: dict, dev, card) -> dict:
+    """Phase 10 (the path): (a) the Galileo E1B receiver at 8.192 MS/s
+    through the CLI, `receiver --system galileo --sample-rate 8.192e6`, in
+    a child (CLI_WITH_COUNTS): B1 at 32768 launched, a fix within 30 m,
+    the decoded ephemerides the simulated ones; (b) acquire_all(method=
+    'std') on the capture's first 40 ms: B3 at 32768 launched once, the
+    CLI's PRNs, each within 150 Hz of its truth; (c) spectral.welch_psd at
+    nperseg 65536 on phase 5's clean capture (its first 2^23 samples) with
+    a seeded CW tone at 312.5 kHz added: B2 launched once with every
+    torch.fft function patched to raise, the peak on the tone's bin, equal
+    to the plain version. Returns the launches of each."""
+    from gps_jamming_tpu_torch.models.receiver import acquisition as acq
+    from gps_jamming_tpu_torch.models.receiver import galileo, pvt
+    from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from gps_jamming_tpu_torch.ops import codes, cuda_psd, iq, spectral
+    cmd = [sys.executable, "-c", CLI_WITH_COUNTS, "receiver", fx8["bin"],
+           "--system", "galileo", "--sample-rate", str(GAL8K_FS)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    fail_unless(r.returncode == 0, f"receiver --system galileo at 8.192 MS/s"
+                                   f" exited {r.returncode}: "
+                                   f"{r.stderr[-3000:]}")
+    out = json.loads(r.stdout)
+    extra = json.loads(r.stderr.strip().splitlines()[-1])
+    cli_launches = extra["launches"]
+    st = extra["stage_seconds"][0]
+    fix = out["fix"]
+    err = (float(np.linalg.norm(pvt.lla_to_ecef(
+        fix["lat"], fix["lon"], fix["hgt"]) - fx8["rx_ecef"]))
+        if fix is not None else float("nan"))
+    truth = {t.prn: t.doppler_hz for t in fx8["truths"]}
+    print(f"phase 10a: Galileo E1B {GAL_RX_SECONDS} s at {GAL8K_FS / 1e6} "
+          f"MS/s through the CLI ({fx8['n_samples']} samples, render "
+          f"{fx8['render_s']:.1f} s in a worker process), {len(truth)} in "
+          f"view {sorted(truth)}; acquired {[a['prn'] for a in out['acquired']]}"
+          f", decoded {out['decoded_prns']}; {out['n_fixes']} fixes, fix "
+          f"error {err:.2f} m; launches {cli_launches}; receiver times "
+          + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+          + f" (host s) = {GAL_RX_SECONDS / sum(st.values()):.3f}x real "
+          f"time; cli.main {extra['main_s']:.3f} s, the process {wall:.3f} "
+          f"s; card {card}", flush=True)
+    fail_unless(cli_launches["pcf"] >= 1,
+                f"the Galileo receiver at 8.192 MS/s did not launch B1: "
+                f"{cli_launches}")
+    fail_unless(len(out["decoded_prns"]) >= 4,
+                f"Galileo at 8.192 MS/s: decoded {out['decoded_prns']}")
+    fail_unless(err < GAL_RX_FIX_M, f"Galileo at 8.192 MS/s: fix error "
+                                    f"{err:.2f} m")
+
+    n40 = 10 * GAL8K_N
+    x40 = torch.from_numpy(iq.read_iq_file(
+        fx8["bin"], convention="centered", count=2 * n40)).to(dev)
+    rep = codes.replica_tensor(galileo.replica_table_host(GAL8K_FS,
+                                                          GAL8K_N), dev)
+    reset_launches()
+    res = acq.acquire_all(x40.reshape(10, GAL8K_N), rep, GAL8K_FS,
+                          CFG.acquisition, code_period_s=galileo.PERIOD_S,
+                          code_len_chips=float(galileo.BOC_LEN),
+                          method="std")
+    torch.cuda.synchronize()
+    std_launches = read_launches()
+    got = {i + 1: float(res.doppler_hz[i]) for i in range(rep.shape[0])
+           if bool(res.acquired[i])}
+    print(f"phase 10b: acquire_all(method='std') on the first 40 ms: "
+          f"acquired {sorted(got)} (the CLI's "
+          f"{sorted(a['prn'] for a in out['acquired'])}), Doppler error "
+          f"{[round(got[p] - truth[p], 1) for p in sorted(got) if p in truth]}"
+          f" Hz; launches {std_launches}", flush=True)
+    fail_unless(std_launches == {"welch_psd": 0, "pcf": 0, "caf_std": 1},
+                f"phase 10b: launches {std_launches}, expected one of B3")
+    fail_unless(sorted(got) == sorted(a["prn"] for a in out["acquired"]),
+                "phase 10b: std and the CLI's acquisition differ")
+    fail_unless(all(abs(got[p] - truth[p]) <= 150.0 for p in got),
+                "phase 10b: a Doppler is more than 150 Hz off its truth")
+
+    n_t = 1 << 23
+    xg = iq.read_iq_file(fx_gps["bin"], convention="centered", count=2 * n_t)
+    rng = np.random.default_rng(65536)
+    phase0 = rng.uniform(0.0, 2.0 * np.pi)
+    xt = (xg + TONE_LSB * np.exp(1j * (2.0 * np.pi * TONE_HZ * np.arange(
+        n_t) / FS + phase0))).astype(np.complex64)
+    x_dev = torch.from_numpy(xt).to(dev)
+    ref = spectral.welch_psd_plain(x_dev, FS, TONE_NPERSEG)
+
+    def refuse(*a, **k):
+        raise RuntimeError("torch.fft called on B2's path")
+
+    names = ("fft", "ifft", "rfft", "fftn", "ifftn")
+    saved = {k: getattr(torch.fft, k) for k in names}
+    reset_launches()
+    try:
+        for k in names:
+            setattr(torch.fft, k, refuse)
+        psd = spectral.welch_psd(x_dev, FS, TONE_NPERSEG)
+        torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            setattr(torch.fft, k, v)
+    psd_launches = read_launches()
+    tone_bin = int(round(TONE_HZ / (FS / TONE_NPERSEG)))
+    ok, abs_err, rel = close(psd, ref, 1e-3, 1e-4 * float(ref.max()))
+    print(f"phase 10c: welch_psd(nperseg={TONE_NPERSEG}) on phase 5's "
+          f"capture ({n_t} samples) + a {TONE_LSB} LSB tone at {TONE_HZ} Hz "
+          f"with torch.fft patched to raise: peak bin {int(psd.argmax())} "
+          f"(the tone's {tone_bin}), {float(psd[tone_bin] / psd.median()):.1f}"
+          f" x the median bin; max_abs_err {abs_err:.3e} against "
+          f"welch_psd_plain; launches {psd_launches}", flush=True)
+    fail_unless(psd_launches == {"welch_psd": 1, "pcf": 0, "caf_std": 0},
+                f"phase 10c: launches {psd_launches}, expected one of B2")
+    fail_unless(int(psd.argmax()) == tone_bin,
+                f"phase 10c: the PSD peaks at bin {int(psd.argmax())}")
+    fail_unless(ok, "phase 10c: B2 disagrees with welch_psd_plain")
+    return {"cli_receiver_galileo_8192k": cli_launches,
+            "acquire_all_std_32768": std_launches,
+            "welch_psd_65536": psd_launches}
+
+
 def phases(args_cli, start_render) -> int:
     """Every phase after the CUDA check. `start_render(name)` starts a
     receiver fixture's render (`render_fixture`) in a worker process and
     returns its pending result: the GPS one at once (the build and phases
-    3-4 run beside it), the other three after the kernel timings of phase
-    3, so that they do not share the host with those."""
+    3-4 run beside it), phase 6's three after the kernel timings of phase
+    3, so that they do not share the host with those, and phase 10's after
+    phase 6, beside phases 7-9."""
     renders = {"gps": start_render("gps")}
     # 1. the card
     from gps_jamming_tpu_torch import entry
@@ -2383,7 +2704,8 @@ def phases(args_cli, start_render) -> int:
     b3_g8 = check_b3(f"galileo n={GAL8_N}", gal8_blocks, gal8_rep, std_freqs,
                      GAL8_FS, 5, 3)
     del gal8_blocks, gal8_rep
-    renders.update({k: start_render(k) for k in FIXTURES if k != "gps"})
+    renders.update({k: start_render(k) for k in FIXTURES
+                    if k not in ("gps", "galileo8k")})
     print("power-of-two sizes in this run beside the mixed-radix ones "
           "(kernel / plain ms): B1 peak 2048 "
           f"{modes['peak']['ms']:.4f}/{modes['peak']['plain_ms']:.4f}, "
@@ -2826,6 +3148,8 @@ def phases(args_cli, start_render) -> int:
     gal_launches = galileo_receiver(fx["galileo"], card)
     glo_launches = glonass_receiver(fx["glonass"], dev, card)
     sbas_launches = sbas_cli(fx["sbas"], card)
+    # phase 10's fixture renders beside phases 7-9, alone in its worker
+    renders["galileo8k"] = start_render("galileo8k")
 
     # 7. the streaming product path: (a) the CLI's default `detect` on the
     # clean GPS capture, (b) a jammed copy through analyze_capture, (c)
@@ -2860,7 +3184,25 @@ def phases(args_cli, start_render) -> int:
     shard = sharded_phase(sim, op_td, card, dev, kernels)
     print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 10. results
+    # 10. above 16384 points (the four-step FFT): each kernel at each new
+    # size against its plain version, then (a) the Galileo receiver at
+    # 8.192 MS/s through the CLI, (b) its std acquisition, (c) a CW tone
+    # in a Welch PSD at nperseg 65536
+    t0 = time.perf_counter()
+    fx8 = renders["galileo8k"].get()
+    x8 = torch.from_numpy(iq.read_iq_file(
+        fx8["bin"], convention="centered", count=20 * GAL8K_N)).to(dev)
+    gal8k_rep = codes.replica_tensor(
+        galileo.replica_table_host(GAL8K_FS, GAL8K_N), dev)
+    large = large_kernels(x8.reshape(10, GAL8K_N), gal8k_rep, dev, card)
+    del x8, gal8k_rep
+    torch.cuda.empty_cache()
+    large_launches = large_path(fx8, fx_gps, dev, card)
+    for k in kernels:
+        k["sizes_above_16384"] = large[k["name"]]
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 11. results
     for k in kernels:
         k["launches"] = (std_launches if k["name"] == "caf_std"
                          else launches)[k["name"]]
@@ -2885,7 +3227,8 @@ def phases(args_cli, start_render) -> int:
             "analyze_capture_http_sink": srv["http_sink"][k["name"]],
             **{p: shard[p][k["name"]] for p in (
                 "sharded_analysis", "sharded_acquire_pcf",
-                "sharded_acquire_std", "cli_detect_devices")}}
+                "sharded_acquire_std", "cli_detect_devices")},
+            **{p: v[k["name"]] for p, v in large_launches.items()}}
         k["library_ms"] = None
     print(json.dumps({"kernels": kernels}))
     print(card)

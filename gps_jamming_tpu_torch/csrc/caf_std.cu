@@ -36,7 +36,11 @@
 // 3.2 MS/s GPS, 10368 = 81*128) and the RTL-SDR rates give 2400, 2560 and
 // 2800: a power of two and these five (GJT_CORR_SIZES) run the register
 // FFT, any other n the mixed-radix one of fft_smem.cuh (radix-2 stages,
-// then a direct radix-p stage per odd prime factor).
+// then a direct radix-p stage per odd prime factor). Above 16384
+// (gjt_caf_std_large: every multiple of 128 up to 131072 whose prime
+// factors are all <= 127, as v1 and v2 take them) the mix-forward and the
+// correlate stage run the four-step FFT of fft_large.cuh through scratch
+// in device memory, the Doppler bins and the (PRN, bin) cells in chunks.
 #include <cuda_runtime.h>
 
 #include "pcf_correlate.cuh"
@@ -105,4 +109,43 @@ extern "C" int gjt_caf_std(const void* x, const void* osc, void* Y,
   return static_cast<int>(gjt::launch_correlate(
       Y2, static_cast<const float2*>(rep), tw2, static_cast<float*>(out), F,
       nb, 1, P, plan, 0, 0, s));
+}
+
+// n above 16384 (fft_large.cuh, up to GJT_FFT_LARGE_MAX_N): x, osc, rep
+// and out as gjt_caf_std; the Doppler bins run in chunks of f_chunk: Y:
+// (f_chunk*nb, n) complex64 scratch, the chunk's forward spectra in the
+// permuted order of launch_large_forward; Bs: (cells_chunk, nb, n)
+// complex64 scratch, the cells (p, f) of one pass of the correlate stage;
+// tw2: the table of the n2-point rows (`build.large_row_twiddles`); twn:
+// the n-point two-level table (`build.reg_twiddles(n)`). Returns a
+// cudaError_t (0 on success).
+extern "C" int gjt_caf_std_large(const void* x, const void* osc, void* Y,
+                                 void* Bs, const void* rep, const void* tw2,
+                                 const void* twn, void* out, int F, int nb,
+                                 int P, int n, int f_chunk, int cells_chunk,
+                                 void* stream) {
+  gjt::LargePlan lp;
+  if (!gjt::large_plan(n, &lp) || F < 1 || nb < 1 || P < 1 || f_chunk < 1 ||
+      cells_chunk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float2* Y2 = static_cast<float2*>(Y);
+  const float2* tw2_ = static_cast<const float2*>(tw2);
+  const float2* twn_ = static_cast<const float2*>(twn);
+  for (int f0 = 0; f0 < F; f0 += f_chunk) {
+    const int fc = F - f0 < f_chunk ? F - f0 : f_chunk;
+    const gjt::SrcMix src{static_cast<const float2*>(x),
+                          static_cast<const float2*>(osc) +
+                              static_cast<long long>(f0) * n,
+                          n, nb};
+    cudaError_t err =
+        gjt::launch_large_forward(src, Y2, tw2_, twn_, fc * nb, lp, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = gjt::launch_large_correlate(
+        Y2, static_cast<const float2*>(rep), tw2_, twn_,
+        static_cast<float*>(out), static_cast<float2*>(Bs), fc, F, f0, nb, 1,
+        P, lp, 0, 0, cells_chunk, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

@@ -30,7 +30,11 @@
 // n: every length in [256, 16384] whose prime factors are all <= 127; a
 // power of two and 2400, 2560, 2800, 3200 and 10368 (GJT_CORR_SIZES) run
 // the register FFT, any other n the mixed-radix shared-memory one
-// (fft_smem.cuh).
+// (fft_smem.cuh). Above 16384 (gjt_pcf_large: 20480 ... 32768, the sizes
+// of the TPU kernel's v3; Galileo E1B at 8.192 MS/s is 32768) a row no
+// longer fits one block: the forward transforms and the correlate stage
+// run the four-step FFT of fft_large.cuh through scratch in device memory
+// (pcf_correlate.cuh, launch_large_correlate).
 #include <cuda_runtime.h>
 
 #include "pcf_correlate.cuh"
@@ -94,4 +98,35 @@ extern "C" int gjt_pcf(const void* y, void* Y, const void* rep,
   return static_cast<int>(gjt::launch_correlate(
       Y2, static_cast<const float2*>(rep), tw2, static_cast<float*>(out), R,
       G, n_c, P, plan, stats, excl, s));
+}
+
+// n above 16384 (fft_large.cuh; kernels B1 take it up to 32768): y as
+// above; Y: (R*G, n) complex64 scratch, left in the permuted order of
+// launch_large_forward; Bs: (cells_chunk, G, n) complex64 scratch, the
+// cells (p, c, r) of one pass of the correlate stage; tw2: the table of
+// the n2-point rows (`build.large_row_twiddles`); twn: the n-point
+// two-level table (`build.reg_twiddles(n)`); out as gjt_pcf. Returns a
+// cudaError_t (0 on success).
+extern "C" int gjt_pcf_large(const void* y, void* Y, void* Bs,
+                             const void* rep, const void* tw2,
+                             const void* twn, void* out, int R, int G,
+                             int n_c, int P, int n, int stats, int excl,
+                             int cells_chunk, void* stream) {
+  gjt::LargePlan lp;
+  if (!gjt::large_plan(n, &lp) || R < 1 || G < 1 || P < 1 || n_c < 1 ||
+      (n_c & 1) == 0 || n_c / 2 >= n || cells_chunk < 1 ||
+      (stats && (excl >= n / 2 || !gjt::large_stats_fit(n))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float2* Y2 = static_cast<float2*>(Y);
+  const float2* tw2_ = static_cast<const float2*>(tw2);
+  const float2* twn_ = static_cast<const float2*>(twn);
+  cudaError_t err = gjt::launch_large_forward(
+      gjt::SrcRows{static_cast<const float2*>(y), n}, Y2, tw2_, twn_, R * G,
+      lp, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(gjt::launch_large_correlate(
+      Y2, static_cast<const float2*>(rep), tw2_, twn_,
+      static_cast<float*>(out), static_cast<float2*>(Bs), R, R, 0, G, n_c, P,
+      lp, stats, excl, cells_chunk, s));
 }

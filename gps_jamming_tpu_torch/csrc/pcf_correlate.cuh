@@ -50,6 +50,7 @@
 
 #include <cuda_runtime.h>
 
+#include "fft_large.cuh"
 #include "fft_reg.cuh"
 #include "fft_smem.cuh"
 
@@ -409,6 +410,239 @@ static inline cudaError_t launch_correlate(const float2* Y, const float2* rep,
   pcf_correlate_kernel<<<blocks, fft_threads(n), smem, s>>>(
       Y, rep, tw, out, R, G, n_c, P, plan, stats, excl);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Above 16384 lags (n = n1 * n2 of fft_large.cuh; B1 up to 32768, B3 up to
+// kLargeMaxN): the forward spectra Y come from launch_large_forward in the
+// permuted order Y[row*n + k1*n2 + k2] = X[k1 + n1*k2]. Per chunk of cells
+// (p, c, r), two passes through a scratch Bs of (cells, G, n1, n2)
+// complex64:
+// 1. the row pass (RowsCorr): for each group g and each k1, the n2-point
+//    inverse FFT over k2 of Y[r, g][k1 + n1*k2] * rep[p, (k1 + n1*k2 -
+//    shift_c) mod n], times w_n^-(k1*t2), -> Bs[cell, g, k1, t2];
+// 2. the column pass (large_cols_corr): for each t2, the n1-point inverse
+//    DFT over k1 of every group's Bs[cell, g, :, t2] gives lags t2 + n2*t1,
+//    and |.|^2 is summed over the groups in registers (1/n^2 once). The
+//    surface row is written in natural lag order, coalesced; in statistics
+//    mode one block holds the whole summed row in shared memory (128 KB at
+//    32768) and reduces it as correlate_epilogue does, the lowest lag
+//    winning ties: the window outside the argmax needs the global argmax
+//    first, so partial statistics per column could not give it exactly.
+// ---------------------------------------------------------------------------
+
+// Rows of x: x[row*n + j] (B1's group signals).
+struct SrcRows {
+  const float2* x;
+  int n;
+  __device__ __forceinline__ float2 at(int row, int j) const {
+    return x[static_cast<long long>(row) * n + j];
+  }
+};
+
+// Row (f, b) = f*nb + b: block x_b mixed by the phasor row osc_f (B3).
+struct SrcMix {
+  const float2* x;
+  const float2* osc;
+  int n;
+  int nb;
+  __device__ __forceinline__ float2 at(int row, int j) const {
+    const int f = row / nb;
+    return cmul(x[static_cast<long long>(row - f * nb) * n + j],
+                osc[static_cast<long long>(f) * n + j]);
+  }
+};
+
+// The row pass of the correlate stage: block b = (cell - c0, g, k1).
+// Cells are (p, c, r), r fastest, over R rows and n_c coarse bins.
+struct RowsCorr {
+  static constexpr bool kInverse = true;
+  const float2* Y;
+  const float2* rep;
+  float2* Bs;
+  const float2* twn;
+  int n, n1, n2, G, R, n_c, c0;
+  struct Row {
+    const float2* y;       // row (r, g) of Y, at its k1-th n2 points
+    const float2* rp;      // the replica spectrum of PRN p
+    float2* dst;           // Bs row b
+    const float2* twn;
+    int n, n1, k1, base;   // base = k1 - shift_c
+    __device__ __forceinline__ float2 load(int k2) const {
+      return cmul(y[k2], rp[large_wrap(base + n1 * k2, n)]);
+    }
+    __device__ __forceinline__ void store(int t2, float2 v) const {
+      dst[t2] = k1 ? cmul(v, large_twiddle<true>(twn, k1 * t2, n)) : v;
+    }
+  };
+  __device__ __forceinline__ Row row(int b) const {
+    const int k1 = b % n1;
+    const int g = (b / n1) % G;
+    const int cell = c0 + b / (n1 * G);
+    const int r = cell % R;
+    const int c = (cell / R) % n_c;
+    const int p = cell / (R * n_c);
+    return Row{Y + static_cast<long long>(r * G + g) * n +
+                   static_cast<long long>(k1) * n2,
+               rep + static_cast<long long>(p) * n,
+               Bs + static_cast<long long>(b) * n2, twn, n, n1, k1,
+               k1 - (c - n_c / 2)};
+  }
+};
+
+// The column pass of the correlate stage over cells c0.. of a chunk: block
+// (cell - c0) * tiles + tile. Surface mode: a thread per t2, the row
+// written to out[orow, :]. Statistics (kStats, tiles = 1): the block walks
+// every t2 into its shared row, then the five statistics of orow. orow =
+// (p*n_c + c)*R_total + r0 + r: this chunk's R rows sit at r0.. of the
+// output's R_total.
+template <int N1, bool kStats>
+static __global__ void __launch_bounds__(kStats ? kMaxThreads : kColThreads)
+large_cols_corr(const float2* __restrict__ Bs, float* __restrict__ out,
+                int n2, int G, int R, int R_total, int r0, int n_c,
+                int n_prn, int c0, int tiles, int excl) {
+  const int n = N1 * n2;
+  const int cl = blockIdx.x / tiles;
+  const int tile = blockIdx.x - cl * tiles;
+  const int cell = c0 + cl;
+  const int r = cell % R;
+  const int c = (cell / R) % n_c;
+  const int p = cell / (R * n_c);
+  const long long orow =
+      (static_cast<long long>(p) * n_c + c) * R_total + r0 + r;
+  // ifft's 1/n, squared
+  const float scale = 1.f / (static_cast<float>(n) * static_cast<float>(n));
+  const float2* b = Bs + static_cast<long long>(cl) * G * n;
+  extern __shared__ float row_s[];      // kStats: n floats, then 64 words
+  const int step = kStats ? blockDim.x : n2;
+  for (int t2 = tile * blockDim.x + threadIdx.x; t2 < n2; t2 += step) {
+    float acc[N1];
+#pragma unroll
+    for (int t1 = 0; t1 < N1; ++t1) acc[t1] = 0.f;
+    for (int g = 0; g < G; ++g) {
+      float2 v[N1];
+#pragma unroll
+      for (int k1 = 0; k1 < N1; ++k1)
+        v[k1] = b[(static_cast<long long>(g) * N1 + k1) * n2 + t2];
+      small_dft<N1, true>(v);
+#pragma unroll
+      for (int t1 = 0; t1 < N1; ++t1)
+        acc[t1] += v[t1].x * v[t1].x + v[t1].y * v[t1].y;
+    }
+#pragma unroll
+    for (int t1 = 0; t1 < N1; ++t1) {
+      if constexpr (kStats) {
+        row_s[t2 + n2 * t1] = acc[t1] * scale;
+      } else {
+        out[orow * n + t2 + n2 * t1] = acc[t1] * scale;
+      }
+    }
+  }
+  if constexpr (kStats) {
+    float* red = row_s + n;
+    int* redi = reinterpret_cast<int*>(red + 32);
+    __syncthreads();                     // the row is complete
+    // ascending lags per thread, so a strict '>' keeps the lowest
+    float bv = neg_inf();
+    int ba = n;
+    for (int k = threadIdx.x; k < n; k += blockDim.x) {
+      if (row_s[k] > bv) {
+        bv = row_s[k];
+        ba = k;
+      }
+    }
+    float mx;
+    int arg;
+    block_max_arg(bv, ba, red, redi, &mx, &arg);
+    float ex = 0.f, tot = 0.f, ws = 0.f;
+    if (excl >= 0) {
+      float exl = neg_inf(), tl = 0.f, wl = 0.f;
+      for (int k = threadIdx.x; k < n; k += blockDim.x) {
+        const float a = row_s[k];
+        const int d = wrap(k - arg, n);
+        if (min(d, n - d) <= excl) {
+          wl += a;
+        } else {
+          exl = fmaxf(exl, a);
+        }
+        tl += a;
+      }
+      ex = block_max(exl, red);
+      tot = block_sum(tl, red);
+      ws = block_sum(wl, red);
+    }
+    if (threadIdx.x == 0) {
+      const long long n_cells = static_cast<long long>(n_prn) * n_c * R_total;
+      out[orow] = mx;
+      out[n_cells + orow] = static_cast<float>(arg);
+      out[2 * n_cells + orow] = ex;
+      out[3 * n_cells + orow] = tot;
+      out[4 * n_cells + orow] = ws;
+    }
+  }
+}
+
+// Does one block hold the summed row of the statistics mode?
+static inline bool large_stats_fit(int n) {
+  return sizeof(float) * (static_cast<size_t>(n) + 64) <= 227 * 1024;
+}
+
+template <int N1>
+static inline cudaError_t launch_large_cols_corr(
+    const float2* Bs, float* out, const LargePlan& lp, int G, int R,
+    int R_total, int r0, int n_c, int P, int c0, int cc, int stats, int excl,
+    cudaStream_t s) {
+  if (stats) {
+    const size_t smem = sizeof(float) * (static_cast<size_t>(lp.n) + 64);
+    cudaError_t err = allow_smem(
+        reinterpret_cast<const void*>(large_cols_corr<N1, true>), smem);
+    if (err != cudaSuccess) return err;
+    large_cols_corr<N1, true><<<cc, kMaxThreads, smem, s>>>(
+        Bs, out, lp.n2, G, R, R_total, r0, n_c, P, c0, 1, excl);
+  } else {
+    const int tiles = (lp.n2 + kColThreads - 1) / kColThreads;
+    large_cols_corr<N1, false><<<cc * tiles, kColThreads, 0, s>>>(
+        Bs, out, lp.n2, G, R, R_total, r0, n_c, P, c0, tiles, excl);
+  }
+  return cudaGetLastError();
+}
+
+// The correlate stage above 16384 lags over the R * n_c * P cells of
+// forward spectra Y (R*G rows, permuted order), `cells_chunk` cells per
+// pass through Bs (cells_chunk * G * n complex64). out: the surface
+// (P, n_c*R_total, n) or the (5, P, n_c*R_total) statistics; this call's
+// rows sit at r0.. of R_total.
+static inline cudaError_t launch_large_correlate(
+    const float2* Y, const float2* rep, const float2* tw2, const float2* twn,
+    float* out, float2* Bs, int R, int R_total, int r0, int G, int n_c, int P,
+    const LargePlan& lp, int stats, int excl, int cells_chunk,
+    cudaStream_t s) {
+  const int cells = R * n_c * P;
+  for (int c0 = 0; c0 < cells; c0 += cells_chunk) {
+    const int cc = cells - c0 < cells_chunk ? cells - c0 : cells_chunk;
+    cudaError_t err = launch_large_rows(
+        RowsCorr{Y, rep, Bs, twn, lp.n, lp.n1, lp.n2, G, R, n_c, c0},
+        cc * G * lp.n1, tw2, lp, s);
+    if (err != cudaSuccess) return err;
+    switch (lp.n1) {
+      case 2:
+        err = launch_large_cols_corr<2>(Bs, out, lp, G, R, R_total, r0, n_c,
+                                        P, c0, cc, stats, excl, s);
+        break;
+      case 4:
+        err = launch_large_cols_corr<4>(Bs, out, lp, G, R, R_total, r0, n_c,
+                                        P, c0, cc, stats, excl, s);
+        break;
+      case 8:
+        err = launch_large_cols_corr<8>(Bs, out, lp, G, R, R_total, r0, n_c,
+                                        P, c0, cc, stats, excl, s);
+        break;
+      default:
+        err = cudaErrorInvalidValue;
+    }
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace gjt

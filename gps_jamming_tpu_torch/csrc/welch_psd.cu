@@ -50,6 +50,7 @@
 
 #include <type_traits>
 
+#include "fft_large.cuh"
 #include "fft_reg.cuh"
 
 namespace cg = cooperative_groups;
@@ -381,4 +382,154 @@ extern "C" int gjt_welch_psd(const void* x, const void* win, const void* tab,
   GJT_WELCH_MIXED(GJT_WELCH)
 #undef GJT_WELCH
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// nperseg above 16384 (every size the TPU kernel takes up to 131072:
+// `cuda_psd.supported`): a segment no longer fits one block, so each runs
+// the four-step FFT of fft_large.cuh, in chunks of seg_chunk segments:
+// 1. welch_half_sums: the complex sum of each half-segment (hop samples),
+//    one block each in a fixed order, so segment s's mean is
+//    (H[s] + H[s+1]) / nperseg;
+// 2. the column pass reads each segment once (SrcSeg: the mean
+//    subtracted, the periodic Hann window applied), then the row pass
+//    (RowsPsd) writes |X|^2 of every segment, in the permuted order
+//    k1*n2 + k2 of bin k1 + n1*k2;
+// 3. welch_seg_sum adds the chunk's segments bin by bin, in segment
+//    order, onto the running sum, and the last chunk writes the scaled
+//    row in natural bin order.
+// No float atomics: the chunks depend on the shape alone, so the result is
+// the same on every call. What bounds it is device memory: each segment is
+// read twice (50 % overlap) and its spectrum goes through device memory
+// once as complex64 and once as |X|^2.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+__global__ void __launch_bounds__(1024)
+welch_half_sums(const float2* __restrict__ x, float2* __restrict__ half,
+                int hop) {
+  __shared__ float red[32];
+  const float2* xs = x + static_cast<long long>(blockIdx.x) * hop;
+  float sx = 0.f, sy = 0.f;
+  for (int i = threadIdx.x; i < hop; i += blockDim.x) {
+    const float2 v = xs[i];
+    sx += v.x;
+    sy += v.y;
+  }
+  sx = gjt::block_sum(sx, red);
+  sy = gjt::block_sum(sy, red);
+  if (threadIdx.x == 0) half[blockIdx.x] = make_float2(sx, sy);
+}
+
+// acc[q] (+)= sum over the chunk's sc segments of pw[s, q], q = k1*n2 + k2
+// (first: from zero); last: out[k1 + n1*k2] = the sum * scale.
+__global__ void __launch_bounds__(256)
+welch_seg_sum(const float* __restrict__ pw, float* __restrict__ acc,
+              float* __restrict__ out, int n1, int n2, int sc, int first,
+              int last, float scale) {
+  const int n = n1 * n2;
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= n) return;
+  float a = first ? 0.f : acc[q];
+  for (int s = 0; s < sc; ++s) a += pw[static_cast<long long>(s) * n + q];
+  if (last) {
+    const int k1 = q / n2;
+    out[k1 + n1 * (q - k1 * n2)] = a * scale;
+  } else {
+    acc[q] = a;
+  }
+}
+
+}  // namespace
+
+namespace gjt {
+
+// Segment s0 + row: (x - its mean) * the window.
+struct SrcSeg {
+  const float2* x;
+  const float* win;
+  const float2* half;
+  int hop, s0, detrend;
+  float inv_n;
+  __device__ __forceinline__ float2 at(int row, int j) const {
+    const int s = s0 + row;
+    float2 v = x[static_cast<long long>(s) * hop + j];
+    if (detrend) {
+      const float2 a = half[s], b = half[s + 1];
+      v.x -= (a.x + b.x) * inv_n;
+      v.y -= (a.y + b.y) * inv_n;
+    }
+    const float w = __ldg(win + j);
+    return make_float2(v.x * w, v.y * w);
+  }
+};
+
+// The row pass of a segment's forward FFT, |X|^2 out.
+struct RowsPsd {
+  static constexpr bool kInverse = false;
+  const float2* a;
+  float* pw;
+  int n2;
+  struct Row {
+    const float2* src;
+    float* dst;
+    __device__ __forceinline__ float2 load(int k) const { return src[k]; }
+    __device__ __forceinline__ void store(int k, float2 v) const {
+      dst[k] = v.x * v.x + v.y * v.y;
+    }
+  };
+  __device__ __forceinline__ Row row(int b) const {
+    return Row{a + static_cast<long long>(b) * n2,
+               pw + static_cast<long long>(b) * n2};
+  }
+};
+
+}  // namespace gjt
+
+// nperseg above 16384: x (n,) complex64 with n_segs segments as
+// gjt_welch_psd; win: (nperseg,) float32; tw2: the table of the n2-point
+// rows (`build.large_row_twiddles`); twn: the nperseg-point two-level table
+// (`build.reg_twiddles`); scratch A: (seg_chunk, nperseg) complex64, pw:
+// (seg_chunk, nperseg) float32, half: (n_segs + 1,) complex64, acc:
+// (nperseg,) float32; out: (nperseg,) float32. Returns a cudaError_t (0 on
+// success).
+extern "C" int gjt_welch_psd_large(const void* x, const void* win,
+                                   const void* tw2, const void* twn, void* A,
+                                   void* pw, void* half, void* acc,
+                                   void* out, int nperseg, int n_segs,
+                                   int seg_chunk, int detrend, float scale,
+                                   void* stream) {
+  gjt::LargePlan lp;
+  if (n_segs < 1 || seg_chunk < 1 || seg_chunk > 65535 ||
+      !gjt::large_plan(nperseg, &lp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int hop = nperseg / 2;
+  const float2* x2 = static_cast<const float2*>(x);
+  float2* hs = static_cast<float2*>(half);
+  if (detrend) {
+    welch_half_sums<<<n_segs + 1, 1024, 0, s>>>(x2, hs, hop);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  float2* A2 = static_cast<float2*>(A);
+  float* pw2 = static_cast<float*>(pw);
+  for (int s0 = 0; s0 < n_segs; s0 += seg_chunk) {
+    const int sc = n_segs - s0 < seg_chunk ? n_segs - s0 : seg_chunk;
+    const gjt::SrcSeg src{x2, static_cast<const float*>(win), hs, hop, s0,
+                     detrend, 1.f / static_cast<float>(nperseg)};
+    cudaError_t err = gjt::launch_large_cols_fwd(
+        src, A2, static_cast<const float2*>(twn), sc, lp, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = gjt::launch_large_rows(gjt::RowsPsd{A2, pw2, lp.n2}, sc * lp.n1,
+                                 static_cast<const float2*>(tw2), lp, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    welch_seg_sum<<<(nperseg + 255) / 256, 256, 0, s>>>(
+        pw2, static_cast<float*>(acc), static_cast<float*>(out), lp.n1,
+        lp.n2, sc, s0 == 0, s0 + sc >= n_segs, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

@@ -13,8 +13,13 @@ shapes of chip_smoke.py phases 3a-3d: B2 on a 512k-sample block at
 nperseg 1024 and 1536; B1 peak-only (32 PRN x 15 coarse x 6 rows x 2
 groups) at 2048, 2400, 2560, 2800 and 3200 lags; B3 (32 PRN x 71 bins x 10
 periods) at 2048, 2400, 2560, 2800, 3200 and 10368 lags, and Galileo E1B's
-36 PRN at 16384. A shape the other tree's kernel refuses is timed on this
-tree alone. Each reading is the median over
+36 PRN at 16384; and, above 16384, the four-step entry points
+(`gjt_welch_psd_large`, `gjt_pcf_large`, `gjt_caf_std_large`) at the
+shapes of phase 10: B2 on 8 192 512 samples at nperseg 32768 and 131072,
+B1 in statistics mode on Galileo E1B at 8.192 MS/s (36 PRN x 57 coarse x 6
+rows x 2 groups at 32768), B3 at 32768 (36 x 71 x 10) and at 32000, 65536
+and 131072 (8 PRN x 35 bins x 4). A shape the other tree's kernel refuses
+is timed on this tree alone. Each reading is the median over
 `--reps` samples of CUDA-event time over `--inner` back-to-back calls,
 divided by `--inner`; beside it, in the same turns, the device time of
 the calls' kernels per call (`torch.profiler` over `--inner` calls),
@@ -40,8 +45,11 @@ SHAPES = (("B2", 1024), ("B2", 1536),
           ("B1 peak", 2048), ("B1 peak", 2400), ("B1 peak", 2560),
           ("B1 peak", 2800), ("B1 peak", 3200),
           ("B3", 2048), ("B3", 2400), ("B3", 2560), ("B3", 2800),
-          ("B3", 3200), ("B3", 10368), ("B3", 16384))
+          ("B3", 3200), ("B3", 10368), ("B3", 16384),
+          ("B2", 32768), ("B2", 131072), ("B1 stats", 32768),
+          ("B3", 32768), ("B3", 32000), ("B3", 65536), ("B3", 131072))
 B2_SAMPLES = 1 << 19
+B2_LARGE_SAMPLES = 8_192_512          # above 16384 points per segment
 
 
 def _other_build(root: Path):
@@ -97,11 +105,80 @@ def _b2(mod, lib, n: int, dev, stream):
     return fn, out
 
 
+def _large(mod, lib, what: str, n: int, dev, stream):
+    """`what` above 16384 through the four-step entry points of `mod`'s
+    library, with the scratch chunks of this tree's wrappers."""
+    from ..ops import cuda_caf, cuda_pcf, cuda_psd
+    if "gjt_pcf_large" not in mod._SIGNATURES:
+        raise RuntimeError(f"{what} n={n}: no four-step entry points")
+    tw2 = mod.large_row_twiddles(n, dev)
+    twn = mod.reg_twiddles(n, dev)
+    if what == "B2":
+        x = _cplx(B2_LARGE_SAMPLES, n, dev)
+        win = torch.from_numpy((0.5 - 0.5 * np.cos(
+            2.0 * np.pi * np.arange(n) / n)).astype(np.float32)).to(dev)
+        n_segs = 1 + (B2_LARGE_SAMPLES - n) // (n // 2)
+        chunk = cuda_psd.large_seg_chunk(n, n_segs)
+        A = torch.empty((chunk, n), dtype=torch.complex64, device=dev)
+        pw = torch.empty((chunk, n), dtype=torch.float32, device=dev)
+        half = torch.empty(n_segs + 1, dtype=torch.complex64, device=dev)
+        acc = torch.empty(n, dtype=torch.float32, device=dev)
+        out = torch.empty(n, dtype=torch.float32, device=dev)
+
+        def fn():
+            return lib.gjt_welch_psd_large(
+                x.data_ptr(), win.data_ptr(), tw2.data_ptr(), twn.data_ptr(),
+                A.data_ptr(), pw.data_ptr(), half.data_ptr(), acc.data_ptr(),
+                out.data_ptr(), n, n_segs, chunk, 1, 1.0 / n_segs, stream)
+        return fn, out
+    if what == "B1 stats":
+        n_c, rows, groups, n_prn, excl = 57, 6, 2, 36, 16
+        y = _cplx((rows * groups, n), n, dev)
+        rep = _cplx((n_prn, n), n + 1, dev)
+        Y = torch.empty_like(y)
+        cells = n_prn * n_c * rows
+        chunk = cuda_pcf.large_cells_chunk(n, groups, cells, Y.numel() * 8)
+        Bs = torch.empty((chunk * groups, n), dtype=torch.complex64,
+                         device=dev)
+        out = torch.empty((5, n_prn, n_c * rows), dtype=torch.float32,
+                          device=dev)
+
+        def fn():
+            return lib.gjt_pcf_large(
+                y.data_ptr(), Y.data_ptr(), Bs.data_ptr(), rep.data_ptr(),
+                tw2.data_ptr(), twn.data_ptr(), out.data_ptr(), rows, groups,
+                n_c, n_prn, n, 1, excl, chunk, stream)
+        return fn, out
+    n_f, nb, n_prn = (71, 10, 36) if n == 32768 else (35, 4, 8)
+    x = _cplx((nb, n), n + 2, dev)
+    osc = _cplx((n_f, n), n + 3, dev)
+    rep = _cplx((n_prn, n), n + 4, dev)
+    bins, cells = cuda_caf.large_chunks(n, nb, n_f, n_prn)
+    Y = torch.empty((bins * nb, n), dtype=torch.complex64, device=dev)
+    Bs = torch.empty((cells * nb, n), dtype=torch.complex64, device=dev)
+    out = torch.empty((n_prn, n_f, n), dtype=torch.float32, device=dev)
+
+    def fn():
+        return lib.gjt_caf_std_large(
+            x.data_ptr(), osc.data_ptr(), Y.data_ptr(), Bs.data_ptr(),
+            rep.data_ptr(), tw2.data_ptr(), twn.data_ptr(), out.data_ptr(),
+            n_f, nb, n_prn, n, bins, cells, stream)
+    return fn, out
+
+
 def _call(mod, what: str, n: int, dev):
     """A closure launching `what` at n through the library of build module
     `mod`, with its own twiddle table; inputs are seeded, so both
     libraries see the same ones. Raises if the kernel refuses n."""
     lib = mod.load()
+    if n > 16384:
+        fn, out = _large(mod, lib, what, n, dev,
+                         torch.cuda.current_stream().cuda_stream)
+        err = fn()
+        torch.cuda.synchronize()
+        if err:
+            raise RuntimeError(f"{what} n={n}: {torch.cuda.CudaError(err)}")
+        return fn, out
     # the parent of the register FFT has one (half) table for every n
     tw = (mod.row_twiddles if hasattr(mod, "row_twiddles")
           else mod.twiddles)(n, dev)

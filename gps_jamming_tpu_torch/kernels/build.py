@@ -28,16 +28,22 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("welch_psd.cu", "pcf.cu", "caf_std.cu")
-HEADERS = ("fft_smem.cuh", "fft_reg.cuh", "pcf_correlate.cuh")
+HEADERS = ("fft_smem.cuh", "fft_reg.cuh", "fft_large.cuh",
+           "pcf_correlate.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # The code-period lengths the FFTs of kernels B1 and B3 take:
 # n in [FFT_MIN_N, FFT_MAX_N] with every prime factor <= FFT_MAX_RADIX. The
 # C gate (`row_plan`, csrc/pcf_correlate.cuh) gets them as -D defines, and
 # `cuda_pcf.supported` reads them here: one rule for both.
 FFT_MIN_N, FFT_MAX_N, FFT_MAX_RADIX = 256, 16384, 127
+# Above FFT_MAX_N the rows of kernels B1, B3 and B2 run the four-step FFT
+# of csrc/fft_large.cuh, n = n1 * n2 with n2 <= FFT_MAX_N, up to this n
+# (GJT_FFT_LARGE_MAX_N in the C gate, `large_plan`).
+FFT_LARGE_MAX_N = 131072
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               f"-DGJT_FFT_MIN_N={FFT_MIN_N}", f"-DGJT_FFT_MAX_N={FFT_MAX_N}",
-              f"-DGJT_FFT_MAX_RADIX={FFT_MAX_RADIX}")
+              f"-DGJT_FFT_MAX_RADIX={FFT_MAX_RADIX}",
+              f"-DGJT_FFT_LARGE_MAX_N={FFT_LARGE_MAX_N}")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +52,12 @@ _SIGNATURES = {
     "gjt_welch_psd": [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
     "gjt_pcf": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gjt_caf_std": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gjt_welch_psd_large": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, ctypes.c_float, _P],
+    "gjt_pcf_large": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _P],
+    "gjt_caf_std_large": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _P],
 }
 
 
@@ -170,3 +182,14 @@ def row_twiddles(n: int, device) -> torch.Tensor:
     if n in fft_plan.CORRELATE_SIZES:
         return reg_twiddles(n, device)
     return twiddles(n, device)
+
+
+def large_row_twiddles(n: int, device) -> torch.Tensor:
+    """The table of the n2-point rows of an n-point four-step FFT
+    (csrc/fft_large.cuh, `fft_plan.large_split`): the two-level table at a
+    size of `fft_plan.LARGE_REG_SIZES` (the register FFT), else the half
+    table (the shared-memory FFT)."""
+    n2 = fft_plan.large_split(n)[1]
+    if n2 in fft_plan.LARGE_REG_SIZES:
+        return reg_twiddles(n2, device)
+    return twiddles(n2, device)

@@ -47,6 +47,8 @@ def _read_schedules() -> dict[int, tuple[int, int, int, tuple[int, ...]]]:
 SCHEDULES = _read_schedules()
 CORRELATE_SIZES = tuple(a[0] for a in _macro_args("pcf_correlate.cuh",
                                                   "GJT_CORR_SIZES"))
+LARGE_REG_SIZES = tuple(a[0] for a in _macro_args("fft_large.cuh",
+                                                  "GJT_LARGE_REG_SIZES"))
 
 
 def threads(n: int) -> int:
@@ -225,3 +227,70 @@ def bank_ways(n: int) -> int:
                     worst = max(worst, _ways(c), _ways(f))
         ns *= radix
     return worst
+
+
+# The four-step FFT of csrc/fft_large.cuh, above one block's 16384 points.
+
+def large_split(n: int, max_row: int = 16384) -> tuple[int, int] | None:
+    """(n1, n2) of `large_plan`: n1 the least of 2, 4 and 8 with n2 = n/n1
+    <= max_row; None where there is none."""
+    for n1 in (2, 4, 8):
+        if n % n1 == 0 and n // n1 <= max_row:
+            return n1, n // n1
+    return None
+
+
+def large_twiddle(n: int, e, inverse: bool = False):
+    """exp(-+2*pi*i*e/n) as `large_twiddle` forms it: the product of two
+    entries of the n-point two-level table, float32."""
+    tab = twiddle_table(n)
+    e = np.asarray(e)
+    w = (tab[e >> FINE_BITS] * tab[-(-n >> FINE_BITS) + (e & 63)]).astype(
+        np.complex64)
+    return np.conj(w) if inverse else w
+
+
+def four_step_forward(x: np.ndarray) -> np.ndarray:
+    """The forward FFT of the rows of x (rows, n) as launch_large_forward
+    runs it: the column pass (n1-point DFTs of x[j2 + n2*j1], the twiddle
+    w_n^(k1*j2)), then n2-point row FFTs. Returns (rows, n) in the
+    permuted order [k1*n2 + k2] = X[k1 + n1*k2], complex64."""
+    rows, n = x.shape
+    n1, n2 = large_split(n)
+    j2 = np.arange(n2)
+    cols = x.reshape(rows, n1, n2).astype(np.complex128)    # [j1][j2]
+    a = np.fft.fft(cols, axis=1).astype(np.complex64)        # [k1][j2]
+    a = a * large_twiddle(n, np.arange(n1)[:, None] * j2[None, :])
+    return np.fft.fft(a.astype(np.complex128), axis=2).astype(
+        np.complex64).reshape(rows, n)
+
+
+def four_step_correlate(yp: np.ndarray, rep: np.ndarray,
+                        shift: int) -> np.ndarray:
+    """|ifft(Y * rep shifted)|^2 * n^2 of one forward row as the correlate
+    stage runs it (RowsCorr, then large_cols_corr): yp (n,) in the
+    permuted order of `four_step_forward`, rep (n,) natural order. The row
+    pass takes the n2-point inverse over k2 of yp[k1*n2 + k2] *
+    rep[(k1 - shift + n1*k2) mod n] and multiplies by w_n^-(k1*t2); the
+    column pass the n1-point inverse over k1, lag t2 + n2*t1. Returns the
+    (n,) float32 power in natural lag order (no 1/n)."""
+    n = yp.size
+    n1, n2 = large_split(n)
+    k1 = np.arange(n1)[:, None]
+    k2 = np.arange(n2)[None, :]
+    z = yp.reshape(n1, n2) * rep[(k1 - shift + n1 * k2) % n]
+    b = (np.fft.ifft(z.astype(np.complex128), axis=1) * n2).astype(
+        np.complex64)                                        # [k1][t2]
+    b = b * large_twiddle(n, k1 * k2, inverse=True)          # k2 as t2
+    x = (np.fft.ifft(b.astype(np.complex128), axis=0) * n1).astype(
+        np.complex64)                                        # [t1][t2]
+    return (np.abs(x) ** 2).astype(np.float32).reshape(n)
+
+
+def four_step_depermute(v: np.ndarray) -> np.ndarray:
+    """Natural bin order out of the permuted [k1*n2 + k2] = X[k1 + n1*k2]
+    (as welch_seg_sum writes its row)."""
+    n = v.shape[-1]
+    n1, n2 = large_split(n)
+    return np.swapaxes(v.reshape(v.shape[:-1] + (n1, n2)), -1, -2).reshape(
+        v.shape)

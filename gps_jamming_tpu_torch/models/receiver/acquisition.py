@@ -83,8 +83,10 @@ def acquire_all(blocks: torch.Tensor, replica_fft_conj: torch.Tensor,
     On a CUDA tensor an n that neither kernels B1 and B3 nor the JAX
     package's Pallas kernels take (`caf.plain_on_card`: 2062 = 2 * 1031)
     runs the plain surfaces on the card, as the reference computes XLA
-    there. An n that a TPU kernel takes and B1 and B3 do not (above 16384)
-    raises from the kernel's wrapper.
+    there. Above 16384 (Galileo E1B at 8.192 MS/s: 32768) B1 and B3 run
+    the four-step FFT; an n that a TPU kernel takes and they do not (a
+    prime factor above 127, or std above 131072) raises from the kernel's
+    wrapper.
 
     The JAX package's `precision=` argument is left out: the port has no
     precision option and computes in float32/complex64.

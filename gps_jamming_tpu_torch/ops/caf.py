@@ -99,17 +99,27 @@ def tpu_kernel_takes(n: int, n_prn: int, pcf: bool) -> bool:
             is not None or _tpu_v1(n))
 
 
+def tpu_psd_takes(nperseg: int) -> bool:
+    """Does the JAX package's Pallas Welch kernel take this nperseg?
+    (`pallas_psd.supported`: `factorization_v2`, up to 128 * 1024.)"""
+    return _tpu_n2(nperseg, (128, 64, 32, 16, 8, 4, 2, 1)) is not None
+
+
 def plain_on_card(blocks: torch.Tensor, n_prn: int, pcf: bool) -> bool:
     """Does a search on these blocks compute its plain surface on the card?
 
-    Only where neither the port's kernel (`cuda_pcf.supported`) nor any of
-    the JAX package's Pallas kernels takes n, so that the reference
-    computes XLA there (n = 2062 = 2 * 1031). An n that a TPU kernel takes
-    and the port's does not (above 16384, ROADMAP B) goes to the kernel's
-    wrapper, which raises.
+    Only where neither the port's kernel (`cuda_pcf.supported` for the PCF
+    search, `cuda_caf.supported` for std) nor any of the JAX package's
+    Pallas kernels takes n, so that the reference computes XLA there (n =
+    2062 = 2 * 1031; above 32768 for PCF). Above 16384 the port's kernels
+    take every n the TPU's do up to 131072, except an n with a prime
+    factor above 127 (std at 131 * 128) or above 131072 (v1 has no cap):
+    such an n goes to the kernel's wrapper, which raises
+    (`cuda_caf.unsupported_reason`).
     """
     n = int(blocks.shape[-1])
-    return (blocks.is_cuda and not cuda_pcf.supported(n)
+    ours = cuda_pcf.supported(n) if pcf else cuda_caf.supported(n)
+    return (blocks.is_cuda and not ours
             and not tpu_kernel_takes(n, int(n_prn), pcf))
 
 

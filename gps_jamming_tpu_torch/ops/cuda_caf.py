@@ -33,9 +33,36 @@ LAUNCHES = 0
 
 
 def supported(n: int) -> bool:
-    """The code-period lengths of kernel B1's FFTs (`cuda_pcf.supported`):
-    n in [256, 16384], prime factors <= 127."""
+    """The code-period lengths kernel B3 takes: up to 16384 those of
+    kernel B1 (`cuda_pcf.supported`: n from 256, prime factors <= 127);
+    above it (the four-step FFT, csrc/fft_large.cuh) every multiple of 128
+    up to 131072 whose prime factors are all <= 127, as the JAX package's
+    v1 takes n1*128 (n1 <= 256) and its v2 n up to 128*1024."""
+    if n > build.FFT_MAX_N:
+        return (n <= build.FFT_LARGE_MAX_N and n % 128 == 0
+                and cuda_pcf.small_primes(n))
     return cuda_pcf.supported(n)
+
+
+def unsupported_reason(n: int) -> str:
+    """Why kernel B3 refuses an n that `supported` rejects."""
+    if n <= build.FFT_MAX_N:
+        return cuda_pcf.unsupported_reason(n)
+    if n > build.FFT_LARGE_MAX_N:
+        return f"n {n} is above {build.FFT_LARGE_MAX_N}"
+    if n % 128:
+        return f"n {n} above {build.FFT_MAX_N} is not a multiple of 128"
+    return f"n {n} has a prime factor above {build.FFT_MAX_RADIX}"
+
+
+def large_chunks(n: int, nb: int, n_freq: int, n_prn: int) -> tuple[int, int]:
+    """(bins, cells) per pass above 16384 lags: the forward spectra of a
+    chunk of Doppler bins take at most half of
+    `cuda_pcf.LARGE_SCRATCH_BYTES`, the correlate stage's cells (p, f) the
+    rest; each at least one."""
+    row = nb * n * 8
+    bins = max(1, min(n_freq, cuda_pcf.LARGE_SCRATCH_BYTES // 2 // row))
+    return bins, cuda_pcf.large_cells_chunk(n, nb, n_prn * bins, bins * row)
 
 
 @functools.lru_cache(maxsize=8)
@@ -90,19 +117,35 @@ def caf_accumulate_fused(blocks: torch.Tensor, replica: torch.Tensor, freqs,
                          f"{blocks.device}")
     nb, n = blocks.shape
     if not supported(n):
-        raise ValueError(f"kernel B3 (std CAF): "
-                         f"{cuda_pcf.unsupported_reason(n)}")
+        raise ValueError(f"kernel B3 (std CAF): {unsupported_reason(n)}")
     check_tensor(blocks, "blocks", torch.complex64, (nb, n))
     check_tensor(replica, "replica", torch.complex64, (None, n),
                  blocks.device)
     osc = phasors(freqs, sample_rate, n, blocks.device)
     n_freq, n_prn = osc.shape[0], replica.shape[0]
-    Y = torch.empty((n_freq * nb, n), dtype=torch.complex64,
-                    device=blocks.device)
     out = torch.empty((n_prn, n_freq, n), dtype=torch.float32,
                       device=blocks.device)
-    tw = build.row_twiddles(n, blocks.device)
     lib = build.load()
+    if n > build.FFT_MAX_N:
+        bins, cells = large_chunks(n, nb, n_freq, n_prn)
+        Y = torch.empty((bins * nb, n), dtype=torch.complex64,
+                        device=blocks.device)
+        Bs = torch.empty((cells * nb, n), dtype=torch.complex64,
+                         device=blocks.device)
+        tw2 = build.large_row_twiddles(n, blocks.device)
+        twn = build.reg_twiddles(n, blocks.device)
+        with torch.cuda.device(blocks.device):
+            err = lib.gjt_caf_std_large(
+                blocks.data_ptr(), osc.data_ptr(), Y.data_ptr(),
+                Bs.data_ptr(), replica.data_ptr(), tw2.data_ptr(),
+                twn.data_ptr(), out.data_ptr(), n_freq, nb, n_prn, n, bins,
+                cells, torch.cuda.current_stream().cuda_stream)
+        build.check(err, "gjt_caf_std_large")
+        LAUNCHES += 1
+        return out
+    Y = torch.empty((n_freq * nb, n), dtype=torch.complex64,
+                    device=blocks.device)
+    tw = build.row_twiddles(n, blocks.device)
     with torch.cuda.device(blocks.device):
         err = lib.gjt_caf_std(
             blocks.data_ptr(), osc.data_ptr(), Y.data_ptr(),

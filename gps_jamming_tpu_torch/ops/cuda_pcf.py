@@ -30,25 +30,57 @@ from ..kernels import build
 LAUNCHES = 0
 
 
-def supported(n: int) -> bool:
-    """Code-period lengths kernels B1 and B3 take (`build.FFT_*`, the rule
-    of the C gate): 256 to 16384 samples whose prime factors are all <=
-    127. Every power of two (the register FFT, csrc/fft_reg.cuh), v1's
-    n1*128 sizes up to 16384, and the RTL-SDR rates' 2400, 2560, 2800 and
-    3200 (the mixed-radix shared-memory FFT, csrc/fft_smem.cuh)."""
-    if not build.FFT_MIN_N <= n <= build.FFT_MAX_N:
-        return False
+# Above build.FFT_MAX_N the rows run the four-step FFT of
+# csrc/fft_large.cuh, through scratch in device memory that the wrappers
+# allocate per call, in chunks of at most this many bytes.
+LARGE_SCRATCH_BYTES = 512 << 20
+# B1 above 16384: the sizes of the JAX package's v3 factorization
+# (`pallas_caf.factorization_v3`: n1 = 32, n2 a multiple of 128 up to
+# 1024), 20480, 24576, 28672 and 32768.
+PCF_LARGE_STEP, PCF_LARGE_MAX_N = 32 * 128, 32 * 1024
+
+
+def small_primes(n: int) -> bool:
+    """Are all of n's prime factors <= build.FFT_MAX_RADIX?"""
     for p in range(2, build.FFT_MAX_RADIX + 1):
         while n % p == 0:
             n //= p
     return n == 1
 
 
+def supported(n: int) -> bool:
+    """Code-period lengths kernel B1 takes. Up to 16384 (`build.FFT_*`,
+    the rule of the C gate) every n from 256 whose prime factors are all
+    <= 127: every power of two (the register FFT, csrc/fft_reg.cuh), v1's
+    n1*128 sizes, and the RTL-SDR rates' 2400, 2560, 2800 and 3200 (the
+    mixed-radix shared-memory FFT, csrc/fft_smem.cuh). Above it (the
+    four-step FFT, csrc/fft_large.cuh) the n the JAX package's PCF kernel
+    takes: multiples of 4096 up to 32768."""
+    if n > build.FFT_MAX_N:
+        return n <= PCF_LARGE_MAX_N and n % PCF_LARGE_STEP == 0
+    return build.FFT_MIN_N <= n and small_primes(n)
+
+
 def unsupported_reason(n: int) -> str:
-    """Why kernels B1 and B3 refuse an n that `supported` rejects."""
-    if not build.FFT_MIN_N <= n <= build.FFT_MAX_N:
-        return f"n {n} is outside [{build.FFT_MIN_N}, {build.FFT_MAX_N}]"
+    """Why kernel B1 refuses an n that `supported` rejects."""
+    if n > PCF_LARGE_MAX_N:
+        return f"n {n} is above {PCF_LARGE_MAX_N}"
+    if n > build.FFT_MAX_N:
+        return (f"n {n} above {build.FFT_MAX_N} is not a multiple of "
+                f"{PCF_LARGE_STEP}")
+    if n < build.FFT_MIN_N:
+        return f"n {n} is below {build.FFT_MIN_N}"
     return f"n {n} has a prime factor above {build.FFT_MAX_RADIX}"
+
+
+def large_cells_chunk(n: int, groups: int, cells: int,
+                      fixed_bytes: int = 0) -> int:
+    """Cells per pass of the correlate stage above 16384 lags: each holds
+    `groups` n-point complex64 rows of scratch, and with `fixed_bytes` of
+    other scratch they stay within LARGE_SCRATCH_BYTES (at least one cell,
+    at most `cells`)."""
+    per_cell = groups * n * 8
+    return max(1, min(cells, (LARGE_SCRATCH_BYTES - fixed_bytes) // per_cell))
 
 
 def n_coarse(sample_rate: float, n: int, max_doppler_hz: float) -> int:
@@ -155,8 +187,26 @@ def pcf_search(y: torch.Tensor, replica: torch.Tensor, n_c: int,
     else:
         out = torch.empty((5, n_prn, n_c * n_rows), dtype=torch.float32,
                           device=y.device)
-    tw = build.row_twiddles(n, y.device)
     lib = build.load()
+    if n > build.FFT_MAX_N:
+        cells = n_prn * n_c * n_rows
+        chunk = large_cells_chunk(n, n_groups, cells, Y.numel() * 8)
+        Bs = torch.empty((chunk * n_groups, n), dtype=torch.complex64,
+                         device=y.device)
+        tw2 = build.large_row_twiddles(n, y.device)
+        twn = build.reg_twiddles(n, y.device)
+        with torch.cuda.device(y.device):
+            err = lib.gjt_pcf_large(
+                y.data_ptr(), Y.data_ptr(), Bs.data_ptr(),
+                replica.data_ptr(), tw2.data_ptr(), twn.data_ptr(),
+                out.data_ptr(), n_rows, n_groups, n_c, n_prn, n,
+                int(stats_excl is not None),
+                0 if stats_excl is None else stats_excl, chunk,
+                torch.cuda.current_stream().cuda_stream)
+        build.check(err, "gjt_pcf_large")
+        LAUNCHES += 1
+        return out if stats_excl is None else tuple(out.unbind(0))
+    tw = build.row_twiddles(n, y.device)
     with torch.cuda.device(y.device):
         err = lib.gjt_pcf(
             y.data_ptr(), Y.data_ptr(), replica.data_ptr(), tw.data_ptr(),

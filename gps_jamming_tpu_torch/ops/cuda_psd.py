@@ -4,9 +4,11 @@ its plain version.
 Replaces gps_jamming_tpu/ops/pallas_psd.py (`welch_psd_fused` -> `_run` ->
 `_make_kernel`). Same contract: two-sided Welch PSD of a 1-D complex64
 signal, 50 % overlap, periodic Hann window, per-segment detrend, density
-scaling, natural FFT order; every nperseg the TPU kernel takes up to 16384
-(and 64), in one launch per signal. The wrapper also takes (rows, n), one
-launch per row (the spectrogram's chunks).
+scaling, natural FFT order; every nperseg the TPU kernel takes (and 64),
+in one launch per signal: up to 16384 one block per segment, above it
+(20480 ... 131072) each segment on the four-step FFT of
+csrc/fft_large.cuh through scratch in device memory. The wrapper also
+takes (rows, n), one launch per row (the spectrogram's chunks).
 
 A CPU tensor takes the plain version (`welch_psd_reference`); a CUDA tensor
 launches the kernel or raises.
@@ -20,6 +22,8 @@ import torch
 
 from ..device import check_tensor
 from ..kernels import build
+from . import caf
+from .cuda_pcf import LARGE_SCRATCH_BYTES
 
 # Kernel launches made by `welch_psd_fused` (one per row on a CUDA tensor).
 LAUNCHES = 0
@@ -33,8 +37,14 @@ MIXED_NPERSEG = (384, 640, 768, 896, 1280, 1536, 1792, 2560, 3072, 3584,
 
 
 def supported(nperseg: int) -> bool:
-    """A power of two in [64, 16384] or one of MIXED_NPERSEG."""
-    return (64 <= nperseg <= 16384 and nperseg & (nperseg - 1) == 0) \
+    """A power of two in [64, 16384] or one of MIXED_NPERSEG (one block
+    per segment); above 16384 every nperseg the TPU kernel takes
+    (`caf.tpu_psd_takes`, up to 131072: 20480 ... 131072), each segment on
+    the four-step FFT of csrc/fft_large.cuh."""
+    if nperseg > build.FFT_MAX_N:
+        return (nperseg <= build.FFT_LARGE_MAX_N
+                and caf.tpu_psd_takes(nperseg))
+    return (64 <= nperseg and nperseg & (nperseg - 1) == 0) \
         or nperseg in MIXED_NPERSEG
 
 
@@ -83,8 +93,9 @@ def welch_psd_fused(x: torch.Tensor, sample_rate: float, nperseg: int = 1024,
         raise ValueError(f"welch_psd_fused: unsupported device {x.device}")
     if not supported(nperseg):
         raise ValueError(f"welch_psd_fused: nperseg {nperseg} is neither a "
-                         "power of two in [64, 16384] nor one of "
-                         f"{MIXED_NPERSEG}")
+                         "power of two in [64, 16384], one of "
+                         f"{MIXED_NPERSEG} nor a size above 16384 that the "
+                         "TPU kernel takes")
     if x.dim() not in (1, 2):
         raise ValueError(f"welch_psd_fused: expected (n,) or (rows, n), "
                          f"got {tuple(x.shape)}")
@@ -101,6 +112,10 @@ def welch_psd_fused(x: torch.Tensor, sample_rate: float, nperseg: int = 1024,
     scale = 1.0 / (sample_rate * wsum2) / n_segs
     lib = build.load()
     x_row, out_row = n * x.element_size(), nperseg * out.element_size()
+    if nperseg > build.FFT_MAX_N:
+        _welch_large(lib, x, win, tab, out, rows, nperseg, n_segs, detrend,
+                     scale, x_row, out_row)
+        return out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         scratch = _scratch(nperseg, x.device, stream)
@@ -112,3 +127,35 @@ def welch_psd_fused(x: torch.Tensor, sample_rate: float, nperseg: int = 1024,
             build.check(err, "gjt_welch_psd")
             LAUNCHES += 1
     return out
+
+
+def large_seg_chunk(nperseg: int, n_segs: int) -> int:
+    """Segments per pass above 16384 points: each takes a complex64 and a
+    float32 row of scratch (12 bytes a point), within
+    `cuda_pcf.LARGE_SCRATCH_BYTES` (and a grid's 65535 rows)."""
+    return max(1, min(n_segs, 65535, LARGE_SCRATCH_BYTES // (12 * nperseg)))
+
+
+def _welch_large(lib, x, win, tab, out, rows, nperseg, n_segs, detrend,
+                 scale, x_row, out_row) -> None:
+    """The rows of `welch_psd_fused` above 16384 points, one launch of
+    `gjt_welch_psd_large` per row; the rows share one set of scratch."""
+    global LAUNCHES
+    chunk = large_seg_chunk(nperseg, n_segs)
+    dev = x.device
+    A = torch.empty((chunk, nperseg), dtype=torch.complex64, device=dev)
+    pw = torch.empty((chunk, nperseg), dtype=torch.float32, device=dev)
+    half = torch.empty(n_segs + 1, dtype=torch.complex64, device=dev)
+    acc = torch.empty(nperseg, dtype=torch.float32, device=dev)
+    tw2 = build.large_row_twiddles(nperseg, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for r in range(rows):
+            err = lib.gjt_welch_psd_large(
+                x.data_ptr() + r * x_row, win.data_ptr(), tw2.data_ptr(),
+                tab.data_ptr(), A.data_ptr(), pw.data_ptr(),
+                half.data_ptr(), acc.data_ptr(),
+                out.data_ptr() + r * out_row, nperseg, n_segs, chunk,
+                int(detrend), scale, stream)
+            build.check(err, "gjt_welch_psd_large")
+            LAUNCHES += 1

@@ -32,14 +32,15 @@ def welch_psd(x: torch.Tensor, sample_rate: float, nperseg: int = 1024,
 
     On a CUDA tensor the fused kernel B2 (`cuda_psd.welch_psd_fused`) runs
     wherever it takes the input: 50 % overlap, n >= 2*nperseg and an
-    nperseg of `cuda_psd.supported` (every size the JAX package's Pallas
-    kernel takes up to 16384). A 1-D input is one launch; any leading dims
-    are flattened into rows, one launch per row (the spectrogram's chunks,
-    which the JAX package computes in XLA because its kernel is 1-D only).
-    Every other CUDA input takes the plain torch.fft version: another
-    overlap, n < 2*nperseg, or an nperseg above 16384, where a segment no
-    longer fits one block of B2 (ROADMAP B2 item 1; the Pallas kernel takes
-    sizes up to 131072 there).
+    nperseg of `cuda_psd.supported`, which is every size the JAX package's
+    Pallas kernel takes (up to 16384 one block per segment, 20480 to
+    131072 on the four-step FFT). A 1-D input is one launch; any leading
+    dims are flattened into rows, one launch per row (the spectrogram's
+    chunks, which the JAX package computes in XLA because its kernel is
+    1-D only). Every other CUDA input takes the plain torch.fft version,
+    where the JAX package computes XLA too: another overlap, n <
+    2*nperseg, or an nperseg the Pallas kernel does not take (above
+    131072, or 73728 = 9 * 8192).
     """
     n = x.shape[-1]
     if (x.is_cuda and overlap_frac == 0.5

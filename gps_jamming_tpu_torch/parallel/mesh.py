@@ -115,8 +115,9 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None,
                      timeout_s: float = 300.0) -> bool:
     """Multi-process bring-up: join the process group at
-    `coordinator_address` ("host:port"; None: $JAX_COORDINATOR_ADDRESS)
-    as `process_id` of `num_processes`, over TCP.
+    `coordinator_address` ("host:port", over TCP; or a rendezvous URL such
+    as "file:///path/to/store", which needs no free port; None:
+    $JAX_COORDINATOR_ADDRESS) as `process_id` of `num_processes`.
 
     Returns False, doing nothing, where no coordinator is configured
     (single-process paths call this unconditionally) or the group exists
@@ -133,7 +134,9 @@ def init_distributed(coordinator_address: str | None = None,
                          "num_processes and process_id")
     backend = "cpu:gloo,cuda:nccl" if dist.is_nccl_available() else "gloo"
     dist.init_process_group(
-        backend, init_method=f"tcp://{coordinator_address}",
+        backend, init_method=(coordinator_address
+                              if "://" in coordinator_address
+                              else f"tcp://{coordinator_address}"),
         world_size=int(num_processes), rank=int(process_id),
         timeout=datetime.timedelta(seconds=timeout_s))
     return True

@@ -22,7 +22,7 @@ from gps_jamming_tpu_torch.config import AcquisitionConfig
 from gps_jamming_tpu_torch.models.receiver import acquisition as tacq
 from gps_jamming_tpu_torch.ops import caf as tcaf
 from gps_jamming_tpu_torch.ops import codes as tcodes
-from gps_jamming_tpu_torch.ops import cuda_pcf
+from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf
 
 torch.set_num_threads(2)
 
@@ -254,12 +254,13 @@ def test_replica_conversion_round_trip():
 def _c1_case(system):
     """(blocks, jax replica planes, port replica, fs, n, kw, cfg pair, the
     injected (index, lag, Hz)) at an n kernels B1 and B3 do not take:
-    Galileo E1B at 8.192 MS/s (n = 32768, above 16384; 3 PRNs, +/-2 kHz to
-    keep the CPU surface small) or GPS at 2.062 MS/s (n = 2062 = 2 * 1031,
-    a prime factor above 127)."""
+    Galileo E1B at 4.192 MS/s (n = 16768 = 131 * 128, a prime factor above
+    127 that the JAX package's v1 takes; 3 PRNs, +/-2 kHz to keep the CPU
+    surface small) or GPS at 2.062 MS/s (n = 2062 = 2 * 1031, a prime
+    factor above 127)."""
     from gps_jamming_tpu.models.receiver import galileo as jgal
     if system == "galileo":
-        fs, n, prns, hz, lag = 8.192e6, 32768, [4, 11, 19], -1500.0, 5000
+        fs, n, prns, hz, lag = 4.192e6, 16768, [4, 11, 19], -1500.0, 5000
         code = jgal.e1b_boc_code(11)
         chip = np.floor((np.arange(10 * n) - lag) * (jgal.BOC_RATE / fs))
         rep = jgal.replica_table_host(fs, n, prns)
@@ -291,11 +292,11 @@ def test_acquire_all_where_the_kernels_do_not_apply_matches_jax(system,
     """At an n kernels B1 and B3 do not take, the port's CPU search equals
     the JAX package's: its XLA surface at 2062 (no Pallas kernel takes it;
     the card computes the plain surface too), its XLA surface on the CPU
-    at 32768 (a Pallas kernel on a TPU; the card raises,
+    at 16768 (a Pallas kernel, v1, on a TPU for std; the card raises there,
     tests/test_torch_cuda.py). Both acquire the same PRN at the same lag
     and Doppler."""
     x, planes, fs, n, kw, (cfg, jcfg), (want_i, lag, hz) = _c1_case(system)
-    assert not cuda_pcf.supported(n)
+    assert not cuda_pcf.supported(n) and not cuda_caf.supported(n)
     want = jacq.acquire_all(_jax_blocks(x), cplx.CArray(*planes), fs, jcfg,
                             method=method, **kw)
     got = tacq.acquire_all(torch.from_numpy(x),

@@ -163,7 +163,10 @@ def test_std_search_rejects_other_devices():
     with pytest.raises(ValueError, match="device"):
         cuda_caf.caf_accumulate_fused(x, x, [0.0], FS)
     assert cuda_caf.supported(16384) and cuda_caf.supported(3200)
-    assert cuda_caf.supported(10368) and not cuda_caf.supported(16384 * 2)
+    assert cuda_caf.supported(10368) and cuda_caf.supported(16384 * 2)
+    assert cuda_caf.supported(250 * 128) and cuda_caf.supported(131072)
+    assert not cuda_caf.supported(131 * 128)
+    assert not cuda_caf.supported(2 * 131072)
 
 
 @pytest.mark.parametrize("channels", [(-3, 4), (-7, 0, 6)])

@@ -19,13 +19,18 @@ GPS at 2.4, 2.56, 2.8 and 3.2 MS/s (2400, 2560, 2800, 3200) and v1's
 (3^7), one with a generic-radix stage (4*127) and some of B2's mixed
 sizes (384, 1536, 12288, 14336), which keep the shared-memory FFT, to the
 same tolerances. B2 is also held at a full-scale DC of 127 LSB over 1 LSB
-of noise at nperseg 16384, the detrend's worst case.
+of noise at nperseg 16384, the detrend's worst case. Above 16384 all three
+run the four-step FFT (csrc/fft_large.cuh), held to the same tolerances:
+B1 at 20480 and 32768 (Galileo E1B at 8.192 MS/s), B3 at 32768, 32000
+(rows of 16000 on the shared-memory FFT), 65536 and 131072, B2 at nperseg
+20480, 32768, 49152 and 131072; a CUDA Welch at nperseg 65536 never calls
+torch.fft.
 
 Where neither B1 and B3 nor the JAX package's Pallas kernels take an n
 (2062, a prime factor 1031) their callers compute the plain surfaces on the
 card without a launch, and acquisition equals the CPU's; where only a TPU
-kernel takes it (32768, Galileo E1B at 8.192 MS/s) the card raises, with no
-launch. The localization ops
+kernel takes it (the std search at 16768 = 131 * 128, Galileo E1B at 4.192
+MS/s: a prime factor above 127) the card raises, with no launch. The localization ops
 and the batch product path (`pipeline.analyze_capture(streaming=False)`)
 on the card equal the CPU on a seeded 1 s 3-antenna jammed set. B2 also
 runs over (rows, n), one launch per row, each row the plain version's,
@@ -87,7 +92,12 @@ WELCH_CASES = (
        (1536, 100_000, 30 + 20j), (16384, 300_000, 30 + 20j),
        # a full-scale RTL-SDR DC (127 LSB) over 1 LSB of noise at the
        # largest nperseg: the worst case of the detrend after the FFT
-       (16384, 300_000, 127 + 0j)])
+       (16384, 300_000, 127 + 0j),
+       # above 16384: the four-step FFT, the mean subtracted before it
+       (20480, 9 * 20480 // 2 + 77, 0.3 - 0.2j),
+       (32768, 9 * 32768 // 2 + 77, 0.3 - 0.2j),
+       (49152, 9 * 49152 // 2 + 77, 30 + 20j),
+       (131072, 300_000, 127 + 0j)])
 
 
 @pytest.mark.parametrize("nperseg,n,dc", WELCH_CASES)
@@ -103,7 +113,7 @@ def test_welch_kernel_matches_plain(dev, nperseg, n, dc, detrend):
     _assert_close(got, ref, 1e-3, 1e-4 * float(scale.max()))
 
 
-@pytest.mark.parametrize("nperseg", [64, 1024, 1536, 16384])
+@pytest.mark.parametrize("nperseg", [64, 1024, 1536, 16384, 32768, 131072])
 def test_welch_kernel_is_bitwise_repeatable(dev, nperseg):
     """Fixed tiles and a fixed sum order, no float atomics: two calls give
     the same bits, also with another size's call between them (the slice
@@ -127,7 +137,7 @@ def test_welch_dispatch_on_cuda(dev):
     assert cuda_psd.LAUNCHES == before + 2
     spectral.welch_psd(x, FS, 1024, overlap_frac=0.25)   # plain path
     assert cuda_psd.LAUNCHES == before + 2
-    for bad in (1000, 32768, 2400):
+    for bad in (1000, 36864, 2400):
         with pytest.raises(ValueError):
             cuda_psd.welch_psd_fused(_cplx(1 << 16, seed=2, dev=dev), FS, bad)
     with pytest.raises(ValueError):
@@ -142,7 +152,8 @@ def test_welch_dispatch_on_cuda(dev):
                                        (512, 4, 5), (1024, 4, 5),
                                        (4096, 4, 4), (8192, 4, 3),
                                        (2560, 10, 32), (2800, 10, 32),
-                                       (1536, 4, 5), (14336, 4, 3)])
+                                       (1536, 4, 5), (14336, 4, 3),
+                                       (20480, 4, 3), (32768, 4, 3)])
 def test_pcf_kernel_matches_plain(dev, n, nb, nprn):
     blocks = _cplx((nb, n), seed=n, dev=dev)
     rep = _cplx((nprn, n), seed=n + 1, dev=dev)
@@ -168,7 +179,7 @@ def test_pcf_kernel_matches_plain(dev, n, nb, nprn):
         _assert_close(got[4][same], want[4][same], 1e-3, 0.0)
 
 
-@pytest.mark.parametrize("n", [256, 2048, 16384, 2400])
+@pytest.mark.parametrize("n", [256, 2048, 16384, 2400, 32768])
 def test_pcf_stats_ties_take_the_lowest_lag(dev, n):
     """Rows whose surface is flat (a zero replica row: every lag ties at
     exactly 0) report the lowest lag, 0, as kernel B1's contract says;
@@ -223,11 +234,14 @@ def test_pcf_dispatch_on_cuda(dev):
     (3 ** 7, 3, 5, 7, FS), (4 * 127, 3, 5, 7, FS), (512, 3, 5, 7, FS),
     (1024, 4, 5, 15, FS), (4096, 4, 4, 15, 4.096e6),
     (2560, 10, 32, 71, 2.56e6), (2800, 10, 32, 71, 2.8e6),
-    (384, 3, 5, 7, FS), (12288, 4, 3, 15, 12.288e6)])
+    (384, 3, 5, 7, FS), (12288, 4, 3, 15, 12.288e6),
+    (32768, 4, 3, 15, 8.192e6), (32000, 4, 3, 15, 8e6),
+    (65536, 2, 2, 7, 16.384e6), (131072, 2, 2, 7, 32.768e6)])
 def test_caf_std_kernel_matches_plain(dev, n, nb, nprn, nf, fs):
     """Kernel B3 against its plain version: the GPS shape, Galileo E1B's
     16384 lags (one 1024-thread block per SM), every power of two between,
-    and the mixed-radix n (GPS at 2.4 and 3.2 MS/s, 81*128, 3^7, 4*127)."""
+    the mixed-radix n (GPS at 2.4 and 3.2 MS/s, 81*128, 3^7, 4*127) and
+    the four-step FFT's 32768, 32000, 65536 and 131072."""
     from gps_jamming_tpu_torch.ops import caf
     blocks = _cplx((nb, n), seed=n + 2, dev=dev)
     rep = _cplx((nprn, n), seed=n + 3, dev=dev)
@@ -289,14 +303,15 @@ def test_caf_std_dispatch_on_cuda(dev):
 
 def _c1_blocks(system, dev):
     """10 code periods of unit noise plus one PRN at -18 dB per sample, at
-    an n kernels B1 and B3 do not take: Galileo E1B at 8.192 MS/s (n =
-    32768; 3 PRNs, +/-2 kHz) or GPS at 2.062 MS/s (n = 2062 = 2 * 1031).
+    an n kernels B1 and B3 do not take: Galileo E1B at 4.192 MS/s (n =
+    16768 = 131 * 128; 3 PRNs, +/-2 kHz) or GPS at 2.062 MS/s (n = 2062 =
+    2 * 1031).
     Returns (blocks, replica, fs, config, acquire_all kwargs)."""
     from gps_jamming_tpu_torch.config import AcquisitionConfig
     from gps_jamming_tpu_torch.models.receiver import galileo
     from gps_jamming_tpu_torch.ops import codes
     if system == "galileo":
-        fs, n, hz, lag = 8.192e6, 32768, -1500.0, 5000
+        fs, n, hz, lag = 4.192e6, 16768, -1500.0, 5000
         code, rate = galileo.e1b_boc_code(11), galileo.BOC_RATE
         rep = codes.replica_tensor(galileo.replica_table_host(
             fs, n, [4, 11, 19]), dev)
@@ -343,21 +358,82 @@ def test_acquire_all_where_the_kernels_do_not_apply(dev, system, method):
     assert int(got.acquired.sum()) == 1
 
 
-@pytest.mark.parametrize("method", ["pcf", "std", "auto"])
+@pytest.mark.parametrize("method", ["std", "auto"])
 def test_acquire_all_raises_where_only_a_tpu_kernel_applies(dev, method):
-    """At n = 32768 (Galileo E1B at 8.192 MS/s) the JAX package runs its
-    Pallas kernels (v3, 32 x 1024) and B1 and B3 do not take n: the card
-    raises from the kernel's wrapper, with no launch, and does not give way
-    to the plain surface."""
+    """At n = 16768 = 131 * 128 (Galileo E1B at 4.192 MS/s) the JAX package
+    runs its Pallas std kernel (v1, 131 x 128) and B3 does not take n (a
+    prime factor above 127): the card raises from the kernel's wrapper,
+    with no launch, and does not give way to the plain surface; 'auto'
+    resolves to std at 500 Hz bins. (No n is left where only the TPU's PCF
+    kernel applies: B1 takes every n that v3 takes.)"""
+    from gps_jamming_tpu_torch.config import AcquisitionConfig
     from gps_jamming_tpu_torch.models.receiver import acquisition as acq
     from gps_jamming_tpu_torch.ops import caf
-    blocks, rep, fs, cfg, kw = _c1_blocks("galileo", dev)
-    assert caf.tpu_kernel_takes(blocks.shape[-1], rep.shape[0], pcf=True)
-    assert not caf.plain_on_card(blocks, rep.shape[0], pcf=True)
+    blocks, rep, fs, _, kw = _c1_blocks("galileo", dev)
+    cfg = AcquisitionConfig(doppler_max_hz=2000.0, doppler_step_hz=500.0)
+    assert caf.tpu_kernel_takes(blocks.shape[-1], rep.shape[0], pcf=False)
+    assert not caf.plain_on_card(blocks, rep.shape[0], pcf=False)
     before = (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES)
-    with pytest.raises(ValueError, match="16384"):
+    with pytest.raises(ValueError, match="prime factor above 127"):
         acq.acquire_all(blocks, rep, fs, cfg, method=method, **kw)
     assert (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("method", ["pcf", "std"])
+def test_acquire_all_above_16384_launches_the_kernels(dev, method):
+    """Galileo E1B at 8.192 MS/s (n = 32768, 3 PRNs, +/-2 kHz): B1 (pcf, in
+    its statistics mode) or B3 (std) launches once, and the result equals
+    the CPU's: decisions, lags and Dopplers exact, ratios rtol 1e-3."""
+    from gps_jamming_tpu_torch.config import AcquisitionConfig
+    from gps_jamming_tpu_torch.models.receiver import acquisition as acq
+    from gps_jamming_tpu_torch.models.receiver import galileo
+    from gps_jamming_tpu_torch.ops import codes
+    fs, n, hz, lag = 8.192e6, 32768, -1500.0, 5000
+    code = galileo.e1b_boc_code(11)
+    rep = codes.replica_tensor(galileo.replica_table_host(
+        fs, n, [4, 11, 19]), dev)
+    cfg = AcquisitionConfig(doppler_max_hz=2000.0)
+    kw = dict(code_period_s=galileo.PERIOD_S,
+              code_len_chips=float(galileo.BOC_LEN))
+    rng = np.random.default_rng(n)
+    i = np.arange(10 * n)
+    chip = np.floor((i - lag) * (galileo.BOC_RATE / fs)).astype(int)
+    x = (rng.standard_normal(i.size) + 1j * rng.standard_normal(i.size)
+         + np.sqrt(2 * 10 ** (-18 / 10)) * code[chip % code.size]
+         * np.exp(2j * np.pi * hz * i / fs))
+    blocks = torch.from_numpy(x.astype(np.complex64).reshape(10, n)).to(dev)
+    before = (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES)
+    got = acq.acquire_all(blocks, rep, fs, cfg, method=method, **kw)
+    torch.cuda.synchronize()
+    want = (before[0] + (method == "pcf"), before[1] + (method == "std"))
+    assert (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES) == want
+    ref = acq.acquire_all(blocks.cpu(), rep.cpu(), fs, cfg, method=method,
+                          **kw)
+    for f in ("acquired", "code_phase", "doppler_hz"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(ref, f)), f
+    for f in ("peak_ratio", "cn0_dbhz", "peak_power"):
+        _assert_close(getattr(got, f).cpu(), getattr(ref, f), 1e-3, 0.0)
+    assert got.acquired.tolist() == [False, True, False]
+    assert abs(int(got.code_phase[1]) - lag) <= 1
+
+
+def test_welch_at_65536_never_calls_torch_fft(dev, monkeypatch):
+    """A CUDA welch_psd at nperseg 65536 (a size the TPU kernel takes, on
+    the four-step FFT) launches B2 once and calls no torch.fft function;
+    it equals the plain version, computed before the patch."""
+    x = _cplx(1 << 19, seed=65536, dev=dev) + (0.5 + 0.1j)
+    ref = spectral.welch_psd_plain(x, FS, 65536)
+
+    def refuse(*a, **k):
+        raise AssertionError("torch.fft called on the B2 path")
+
+    for name in ("fft", "ifft", "rfft", "fftn"):
+        monkeypatch.setattr(torch.fft, name, refuse)
+    before = cuda_psd.LAUNCHES
+    got = spectral.welch_psd(x, FS, 65536)
+    torch.cuda.synchronize()
+    assert cuda_psd.LAUNCHES == before + 1
+    _assert_close(got, ref, 1e-3, 1e-4 * float(ref.max()))
 
 
 def test_refine_doppler_on_cuda_matches_cpu(dev):
@@ -715,12 +791,13 @@ def test_spectrogram_runs_b2_per_chunk_on_cuda(dev, tmp_path):
     """spectral.welch_psd sends a 2-D or 3-D CUDA input to B2, one launch
     per row; the spectrogram of a file has one row per chunk, the same on
     the card as on the CPU within 1e-3 dB, at every batch size; an nperseg
-    B2 does not take (32768) stays plain."""
+    B2 does not take (36864 = 9 * 4096, which the TPU kernel does not take
+    either) stays plain."""
     x = _cplx((2, 3, 1 << 15), seed=4, dev=dev)
     before = cuda_psd.LAUNCHES
     got = spectral.welch_psd(x, FS, 1024)
     assert cuda_psd.LAUNCHES == before + 6 and got.shape == (2, 3, 1024)
-    spectral.welch_psd(_cplx((2, 1 << 16), seed=5, dev=dev), FS, 32768)
+    spectral.welch_psd(_cplx((2, 1 << 17), seed=5, dev=dev), FS, 36864)
     assert cuda_psd.LAUNCHES == before + 6
     from gps_jamming_tpu_torch.ops import iq
     rng = np.random.default_rng(3)

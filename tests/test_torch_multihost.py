@@ -1,15 +1,18 @@
 """Two-process bring-up of the port's multi-device path
 (gps_jamming_tpu_torch.parallel.mesh), on the CPU.
 
-Two OS processes join through `mesh.init_distributed` (a loopback
-coordinator, gloo), build the ('antenna', 'time') = (2, 4) mesh with
+Two OS processes join through `mesh.init_distributed` (a file store
+under the test's tmp_path, so no loopback port is picked and raced for by
+parallel test workers; gloo), build the ('antenna', 'time') = (2, 4) mesh with
 `multihost_mesh` (each process one antenna row of 4 CPU time shards) and
 run `fusion.sharded_psd_and_power` on their own antenna's stream: the
 antenna fusion crosses the process boundary through
 `torch.distributed.all_gather`. Both processes' fused PSDs are equal
 bitwise, and process 0's equals the mean of the JAX package's
 `spectral.welch_psd` of the two streams (rtol 2e-4); the power map equals
-the JAX package's `chunk_power` (rtol 1e-5). The workers import no JAX.
+the JAX package's `chunk_power` (rtol 1e-5). The workers import no JAX,
+and each writes its result to a file: stdout is not parsed, since a
+collective library's own log lines may land inside a long printed line.
 The rendezvous and the workers have timeouts of their own, so a group that
 never forms fails the test instead of hanging the suite.
 
@@ -20,7 +23,6 @@ process count and rank.
 """
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -44,7 +46,7 @@ import torch
 sys.path.insert(0, %(repo)r)
 torch.set_num_threads(1)
 
-pid, coord = int(sys.argv[1]), sys.argv[2]
+pid, coord, out_path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 
 import torch.distributed as dist
 from gps_jamming_tpu_torch.config import DetectorConfig, SpectralConfig
@@ -69,31 +71,22 @@ psd, psd_ant, pm = fusion.sharded_psd_and_power(
     blocks[pid:pid + 1], m, 2.048e6, DetectorConfig(power_chunk_samples=512),
     SpectralConfig(nperseg=256))
 assert tuple(psd_ant.shape) == (2, 256) and tuple(pm.shape) == (2, 32)
-print("RESULT " + json.dumps({"psd": psd.numpy().view(np.uint32).tolist(),
-                              "pm": pm.numpy().tolist()}), flush=True)
+with open(out_path, "w") as f:
+    json.dump({"psd": psd.numpy().view(np.uint32).tolist(),
+               "pm": pm.numpy().tolist()}, f)
 dist.destroy_process_group()
 """
 
 
-def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
-def test_two_process_fusion_matches_jax():
-    try:
-        port = _free_port()
-    except OSError:
-        pytest.skip("cannot bind loopback port")
+def test_two_process_fusion_matches_jax(tmp_path):
+    store = f"file://{tmp_path / 'store'}"
+    out_paths = [tmp_path / f"result{pid}.json" for pid in (0, 1)]
     env = dict(os.environ)
     env.pop("JAX_COORDINATOR_ADDRESS", None)
     env["GLOO_SOCKET_IFNAME"] = "lo"
     code = WORKER % {"repo": REPO, "timeout": TIMEOUT_S}
     procs = [subprocess.Popen(
-        [sys.executable, "-c", code, str(pid), f"127.0.0.1:{port}"],
+        [sys.executable, "-c", code, str(pid), store, str(out_paths[pid])],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         cwd=REPO) for pid in (0, 1)]
     outs = []
@@ -107,11 +100,9 @@ def test_two_process_fusion_matches_jax():
             p.communicate()
         pytest.fail("multihost workers timed out")
     results = []
-    for rc, out, err in outs:
+    for (rc, out, err), path in zip(outs, out_paths):
         assert rc == 0, err[-1500:]
-        line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
-        assert line, out[-500:]
-        results.append(json.loads(line[0][len("RESULT "):]))
+        results.append(json.loads(path.read_text()))
     assert results[0] == results[1]
     got = np.asarray(results[0]["psd"], np.uint32).view(np.float32)
 

@@ -92,7 +92,8 @@ def test_hann_window_is_the_reference_window():
     np.testing.assert_array_equal(tspec._hann(1024), jspec._hann(1024))
     assert cuda_psd.supported(1024) and cuda_psd.supported(64)
     assert cuda_psd.supported(16384) and cuda_psd.supported(1536)
-    assert not cuda_psd.supported(1000) and not cuda_psd.supported(32768)
+    assert not cuda_psd.supported(1000) and not cuda_psd.supported(36864)
+    assert cuda_psd.supported(32768) and cuda_psd.supported(131072)
 
 
 @pytest.mark.parametrize("nperseg", [384, 1536])
