@@ -139,7 +139,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    at the per-shard shape against its plain version (B2 over 8 192 512
    samples, B1 and B3 over 8 periods); (c) `sharded_pair_xcorr`,
    `caf_pair` and `lagrange_interp` on the card against the CPU, a
-   `Profiler` stage around B2, a `torch_trace` written with B1 in it; (d)
+   `Profiler` stage around B2, three `torch_trace`s in this process, each
+   with all 6 of B1's launches of a sharded search in it; (d)
    `detect ant0.bin --devices 1` through the CLI in a child: mesh 1 x 1,
    its JSON equal to the API's; (e) (a) and (b) on distinct cards where
    the machine has two or more (else a line says so); the host times of
@@ -398,38 +399,6 @@ if pid == 0:
     np.savez(out, psd=psd.cpu().numpy(), pm=pm.cpu().numpy(),
              surf=surf.cpu().numpy())
 torch.distributed.destroy_process_group()
-"""
-# run in a child process by phase 9c: three `torch_trace`s of the sharded
-# PCF search (a 3 x 2 mesh of the card) on the capture head saved at
-# argv[1], written under argv[2]; prints per trace (B1 launches, B1
-# correlate kernels in the trace, events, bytes) as one JSON list
-TRACE_CHILD = """
-import json, os, sys
-import numpy as np
-import torch
-from gps_jamming_tpu_torch.ops import codes, cuda_pcf
-from gps_jamming_tpu_torch.parallel import fusion
-from gps_jamming_tpu_torch.parallel import mesh as mesh_lib
-from gps_jamming_tpu_torch.runtime import profiling
-head, td = np.load(sys.argv[1]), sys.argv[2]
-dev = torch.device("cuda", 0)
-mesh = mesh_lib.make_mesh(3, 2, devices=[dev] * 6)
-rep = codes.gps_replica_table_host(2.048e6, 2048)
-held = []
-for k in range(3):
-    tdir = os.path.join(td, f"trace{k}")
-    before = cuda_pcf.LAUNCHES
-    with profiling.torch_trace(tdir):
-        fusion.sharded_caf_acquire(head, mesh, rep, None, 2.048e6,
-                                   method="pcf", group_blocks=4)
-        torch.cuda.synchronize()
-    path = os.path.join(tdir, "trace.json")
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    held.append((cuda_pcf.LAUNCHES - before,
-                 sum("pcf_correlate" in str(e.get("name", "")) for e in events),
-                 len(events), os.path.getsize(path)))
-print(json.dumps(held))
 """
 OP_SECONDS = 8.0                  # phase 8a's captures: 16.4 M samples,
 OP_JAM_START = 2.0                # past 2^24; the jam from 2 s to EOF
@@ -2058,9 +2027,10 @@ def sharded_extras(a: dict, head: np.ndarray, dev, td: str, card: str):
     (rtol 3e-3) and `lagrange_interp` (rtol 1e-5) on the card against the
     CPU; a `Profiler` stage around B2 on the card (its result against the
     plain version on the CPU); three `torch_trace`s around a sharded PCF
-    search in a fresh child process (TRACE_CHILD), each holding all 6 of
-    B1's correlate kernels."""
-    from gps_jamming_tpu_torch.ops import caf, interp, spectral
+    search in this process, each holding all 6 of B1's correlate
+    kernels."""
+    from gps_jamming_tpu_torch.ops import (caf, codes, cuda_pcf, interp,
+                                           spectral)
     from gps_jamming_tpu_torch.parallel import fusion
     from gps_jamming_tpu_torch.parallel import mesh as mesh_lib
     from gps_jamming_tpu_torch.runtime import profiling
@@ -2093,19 +2063,29 @@ def sharded_extras(a: dict, head: np.ndarray, dev, td: str, card: str):
     fail_unless(st["calls"] == 1 and st["samples_per_s"] > 0,
                 f"Profiler: {st}")
     # three traces of the sharded PCF search (6 shards, 6 launches of B1)
-    # in a fresh child process, each holding all 6 of B1's correlate
-    # kernels (C14: late in this long process the profiler drops them)
-    np.save(os.path.join(td, "trace_head.npy"), head)
-    r = subprocess.run(
-        [sys.executable, "-c", TRACE_CHILD, os.path.join(td,
-                                                         "trace_head.npy"),
-         td], capture_output=True, text=True, timeout=300, cwd=ROOT)
-    fail_unless(r.returncode == 0, f"the torch_trace child exited "
-                                   f"{r.returncode}: {r.stderr[-3000:]}")
-    held = json.loads(r.stdout.strip().splitlines()[-1])
-    print(f"Profiler stage {st}; torch_trace x3 in a child (launches, B1 "
-          f"correlate kernels in the trace, events, bytes): {held}; card "
-          f"{card}", flush=True)
+    # in this long-lived process (C14), each holding all 6 of B1's
+    # correlate kernels; torch_trace raises where a launch lost its record
+    mesh = mesh_lib.make_mesh(3, 2, devices=[dev] * SHARD_DEVICES)
+    rep = codes.gps_replica_table_host(FS, N_CODE)
+    held = []
+    for k in range(3):
+        tdir = os.path.join(td, f"trace{k}")
+        before = cuda_pcf.LAUNCHES
+        with profiling.torch_trace(tdir):
+            fusion.sharded_caf_acquire(head, mesh, rep, None, FS,
+                                       method="pcf",
+                                       group_blocks=SHARD_PERIODS // 2)
+            torch.cuda.synchronize()
+        path = os.path.join(tdir, "trace.json")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        held.append((cuda_pcf.LAUNCHES - before,
+                     sum("pcf_correlate" in str(e.get("name", ""))
+                         for e in events),
+                     len(events), os.path.getsize(path)))
+    print(f"Profiler stage {st}; torch_trace x3 (launches, B1 correlate "
+          f"kernels in the trace, events, bytes): {held}; card {card}",
+          flush=True)
     fail_unless(all(h[0] == SHARD_DEVICES and h[1] == h[0] for h in held),
                 f"torch_trace lost B1 launches: {held}")
 
@@ -2271,8 +2251,8 @@ def large_kernels(gal_blocks, gal_rep, dev, card) -> dict:
     """Phase 10 (kernels): each kernel at each size above 16384 against its
     plain version on the card, at the tolerances of the CPU parity tests
     (surfaces rtol 2e-4, atol 2e-4 * max; stats max and sums rtol 1e-4,
-    the arg-lag exact on every row whose top two lags differ by more than
-    1e-4 relative; B2 as phase 3a, and bitwise repeatable): B1 at 32768 in
+    the arg-lag exact on every row; B2 as phase 3a, and bitwise
+    repeatable): B1 at 32768 in
     its three modes on the Galileo E1B shape at 8.192 MS/s (36 PRN x 57
     coarse bins x 6 rows x 2 groups), B3 at 32768 on that capture (36 x 71
     x 10) and at 32000 (v1 only), 65536 and 131072 (8 PRN x 35 bins x 4
@@ -2302,8 +2282,6 @@ def large_kernels(gal_blocks, gal_rep, dev, card) -> dict:
     out["pcf"]["surface_32768"] = with_bound(
         {"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
          "plain_ms": plain_ms}, *b1_work(n_prn, n_c, 6, 2, n, False))
-    top2 = ref.topk(2, dim=-1).values
-    clear = (top2[..., 0] - top2[..., 1]) > 1e-4 * top2[..., 0]
     excl = acq.exclusion_half_width(n, CFG.acquisition,
                                     float(galileo.BOC_LEN))
     line = [f"surface {ms:.4f}/{plain_ms:.4f} ms (max_abs_err "
@@ -2312,9 +2290,9 @@ def large_kernels(gal_blocks, gal_rep, dev, card) -> dict:
         got = cuda_pcf.pcf_search(*args, stats_excl=ex)
         want = cuda_pcf.surface_stats(ref, ex)
         same = got[1] == want[1]
-        fail_unless(bool(same[clear].all()),
-                    f"B1 at {n} {mode}: the arg-lag differs on a row with a "
-                    "clear peak")
+        fail_unless(bool(same.all()),
+                    f"B1 at {n} {mode}: the arg-lag differs on "
+                    f"{int((~same).sum())} of {same.numel()} rows")
         ok, abs_err, rel = close(got[0], want[0], 1e-4, 0.0)
         fail_unless(ok, f"B1 at {n} {mode}: max disagrees (rel {rel:.3e})")
         for j in (2, 3, 4):
@@ -2331,8 +2309,7 @@ def large_kernels(gal_blocks, gal_rep, dev, card) -> dict:
             {"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
              "plain_ms": plain_ms}, *b1_work(n_prn, n_c, 6, 2, n, True))
         line.append(f"{mode} {ms:.4f}/{plain_ms:.4f} ms (arg-lag equal on "
-                    f"{int(same.sum())}/{same.numel()} rows, "
-                    f"{int(clear.sum())} with a clear peak)")
+                    f"{int(same.sum())}/{same.numel()} rows)")
     del ref
     torch.cuda.empty_cache()
     print(f"phase 10 B1 at {n} ({n_prn} PRN x {n_c * 6} rows x 2 groups, "
@@ -2452,9 +2429,9 @@ def large_path(fx8: dict, fx_gps: dict, dev, card) -> dict:
           + f" (host s) = {GAL_RX_SECONDS / sum(st.values()):.3f}x real "
           f"time; cli.main {extra['main_s']:.3f} s, the process {wall:.3f} "
           f"s; card {card}", flush=True)
-    fail_unless(cli_launches["pcf"] >= 1,
-                f"the Galileo receiver at 8.192 MS/s did not launch B1: "
-                f"{cli_launches}")
+    fail_unless(cli_launches["pcf"] == 1,
+                f"the Galileo receiver at 8.192 MS/s launched B1 "
+                f"{cli_launches['pcf']} times, want once: {cli_launches}")
     fail_unless(len(out["decoded_prns"]) >= 4,
                 f"Galileo at 8.192 MS/s: decoded {out['decoded_prns']}")
     fail_unless(err < GAL_RX_FIX_M, f"Galileo at 8.192 MS/s: fix error "

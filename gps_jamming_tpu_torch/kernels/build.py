@@ -34,7 +34,7 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # The code-period lengths the FFTs of kernels B1 and B3 take:
 # n in [FFT_MIN_N, FFT_MAX_N] with every prime factor <= FFT_MAX_RADIX. The
 # C gate (`row_plan`, csrc/pcf_correlate.cuh) gets them as -D defines, and
-# `cuda_pcf.supported` reads them here: one rule for both.
+# kernels/gates.py reads them here: one rule for both.
 FFT_MIN_N, FFT_MAX_N, FFT_MAX_RADIX = 256, 16384, 127
 # Above FFT_MAX_N the rows of kernels B1, B3 and B2 run the four-step FFT
 # of csrc/fft_large.cuh, n = n1 * n2 with n2 <= FFT_MAX_N, up to this n

@@ -23,6 +23,7 @@ import math
 import numpy as np
 import torch
 
+from ..kernels.gates import tpu_kernel_takes
 from . import codes, cuda_caf, cuda_pcf
 
 
@@ -61,61 +62,18 @@ def _doppler_mix(x: torch.Tensor, freqs, sample_rate: float) -> torch.Tensor:
     return x[..., None, :] * torch.polar(torch.ones_like(phase), phase)
 
 
-# The JAX package's gates for its Pallas acquisition kernels
-# (`pallas_caf.factorization`, `factorization_v2`, `factorization_v3`,
-# `supported_v3`, `supported_pcf`), copied. An n that none of them takes is
-# one the reference computes in XLA.
-_LANE, _MAX_N2, _MAX_N1_V3, _MAX_LANES_V3 = 128, 1024, 32, 4096
-
-
-def _tpu_v1(n: int) -> bool:
-    return any(n % n1 == 0 and (n // n1) % _LANE == 0
-               for n1 in range(2, 257))
-
-
-def _tpu_n2(n: int, n1s) -> tuple[int, int] | None:
-    """The first (n1, n/n1) over n1s with n/n1 a lane multiple, or None
-    when there is none or its n/n1 is above the cap."""
-    for n1 in n1s:
-        if n % n1 == 0 and (n // n1) % _LANE == 0:
-            return (n1, n // n1) if n // n1 <= _MAX_N2 else None
-    return None
-
-
-def _tpu_v3(n: int, n_prn: int) -> bool:
-    f = _tpu_n2(n, (_MAX_N1_V3, 16, 8, 4, 2, 1))
-    if f is None:
-        return False
-    step = _LANE // math.gcd(_LANE, f[0])
-    return -(-n_prn // step) * step * f[0] <= _MAX_LANES_V3
-
-
-def tpu_kernel_takes(n: int, n_prn: int, pcf: bool) -> bool:
-    """Does the JAX package run a Pallas kernel for this search on a TPU?
-    PCF: only v3 (`supported_pcf`); std: v3, v2 or v1 (`fused_dispatch`)."""
-    if pcf:
-        return _tpu_v3(n, n_prn)
-    return (_tpu_v3(n, n_prn) or _tpu_n2(n, (128, 64, 32, 16, 8, 4, 2, 1))
-            is not None or _tpu_v1(n))
-
-
-def tpu_psd_takes(nperseg: int) -> bool:
-    """Does the JAX package's Pallas Welch kernel take this nperseg?
-    (`pallas_psd.supported`: `factorization_v2`, up to 128 * 1024.)"""
-    return _tpu_n2(nperseg, (128, 64, 32, 16, 8, 4, 2, 1)) is not None
-
-
 def plain_on_card(blocks: torch.Tensor, n_prn: int, pcf: bool) -> bool:
     """Does a search on these blocks compute its plain surface on the card?
 
     Only where neither the port's kernel (`cuda_pcf.supported` for the PCF
     search, `cuda_caf.supported` for std) nor any of the JAX package's
-    Pallas kernels takes n, so that the reference computes XLA there (n =
-    2062 = 2 * 1031; above 32768 for PCF). Above 16384 the port's kernels
-    take every n the TPU's do up to 131072, except an n with a prime
-    factor above 127 (std at 131 * 128) or above 131072 (v1 has no cap):
-    such an n goes to the kernel's wrapper, which raises
-    (`cuda_caf.unsupported_reason`).
+    Pallas kernels (`tpu_kernel_takes`; both rules in kernels/gates.py)
+    takes n, so that the reference computes XLA there (n = 2062 = 2 *
+    1031; above 32768 for PCF). Where a Pallas kernel takes n and the
+    port's does not (n below 256, as PCF at 128; a prime factor above 127,
+    as std at 131 * 128; std above 131072, which v1 takes), the search
+    goes to the kernel's wrapper, which raises with its
+    `unsupported_reason`.
     """
     n = int(blocks.shape[-1])
     ours = cuda_pcf.supported(n) if pcf else cuda_caf.supported(n)

@@ -24,44 +24,25 @@ import numpy as np
 import torch
 
 from ..device import check_tensor
-from ..kernels import build
+from ..kernels import build, gates
 from . import cuda_pcf
 
 # Searches launched by `caf_accumulate_fused` (one per call on a CUDA
 # tensor; each runs the mix-forward and the correlate kernel).
 LAUNCHES = 0
 
-
-def supported(n: int) -> bool:
-    """The code-period lengths kernel B3 takes: up to 16384 those of
-    kernel B1 (`cuda_pcf.supported`: n from 256, prime factors <= 127);
-    above it (the four-step FFT, csrc/fft_large.cuh) every multiple of 128
-    up to 131072 whose prime factors are all <= 127, as the JAX package's
-    v1 takes n1*128 (n1 <= 256) and its v2 n up to 128*1024."""
-    if n > build.FFT_MAX_N:
-        return (n <= build.FFT_LARGE_MAX_N and n % 128 == 0
-                and cuda_pcf.small_primes(n))
-    return cuda_pcf.supported(n)
-
-
-def unsupported_reason(n: int) -> str:
-    """Why kernel B3 refuses an n that `supported` rejects."""
-    if n <= build.FFT_MAX_N:
-        return cuda_pcf.unsupported_reason(n)
-    if n > build.FFT_LARGE_MAX_N:
-        return f"n {n} is above {build.FFT_LARGE_MAX_N}"
-    if n % 128:
-        return f"n {n} above {build.FFT_MAX_N} is not a multiple of 128"
-    return f"n {n} has a prime factor above {build.FFT_MAX_RADIX}"
+# The sizes the kernel takes: kernels/gates.py.
+supported = gates.std_supported
+unsupported_reason = gates.std_unsupported_reason
 
 
 def large_chunks(n: int, nb: int, n_freq: int, n_prn: int) -> tuple[int, int]:
     """(bins, cells) per pass above 16384 lags: the forward spectra of a
     chunk of Doppler bins take at most half of
-    `cuda_pcf.LARGE_SCRATCH_BYTES`, the correlate stage's cells (p, f) the
+    `gates.LARGE_SCRATCH_BYTES`, the correlate stage's cells (p, f) the
     rest; each at least one."""
     row = nb * n * 8
-    bins = max(1, min(n_freq, cuda_pcf.LARGE_SCRATCH_BYTES // 2 // row))
+    bins = max(1, min(n_freq, gates.LARGE_SCRATCH_BYTES // 2 // row))
     return bins, cuda_pcf.large_cells_chunk(n, nb, n_prn * bins, bins * row)
 
 

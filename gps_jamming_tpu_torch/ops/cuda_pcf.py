@@ -23,64 +23,26 @@ import numpy as np
 import torch
 
 from ..device import check_tensor
-from ..kernels import build
+from ..kernels import build, gates
 
 # Searches launched by `pcf_search` (one per call on a CUDA tensor; each
 # runs the forward and the correlate kernel).
 LAUNCHES = 0
 
-
-# Above build.FFT_MAX_N the rows run the four-step FFT of
-# csrc/fft_large.cuh, through scratch in device memory that the wrappers
-# allocate per call, in chunks of at most this many bytes.
-LARGE_SCRATCH_BYTES = 512 << 20
-# B1 above 16384: the sizes of the JAX package's v3 factorization
-# (`pallas_caf.factorization_v3`: n1 = 32, n2 a multiple of 128 up to
-# 1024), 20480, 24576, 28672 and 32768.
-PCF_LARGE_STEP, PCF_LARGE_MAX_N = 32 * 128, 32 * 1024
-
-
-def small_primes(n: int) -> bool:
-    """Are all of n's prime factors <= build.FFT_MAX_RADIX?"""
-    for p in range(2, build.FFT_MAX_RADIX + 1):
-        while n % p == 0:
-            n //= p
-    return n == 1
-
-
-def supported(n: int) -> bool:
-    """Code-period lengths kernel B1 takes. Up to 16384 (`build.FFT_*`,
-    the rule of the C gate) every n from 256 whose prime factors are all
-    <= 127: every power of two (the register FFT, csrc/fft_reg.cuh), v1's
-    n1*128 sizes, and the RTL-SDR rates' 2400, 2560, 2800 and 3200 (the
-    mixed-radix shared-memory FFT, csrc/fft_smem.cuh). Above it (the
-    four-step FFT, csrc/fft_large.cuh) the n the JAX package's PCF kernel
-    takes: multiples of 4096 up to 32768."""
-    if n > build.FFT_MAX_N:
-        return n <= PCF_LARGE_MAX_N and n % PCF_LARGE_STEP == 0
-    return build.FFT_MIN_N <= n and small_primes(n)
-
-
-def unsupported_reason(n: int) -> str:
-    """Why kernel B1 refuses an n that `supported` rejects."""
-    if n > PCF_LARGE_MAX_N:
-        return f"n {n} is above {PCF_LARGE_MAX_N}"
-    if n > build.FFT_MAX_N:
-        return (f"n {n} above {build.FFT_MAX_N} is not a multiple of "
-                f"{PCF_LARGE_STEP}")
-    if n < build.FFT_MIN_N:
-        return f"n {n} is below {build.FFT_MIN_N}"
-    return f"n {n} has a prime factor above {build.FFT_MAX_RADIX}"
+# The sizes the kernel takes: kernels/gates.py.
+supported = gates.pcf_supported
+unsupported_reason = gates.pcf_unsupported_reason
 
 
 def large_cells_chunk(n: int, groups: int, cells: int,
                       fixed_bytes: int = 0) -> int:
     """Cells per pass of the correlate stage above 16384 lags: each holds
     `groups` n-point complex64 rows of scratch, and with `fixed_bytes` of
-    other scratch they stay within LARGE_SCRATCH_BYTES (at least one cell,
-    at most `cells`)."""
+    other scratch they stay within `gates.LARGE_SCRATCH_BYTES` (at least
+    one cell, at most `cells`)."""
     per_cell = groups * n * 8
-    return max(1, min(cells, (LARGE_SCRATCH_BYTES - fixed_bytes) // per_cell))
+    return max(1, min(cells,
+                      (gates.LARGE_SCRATCH_BYTES - fixed_bytes) // per_cell))
 
 
 def n_coarse(sample_rate: float, n: int, max_doppler_hz: float) -> int:

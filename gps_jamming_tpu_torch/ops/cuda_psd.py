@@ -21,31 +21,14 @@ import numpy as np
 import torch
 
 from ..device import check_tensor
-from ..kernels import build
-from . import caf
-from .cuda_pcf import LARGE_SCRATCH_BYTES
+from ..kernels import build, gates
+from ..kernels.gates import MIXED_NPERSEG
 
 # Kernel launches made by `welch_psd_fused` (one per row on a CUDA tensor).
 LAUNCHES = 0
 
-# The mixed-radix nperseg of the TPU kernel up to 16384
-# (`pallas_psd.supported`: 128 * 2^a * {3, 5, 7}); the C gate of
-# csrc/welch_psd.cu lists the same sizes, each a schedule of the register
-# FFT (csrc/fft_reg.cuh, `fft_plan.SCHEDULES`).
-MIXED_NPERSEG = (384, 640, 768, 896, 1280, 1536, 1792, 2560, 3072, 3584,
-                 5120, 6144, 7168, 10240, 12288, 14336)
-
-
-def supported(nperseg: int) -> bool:
-    """A power of two in [64, 16384] or one of MIXED_NPERSEG (one block
-    per segment); above 16384 every nperseg the TPU kernel takes
-    (`caf.tpu_psd_takes`, up to 131072: 20480 ... 131072), each segment on
-    the four-step FFT of csrc/fft_large.cuh."""
-    if nperseg > build.FFT_MAX_N:
-        return (nperseg <= build.FFT_LARGE_MAX_N
-                and caf.tpu_psd_takes(nperseg))
-    return (64 <= nperseg and nperseg & (nperseg - 1) == 0) \
-        or nperseg in MIXED_NPERSEG
+# The sizes the kernel takes: kernels/gates.py.
+supported = gates.psd_supported
 
 
 def welch_psd_reference(x: torch.Tensor, sample_rate: float,
@@ -132,8 +115,9 @@ def welch_psd_fused(x: torch.Tensor, sample_rate: float, nperseg: int = 1024,
 def large_seg_chunk(nperseg: int, n_segs: int) -> int:
     """Segments per pass above 16384 points: each takes a complex64 and a
     float32 row of scratch (12 bytes a point), within
-    `cuda_pcf.LARGE_SCRATCH_BYTES` (and a grid's 65535 rows)."""
-    return max(1, min(n_segs, 65535, LARGE_SCRATCH_BYTES // (12 * nperseg)))
+    `gates.LARGE_SCRATCH_BYTES` (and a grid's 65535 rows)."""
+    return max(1, min(n_segs, 65535,
+                      gates.LARGE_SCRATCH_BYTES // (12 * nperseg)))
 
 
 def _welch_large(lib, x, win, tab, out, rows, nperseg, n_segs, detrend,

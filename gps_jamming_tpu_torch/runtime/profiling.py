@@ -156,6 +156,46 @@ class Profiler:
         return [s.as_dict() for s in self.stages.values()]
 
 
+# The span `torch_trace` puts around its block in the trace.
+BLOCK_SPAN = "torch_trace"
+# A CUDA trace first runs this many one-element kernels on the card and
+# waits this long, inside the profiler's window and before the block. In
+# a process that has run for minutes, the first device records of a
+# profiling session (27 on an H100) can carry timestamps from a stale
+# GPU-to-host clock offset, early enough that the profiler drops them as
+# falling before its window; the pre-roll's records take their place.
+PREROLL_LAUNCHES, PREROLL_S = 256, 0.05
+
+
+def lost_launches(events: list[dict]) -> tuple[int, list[str]]:
+    """(n, lost) over the kernel launches made inside the BLOCK_SPAN span
+    of a Chrome trace's events: n launches (CUDA runtime or driver calls
+    whose name holds "Launch" and "Kernel"), and the names of those whose
+    device record, the kernel event with the same `args.correlation`, the
+    trace lacks."""
+    span = [e for e in events if e.get("name") == BLOCK_SPAN
+            and e.get("cat") == "user_annotation"]
+    if len(span) != 1:
+        raise ValueError(f"the trace holds {len(span)} {BLOCK_SPAN!r} spans")
+    t0, t1 = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
+    done = {e.get("args", {}).get("correlation") for e in events
+            if e.get("cat") == "kernel"}
+    launches = [e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "Launch" in e.get("name", "") and "Kernel" in e["name"]
+                and t0 <= e["ts"] <= t1]
+    return len(launches), [e["name"] for e in launches
+                           if e.get("args", {}).get("correlation") not in done]
+
+
+def _preroll(dev: torch.device) -> None:
+    z = torch.zeros(1, device=dev)
+    for _ in range(PREROLL_LAUNCHES):
+        z.add_(1.0)
+    torch.cuda.synchronize(dev)
+    time.sleep(PREROLL_S)
+
+
 @contextlib.contextmanager
 def torch_trace(log_dir: str, device=None):
     """`torch.profiler` trace of the block, written to
@@ -163,14 +203,30 @@ def torch_trace(log_dir: str, device=None):
 
     Traces host activity and, on the card (`device` None: the card,
     RuntimeError where there is none), CUDA activity; `device="cpu"`
-    traces the host only. The counterpart of the JAX package's
-    `xla_trace`, except that a trace which cannot start or be written
-    raises instead of being skipped."""
-    from torch.profiler import ProfilerActivity, profile
+    traces the host only. The block runs inside a BLOCK_SPAN span. On the
+    card a pre-roll (PREROLL_LAUNCHES, PREROLL_S) precedes it, and a trace
+    that lacks the device record of any kernel launched in the block
+    raises RuntimeError after it is written (`lost_launches`). The
+    counterpart of the JAX package's `xla_trace`, except that a trace
+    which cannot start or be written raises instead of being skipped."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    dev = as_device(device)
     acts = [ProfilerActivity.CPU]
-    if as_device(device).type == "cuda":
+    if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, "trace.json")
     with profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+        if dev.type == "cuda":
+            _preroll(dev)
+        with record_function(BLOCK_SPAN):
+            yield prof
+    prof.export_chrome_trace(path)
+    if dev.type == "cuda":
+        with open(path) as f:
+            n, lost = lost_launches(json.load(f)["traceEvents"])
+        if lost:
+            raise RuntimeError(
+                f"torch_trace: {path} lacks the device records of "
+                f"{len(lost)} of the block's {n} kernel launches "
+                f"({sorted(set(lost))}); the profiler dropped them")

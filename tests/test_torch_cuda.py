@@ -304,8 +304,8 @@ def test_caf_std_dispatch_on_cuda(dev):
 def _c1_blocks(system, dev):
     """10 code periods of unit noise plus one PRN at -18 dB per sample, at
     an n kernels B1 and B3 do not take: Galileo E1B at 4.192 MS/s (n =
-    16768 = 131 * 128; 3 PRNs, +/-2 kHz) or GPS at 2.062 MS/s (n = 2062 =
-    2 * 1031).
+    16768 = 131 * 128; 3 PRNs, +/-2 kHz), GPS at 2.062 MS/s (n = 2062 =
+    2 * 1031) or GPS at 128 kS/s (n = 128; 8 PRNs).
     Returns (blocks, replica, fs, config, acquire_all kwargs)."""
     from gps_jamming_tpu_torch.config import AcquisitionConfig
     from gps_jamming_tpu_torch.models.receiver import galileo
@@ -319,7 +319,9 @@ def _c1_blocks(system, dev):
         kw = dict(code_period_s=galileo.PERIOD_S,
                   code_len_chips=float(galileo.BOC_LEN))
     else:
-        fs, n, hz, lag = 2.062e6, 2062, 2600.0, 901
+        fs, n, hz, lag = ((2.062e6, 2062, 2600.0, 901)
+                          if system == "gps_prime_1031"
+                          else (128e3, 128, 2000.0, 37))
         code, rate = codes.gps_ca_code(3), 1.023e6
         rep = codes.gps_replica_table(fs, n, dev)[:8]
         cfg, kw = AcquisitionConfig(), {}
@@ -358,23 +360,30 @@ def test_acquire_all_where_the_kernels_do_not_apply(dev, system, method):
     assert int(got.acquired.sum()) == 1
 
 
-@pytest.mark.parametrize("method", ["std", "auto"])
+@pytest.mark.parametrize("method", ["pcf", "std", "auto"])
 def test_acquire_all_raises_where_only_a_tpu_kernel_applies(dev, method):
-    """At n = 16768 = 131 * 128 (Galileo E1B at 4.192 MS/s) the JAX package
-    runs its Pallas std kernel (v1, 131 x 128) and B3 does not take n (a
-    prime factor above 127): the card raises from the kernel's wrapper,
-    with no launch, and does not give way to the plain surface; 'auto'
-    resolves to std at 500 Hz bins. (No n is left where only the TPU's PCF
-    kernel applies: B1 takes every n that v3 takes.)"""
+    """Where the JAX package runs a Pallas kernel and the port's kernel
+    does not take n, the card raises from the kernel's wrapper, with no
+    launch of B1 or B3, and does not give way to the plain surface. PCF at
+    n = 128 (GPS at 128 kS/s): v3 takes it (1 x 128), B1 does not (below
+    256). std at n = 16768 = 131 * 128 (Galileo E1B at 4.192 MS/s): v1
+    takes it (131 x 128), B3 does not (a prime factor above 127); 'auto'
+    resolves to std there at 500 Hz bins."""
     from gps_jamming_tpu_torch.config import AcquisitionConfig
     from gps_jamming_tpu_torch.models.receiver import acquisition as acq
     from gps_jamming_tpu_torch.ops import caf
-    blocks, rep, fs, _, kw = _c1_blocks("galileo", dev)
-    cfg = AcquisitionConfig(doppler_max_hz=2000.0, doppler_step_hz=500.0)
-    assert caf.tpu_kernel_takes(blocks.shape[-1], rep.shape[0], pcf=False)
-    assert not caf.plain_on_card(blocks, rep.shape[0], pcf=False)
+    pcf = method == "pcf"
+    if pcf:
+        blocks, rep, fs, cfg, kw = _c1_blocks("gps_128", dev)
+        match = "below 256"
+    else:
+        blocks, rep, fs, _, kw = _c1_blocks("galileo", dev)
+        cfg = AcquisitionConfig(doppler_max_hz=2000.0, doppler_step_hz=500.0)
+        match = "prime factor above 127"
+    assert caf.tpu_kernel_takes(blocks.shape[-1], rep.shape[0], pcf=pcf)
+    assert not caf.plain_on_card(blocks, rep.shape[0], pcf=pcf)
     before = (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES)
-    with pytest.raises(ValueError, match="prime factor above 127"):
+    with pytest.raises(ValueError, match=match):
         acq.acquire_all(blocks, rep, fs, cfg, method=method, **kw)
     assert (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES) == before
 

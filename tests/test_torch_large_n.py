@@ -18,7 +18,9 @@ wrappers take their plain versions, so these tests hold:
 - the gates over every n from 16385 to 131072: the port launches where a
   Pallas kernel of the JAX package runs, computes the plain surface where
   the JAX package computes XLA, and raises only where
-  `unsupported_reason` names a prime factor above 127;
+  `unsupported_reason` names a prime factor above 127; and below, over
+  every n from 1 to 16384, the plain surface only where no Pallas kernel
+  runs and a raise only below 256 (PCF at 128);
 - Galileo E1B acquisition at 8.192 MS/s on the first 40 ms of the JAX
   package's 13 s fixture, re-rendered by the port's simulator: the port's
   `acquire_all` equals the JAX package's (decisions, lags and Dopplers
@@ -39,7 +41,7 @@ from gps_jamming_tpu.ops import caf as jcaf
 from gps_jamming_tpu.ops import cplx, pallas_caf, pallas_psd
 from gps_jamming_tpu_torch import convert
 from gps_jamming_tpu_torch.config import AcquisitionConfig
-from gps_jamming_tpu_torch.kernels import build, fft_plan
+from gps_jamming_tpu_torch.kernels import build, fft_plan, gates
 from gps_jamming_tpu_torch.models.receiver import acquisition as tacq
 from gps_jamming_tpu_torch.ops import caf as tcaf
 from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf, cuda_psd
@@ -92,7 +94,7 @@ def test_large_split_covers_every_size_the_gates_take():
     for n in sizes:
         n1, n2 = fft_plan.large_split(n)
         assert n1 in (2, 4, 8) and n1 * n2 == n and n2 <= build.FFT_MAX_N
-        assert cuda_pcf.small_primes(n2)
+        assert gates.small_primes(n2)
     assert fft_plan.LARGE_REG_SIZES == (10240, 12288, 14336, 16384)
     assert fft_plan.large_split(32768) == (2, 16384)
     assert fft_plan.large_split(32000) == (2, 16000)
@@ -242,6 +244,29 @@ def test_gates_match_the_tpu_kernels_from_16385_to_131072():
     assert routes["std"]["kernel"] == 603 and routes["std"]["raise"] > 0
     assert cuda_caf.unsupported_reason(2 * 131072).endswith(
         "is above 131072")
+
+
+def test_gates_below_16385_raise_only_where_a_tpu_kernel_alone_applies():
+    """For every n in [1, 16384], PCF and std (36 PRNs): the surface is
+    plain only where no Pallas kernel takes n, and the wrapper raises only
+    where one does and the port's kernel does not, at an n below 256 or
+    with a prime factor above 127, as `unsupported_reason` says; PCF at
+    n = 128 (v3's 1 x 128) is such an n."""
+    raised = {True: [], False: []}
+    for n in range(1, build.FFT_MAX_N + 1):
+        for pcf in (True, False):
+            tpu = (pallas_caf.supported_pcf(n, 36) if pcf
+                   else jcaf.fused_dispatch(n, 36) is not None)
+            r = _route(n, 36, pcf)
+            assert r != "plain" or not tpu, (n, pcf)
+            if r == "raise":
+                assert tpu, (n, pcf)
+                why = (cuda_pcf if pcf else cuda_caf).unsupported_reason(n)
+                assert ("below 256" in why
+                        or "prime factor above 127" in why), (n, why)
+                raised[pcf].append(n)
+    assert 128 in raised[True] and 128 in raised[False]
+    assert all(n < 256 for n in raised[True] + raised[False])
 
 
 GAL_FS = 8.192e6

@@ -5,7 +5,8 @@ CPU.
   (gps_jamming_tpu_torch.runtime.profiling), as tests/test_profiling.py
   holds the JAX package's: the ring and its JSONL file, stage counts and
   samples/s, a sync over a nesting of tensors and other leaves, and a
-  Chrome trace written and non-empty.
+  Chrome trace written and non-empty; the trace's block span and
+  `lost_launches` on a host trace and on made-up events.
 - `ops.caf.caf_pair` against the JAX package's on the same seeded pair
   (rtol 3e-3, atol 1e-3 * max: float32 FFTs of another factorization),
   and the delay and Doppler of its peak.
@@ -67,6 +68,44 @@ def test_torch_trace_writes_a_chrome_trace(tmp_path):
     with open(tmp_path / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any("fft" in str(ev.get("name", "")) for ev in events)
+
+
+def test_torch_trace_marks_its_block(tmp_path):
+    """The block runs inside one BLOCK_SPAN span, and the ops it ran lie in
+    it; a host-only trace launches nothing, so nothing is lost."""
+    with profiling.torch_trace(str(tmp_path), device="cpu"):
+        torch.fft.fft(torch.ones(256, dtype=torch.complex64))
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    (span,) = [e for e in events if e.get("name") == profiling.BLOCK_SPAN]
+    fft = [e for e in events if "fft" in str(e.get("name", ""))]
+    assert fft and all(span["ts"] <= e["ts"] <= span["ts"] + span["dur"]
+                       for e in fft)
+    assert profiling.lost_launches(events) == (0, [])
+
+
+def test_lost_launches_pairs_launches_with_kernel_records():
+    """A launch inside the block whose kernel record (same correlation) is
+    missing is lost; launches outside the block and other runtime calls
+    are not counted; a trace without the block's span raises."""
+    def ev(cat, name, ts, corr=None, dur=1.0):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+                "args": {} if corr is None else {"correlation": corr}}
+    events = [
+        ev("user_annotation", profiling.BLOCK_SPAN, 100.0, dur=50.0),
+        ev("cuda_runtime", "cudaLaunchKernel", 90.0, corr=1),   # pre-roll
+        ev("cuda_runtime", "cudaLaunchKernel", 110.0, corr=2),
+        ev("kernel", "gjt::reg_forward_kernel<2048>", 111.0, corr=2),
+        ev("cuda_runtime", "cudaLaunchKernelExC", 120.0, corr=3),
+        ev("cuda_driver", "cuLaunchKernel", 130.0, corr=4),
+        ev("kernel", "triton_kernel", 131.0, corr=4),
+        ev("cuda_runtime", "cudaMemcpyAsync", 140.0, corr=5),
+    ]
+    assert profiling.lost_launches(events) == (3, ["cudaLaunchKernelExC"])
+    events.append(ev("kernel", "gemm", 121.0, corr=3))
+    assert profiling.lost_launches(events) == (3, [])
+    with pytest.raises(ValueError, match="0 'torch_trace' spans"):
+        profiling.lost_launches(events[1:])
 
 
 def test_caf_pair_matches_jax():
