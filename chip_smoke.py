@@ -146,11 +146,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the machine has two or more (else a line says so); the host times of
    (a) beside the single-device equivalents;
 10. above 16384 points, where the rows of B1, B3 and B2 run the
-    four-step FFT (csrc/fft_large.cuh): each kernel at each new size
-    against its plain version at the CPU parity tests' tolerances (B1 at
-    32768 in its three modes on the Galileo E1B shape at 8.192 MS/s; B3 at
-    32768, 32000, 65536 and 131072; B2 at nperseg 32768 and 131072, 1-D
-    and (rows, n)); then (a) the Galileo fixture re-rendered at 8.192 MS/s
+    four-step FFT (csrc/fft_large.cuh) and, up to 131072, B1's and B3's
+    correlate stage runs in a thread-block cluster, and at 128 and the
+    sizes with a prime factor above 127: each kernel at each such size
+    against its plain version at the CPU parity tests' tolerances, the
+    arg-lag equal on
+    every row (B1 in its three modes at 32768 on the Galileo E1B shape at
+    8.192 MS/s, at 20480, 24576 and 28672, and at 128; B3 at 32768,
+    32000, 65536 and 131072, and at 128, 16768, 130304, 160000, 240000 and
+    261376; B2 at nperseg 32768 and 131072, 1-D and (rows, n)), each line
+    with its bound, share, launches per call and the card; a `torch_trace`
+    of B1 at 32768 holding one `pcf_correlate_cluster` kernel and no
+    `large_cols_corr`; then (a) the Galileo fixture re-rendered at 8.192 MS/s
     (a worker process) through `receiver --system galileo --sample-rate
     8.192e6` in a child: B1 at 32768 launched, a fix within 30 m; (b)
     `acquire_all(method='std')` on its first 40 ms: B3 once, the same
@@ -247,6 +254,15 @@ SBAS_NOISE = 0.8                  # rms per I/Q component, before x12
 GAL8K_FS = 8.192e6                # phase 10: Galileo E1B at 8 samples a
 GAL8K_N = 32768                   # chip, one 4 ms code period above 16384
 LARGE_STD = ((32000, 8e6), (65536, 16.384e6), (131072, 32.768e6))
+# phase 10: B1 at v3's other sizes above 16384, Galileo E1B's 4 ms period
+# at 5.12, 6.144 and 7.168 MS/s (8 PRN x 10 periods)
+LARGE_B1 = ((20480, 5.12e6), (24576, 6.144e6), (28672, 7.168e6))
+B1_SMALL_FS = 128e3               # phase 10: B1 at n = 128 (GPS, 1 ms)
+# phase 10: B3 at 128 (GPS at 128 kS/s), a prime
+# factor above 127 (131 * 128, Galileo E1B at 4.192 MS/s; 256 * 509; 256 *
+# 1021) and above 131072 (Galileo E1B at 40 and 60 MS/s), 8 x 35 x 4
+NEW_STD = ((128, 128e3), (16768, 4.192e6), (130304, 32.576e6),
+           (160000, 40e6), (240000, 60e6), (261376, 65.344e6))
 LARGE_NPERSEG = (32768, 131072)   # B2 above 16384 (8 192 512 samples)
 TONE_NPERSEG = 65536              # phase 10c's Welch
 TONE_HZ = 312500.0                # bin 10000 of 65536 at 2.048 MS/s
@@ -2247,43 +2263,34 @@ def sharded_phase(sim: dict, td: str, card: str, dev, kernels: list) -> dict:
             "cli_detect_devices": run["launches"], "host_ms": times}
 
 
-def large_kernels(gal_blocks, gal_rep, dev, card) -> dict:
-    """Phase 10 (kernels): each kernel at each size above 16384 against its
-    plain version on the card, at the tolerances of the CPU parity tests
-    (surfaces rtol 2e-4, atol 2e-4 * max; stats max and sums rtol 1e-4,
-    the arg-lag exact on every row; B2 as phase 3a, and bitwise
-    repeatable): B1 at 32768 in
-    its three modes on the Galileo E1B shape at 8.192 MS/s (36 PRN x 57
-    coarse bins x 6 rows x 2 groups), B3 at 32768 on that capture (36 x 71
-    x 10) and at 32000 (v1 only), 65536 and 131072 (8 PRN x 35 bins x 4
-    periods), B2 at nperseg 32768 and 131072 on 8 192 512 samples and on
-    (2, 4 096 256). Returns {kernel: {size: entry}}, each entry with its
-    errors, CUDA-event times and bound."""
-    from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf, cuda_psd
-    from gps_jamming_tpu_torch.models.receiver import galileo
-    from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
-    from gps_jamming_tpu_torch.models.receiver import acquisition as acq
-    from gps_jamming_tpu_torch.ops import caf
-    out = {"pcf": {}, "caf_std": {}, "welch_psd": {}}
-    n = GAL8K_N
-    n_prn = gal_rep.shape[0]
-    y = cuda_pcf.pcf_prologue(gal_blocks, GAL8K_FS)
-    n_c = cuda_pcf.n_coarse(GAL8K_FS, n, 7000.0)
-    args = (y, gal_rep, n_c, 6, 2)
+def large_b1(label, blocks, rep, fs, excl, card, reps=3, inner=1) -> dict:
+    """Kernel B1 at one size of phase 10 against its plain version, in its
+    three modes, at the CPU parity tests' tolerances (surface rtol 2e-4,
+    atol 2e-4 * max; stats max and sums rtol 1e-4; the arg-lag equal on
+    every row), with CUDA-event times, bound and launches per call."""
+    from gps_jamming_tpu_torch.ops import cuda_pcf
+    n = blocks.shape[-1]
+    n_prn = rep.shape[0]
+    y = cuda_pcf.pcf_prologue(blocks, fs)
+    n_c = cuda_pcf.n_coarse(fs, n, 7000.0)
+    args = (y, rep, n_c, 6, 2)
     ref = cuda_pcf.pcf_search_reference(*args)
+    before = cuda_pcf.LAUNCHES
     surf = cuda_pcf.pcf_search(*args)
+    torch.cuda.synchronize()
+    per_call = cuda_pcf.LAUNCHES - before
     ok, abs_err, rel = close(surf, ref, 2e-4, 2e-4 * float(ref.max()))
-    fail_unless(ok, f"B1 at {n}: the surface disagrees with its plain "
-                    f"version (max_abs_err {abs_err:.3e})")
+    fail_unless(ok and per_call == 1,
+                f"B1 {label}: the surface disagrees with its plain version "
+                f"(max_abs_err {abs_err:.3e}) or launched {per_call} times")
     del surf
     ms, plain_ms = time_pair(lambda: cuda_pcf.pcf_search(*args),
                              lambda: cuda_pcf.pcf_search_reference(*args),
-                             3, 1)
-    out["pcf"]["surface_32768"] = with_bound(
+                             reps, inner)
+    modes = {"surface": with_bound(
         {"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
-         "plain_ms": plain_ms}, *b1_work(n_prn, n_c, 6, 2, n, False))
-    excl = acq.exclusion_half_width(n, CFG.acquisition,
-                                    float(galileo.BOC_LEN))
+         "plain_ms": plain_ms, "launches_per_call": per_call},
+        *b1_work(n_prn, n_c, 6, 2, n, False))}
     line = [f"surface {ms:.4f}/{plain_ms:.4f} ms (max_abs_err "
             f"{abs_err:.3e})"]
     for mode, ex in (("stats", excl), ("peak", -1)):
@@ -2291,62 +2298,159 @@ def large_kernels(gal_blocks, gal_rep, dev, card) -> dict:
         want = cuda_pcf.surface_stats(ref, ex)
         same = got[1] == want[1]
         fail_unless(bool(same.all()),
-                    f"B1 at {n} {mode}: the arg-lag differs on "
+                    f"B1 {label} {mode}: the arg-lag differs on "
                     f"{int((~same).sum())} of {same.numel()} rows")
         ok, abs_err, rel = close(got[0], want[0], 1e-4, 0.0)
-        fail_unless(ok, f"B1 at {n} {mode}: max disagrees (rel {rel:.3e})")
+        fail_unless(ok, f"B1 {label} {mode}: max disagrees (rel {rel:.3e})")
         for j in (2, 3, 4):
-            sel = same if j != 3 else torch.ones_like(same)
-            ok_j, _, rel_j = close(got[j][sel], want[j][sel], 1e-4, 0.0)
+            ok_j, _, rel_j = close(got[j], want[j], 1e-4, 0.0)
             fail_unless(ok_j if ex >= 0 else not bool(got[j].any()),
-                        f"B1 at {n} {mode}: plane {j} disagrees "
+                        f"B1 {label} {mode}: plane {j} disagrees "
                         f"(rel {rel_j:.3e})")
         ms, plain_ms = time_pair(
             lambda: cuda_pcf.pcf_search(*args, stats_excl=ex),
             lambda: cuda_pcf.surface_stats(
-                cuda_pcf.pcf_search_reference(*args), ex), 3, 1)
-        out["pcf"][f"{mode}_32768"] = with_bound(
+                cuda_pcf.pcf_search_reference(*args), ex), reps, inner)
+        modes[mode] = with_bound(
             {"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
-             "plain_ms": plain_ms}, *b1_work(n_prn, n_c, 6, 2, n, True))
+             "plain_ms": plain_ms, "launches_per_call": per_call},
+            *b1_work(n_prn, n_c, 6, 2, n, True))
         line.append(f"{mode} {ms:.4f}/{plain_ms:.4f} ms (arg-lag equal on "
                     f"{int(same.sum())}/{same.numel()} rows)")
     del ref
     torch.cuda.empty_cache()
-    print(f"phase 10 B1 at {n} ({n_prn} PRN x {n_c * 6} rows x 2 groups, "
-          f"kernel/plain): " + "; ".join(line) + "; share of bound, stats "
-          f"{out['pcf']['stats_32768']['bound_share']:.3f}; card {card}",
-          flush=True)
+    print(f"phase 10 B1 {label} ({n_prn} PRN x {n_c * 6} rows x 2 groups, "
+          f"kernel/plain): " + "; ".join(line) + "; bound (ms, share) "
+          + ", ".join(f"{m} {e['bound_ms']:.4f} {e['bound_share']:.3f}"
+                      for m, e in modes.items())
+          + f" ({modes['stats']['bound_by']}); launches per call "
+          f"{per_call}; card {card}", flush=True)
+    return modes
+
+
+def large_b3(n, fs, blocks, rep, freqs, card, reps=3) -> dict:
+    """Kernel B3 at one size of phase 10 against its plain version (rtol
+    2e-4, atol 2e-4 * max; the arg-lag equal on every (PRN, bin) row),
+    with CUDA-event times, bound and launches per call."""
+    from gps_jamming_tpu_torch.ops import cuda_caf
+    ref = cuda_caf.caf_accumulate_reference(blocks, rep, freqs, fs)
+    before = cuda_caf.LAUNCHES
+    got = cuda_caf.caf_accumulate_fused(blocks, rep, freqs, fs)
+    torch.cuda.synchronize()
+    per_call = cuda_caf.LAUNCHES - before
+    ok, abs_err, rel = close(got, ref, 2e-4, 2e-4 * float(ref.max()))
+    same = got.argmax(dim=-1) == ref.argmax(dim=-1)
+    fail_unless(ok and per_call == 1,
+                f"B3 at {n} disagrees with its plain version (max_abs_err "
+                f"{abs_err:.3e}) or launched {per_call} times")
+    fail_unless(bool(same.all()), f"B3 at {n}: the arg-lag differs on "
+                                  f"{int((~same).sum())} rows")
+    del ref, got
+    ms, plain_ms = time_pair(
+        lambda: cuda_caf.caf_accumulate_fused(blocks, rep, freqs, fs),
+        lambda: cuda_caf.caf_accumulate_reference(blocks, rep, freqs, fs),
+        reps, 1)
+    e = with_bound({"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
+                    "plain_ms": plain_ms, "launches_per_call": per_call},
+                   *b3_work(rep.shape[0], len(freqs), blocks.shape[0], n))
+    print(f"phase 10 B3 at {n} ({rep.shape[0]} PRN x {len(freqs)} bins x "
+          f"{blocks.shape[0]}): max_abs_err {abs_err:.3e} max_rel_err "
+          f"{rel:.3e} (rtol 2e-4, atol 2e-4*max), arg-lag equal on "
+          f"{int(same.sum())}/{same.numel()} rows; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; bound {e['bound_ms']:.4f} ms "
+          f"({e['bound_by']}), share {e['bound_share']:.3f}; launches per "
+          f"call {per_call}; card {card}", flush=True)
+    torch.cuda.empty_cache()
+    return e
+
+
+def large_kernels(gal_blocks, gal_rep, dev, card) -> dict:
+    """Phase 10 (kernels): each kernel at each size it took in PRs 11 and
+    12 against its plain version on the card, at the tolerances of the CPU
+    parity tests (surfaces rtol 2e-4, atol 2e-4 * max; stats max and sums
+    rtol 1e-4; the arg-lag equal on every row; B2 as phase 3a, and bitwise
+    repeatable). Above 16384, up to 131072, B1's and B3's correlate stage
+    runs in a thread-block cluster: B1 at 32768 in its three modes on the
+    Galileo E1B shape at 8.192 MS/s (36 PRN x 57 coarse bins x 6 rows x 2
+    groups) and at 20480, 24576 and 28672 (8 PRN, 10 periods), B3 at 32768
+    on that capture (36 x 71 x 10) and at 32000 (v1 only), 65536 and 131072
+    (8 PRN x 35 bins x 4 periods). At 128, with a prime factor above 127
+    and above 131072: B1 at 128 in its three modes (GPS at 128 kS/s, 32
+    PRN x 10 periods), B3 at 128, 16768 = 131 * 128, 130304 = 256 * 509,
+    160000 and 240000 (Galileo E1B at 40 and 60 MS/s) and 261376 = 256 *
+    1021 (8 x 35 x 4).
+    Then B2 at nperseg 32768 and 131072 on 8 192 512 samples and on (2,
+    4 096 256), and one `torch_trace` of B1 at 32768: its correlate stage
+    is one `pcf_correlate_cluster` kernel, no `large_cols_corr`. Returns
+    {kernel: {size: entry}}, each entry with its errors, CUDA-event times,
+    bound and launches per call."""
+    from gps_jamming_tpu_torch.ops import codes, cuda_pcf, cuda_psd
+    from gps_jamming_tpu_torch.models.receiver import galileo
+    from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from gps_jamming_tpu_torch.models.receiver import acquisition as acq
+    from gps_jamming_tpu_torch.ops import caf
+    from gps_jamming_tpu_torch.runtime import profiling
+    out = {"pcf": {}, "caf_std": {}, "welch_psd": {}}
+    n = GAL8K_N
+    excl = acq.exclusion_half_width(n, CFG.acquisition,
+                                    float(galileo.BOC_LEN))
+    for mode, e in large_b1(f"at {n}", gal_blocks, gal_rep, GAL8K_FS, excl,
+                            card).items():
+        out["pcf"][f"{mode}_{n}"] = e
+    rng = np.random.default_rng(32768)
+    for n_l, fs_l in LARGE_B1:
+        blocks = make_galileo_blocks(rng, dev, fs_l, n_l, n_l // 3)
+        rep = codes.replica_tensor(galileo.replica_table_host(
+            fs_l, n_l, list(range(1, 9))), dev)
+        for mode, e in large_b1(f"at {n_l}", blocks, rep, fs_l,
+                                acq.exclusion_half_width(
+                                    n_l, CFG.acquisition,
+                                    float(galileo.BOC_LEN)), card).items():
+            out["pcf"][f"{mode}_{n_l}"] = e
+    n_s = int(B1_SMALL_FS * 1e-3)
+    blocks = make_gps_blocks(rng, B1_SMALL_FS, dev, 37)
+    rep = codes.gps_replica_table(B1_SMALL_FS, n_s, dev)
+    for mode, e in large_b1(f"at {n_s} (GPS at {B1_SMALL_FS / 1e3:g} kS/s)",
+                            blocks, rep, B1_SMALL_FS,
+                            acq.exclusion_half_width(n_s, CFG.acquisition),
+                            card, 5, 3).items():
+        out["pcf"][f"{mode}_{n_s}"] = e
 
     std_freqs = caf.doppler_bins(7000.0, 200.0)
-    rng = np.random.default_rng(32768)
-    cases = [(n, GAL8K_FS, gal_blocks, gal_rep, std_freqs)]
-    for n_l, fs_l in LARGE_STD:
-        cases.append((n_l, fs_l, torch.from_numpy(complex_noise(
-            rng, 4 * n_l).astype(np.complex64).reshape(4, n_l)).to(dev),
-            torch.from_numpy(complex_noise(rng, 8 * n_l).astype(
-                np.complex64).reshape(8, n_l)).to(dev),
-            caf.doppler_bins(3400.0, 200.0)))
-    for n_l, fs_l, b_l, r_l, f_l in cases:
-        ref = cuda_caf.caf_accumulate_reference(b_l, r_l, f_l, fs_l)
-        got = cuda_caf.caf_accumulate_fused(b_l, r_l, f_l, fs_l)
-        ok, abs_err, rel = close(got, ref, 2e-4, 2e-4 * float(ref.max()))
-        fail_unless(ok, f"B3 at {n_l} disagrees with its plain version "
-                        f"(max_abs_err {abs_err:.3e})")
-        del ref, got
-        ms, plain_ms = time_pair(
-            lambda: cuda_caf.caf_accumulate_fused(b_l, r_l, f_l, fs_l),
-            lambda: cuda_caf.caf_accumulate_reference(b_l, r_l, f_l, fs_l),
-            3, 1)
-        e = with_bound({"max_abs_err": abs_err, "max_rel_err": rel,
-                        "ms": ms, "plain_ms": plain_ms},
-                       *b3_work(r_l.shape[0], len(f_l), b_l.shape[0], n_l))
-        out["caf_std"][str(n_l)] = e
-        print(f"phase 10 B3 at {n_l} ({r_l.shape[0]} PRN x {len(f_l)} bins "
-              f"x {b_l.shape[0]}): max_abs_err {abs_err:.3e} max_rel_err "
-              f"{rel:.3e} (rtol 2e-4, atol 2e-4*max); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms; bound {e['bound_ms']:.4f} ms "
-              f"({e['bound_by']}), share {e['bound_share']:.3f}", flush=True)
-        torch.cuda.empty_cache()
+    out["caf_std"][str(n)] = large_b3(n, GAL8K_FS, gal_blocks, gal_rep,
+                                      std_freqs, card)
+    for n_l, fs_l in LARGE_STD + NEW_STD:
+        b_l = torch.from_numpy(complex_noise(rng, 4 * n_l).astype(
+            np.complex64).reshape(4, n_l)).to(dev)
+        r_l = torch.from_numpy(complex_noise(rng, 8 * n_l).astype(
+            np.complex64).reshape(8, n_l)).to(dev)
+        out["caf_std"][str(n_l)] = large_b3(n_l, fs_l, b_l, r_l,
+                                            caf.doppler_bins(3400.0, 200.0),
+                                            card)
+        del b_l, r_l
+
+    # one trace of B1 at 32768: the correlate stage is the cluster kernel
+    y = cuda_pcf.pcf_prologue(gal_blocks, GAL8K_FS)
+    args = (y, gal_rep, cuda_pcf.n_coarse(GAL8K_FS, n, 7000.0), 6, 2)
+    tdir = tempfile.mkdtemp(prefix="trace_b1_")
+    before = cuda_pcf.LAUNCHES
+    with profiling.torch_trace(tdir):
+        cuda_pcf.pcf_search(*args, stats_excl=excl)
+        torch.cuda.synchronize()
+    with open(os.path.join(tdir, "trace.json")) as f:
+        names = [str(e.get("name", "")) for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    shutil.rmtree(tdir, ignore_errors=True)
+    held = {k: sum(k in nm for nm in names)
+            for k in ("pcf_correlate_cluster", "large_cols_corr", "RowsCorr")}
+    print(f"phase 10 trace of B1 at {n} (stats): {len(names)} device "
+          f"kernels, {held}; launches {cuda_pcf.LAUNCHES - before}; card "
+          f"{card}", flush=True)
+    fail_unless(cuda_pcf.LAUNCHES - before == 1
+                and held == {"pcf_correlate_cluster": 1,
+                             "large_cols_corr": 0, "RowsCorr": 0},
+                f"phase 10: B1 at {n} did not run its correlate stage as one "
+                f"cluster kernel: {held}")
 
     n_x = 8_192_512
     x = torch.from_numpy(complex_noise(rng, n_x).astype(np.complex64)).to(
@@ -2386,7 +2490,7 @@ def large_kernels(gal_blocks, gal_rep, dev, card) -> dict:
     return out
 
 
-def large_path(fx8: dict, fx_gps: dict, dev, card) -> dict:
+def large_path(fx8: dict, fx_gps: dict, dev, card) -> tuple[dict, dict]:
     """Phase 10 (the path): (a) the Galileo E1B receiver at 8.192 MS/s
     through the CLI, `receiver --system galileo --sample-rate 8.192e6`, in
     a child (CLI_WITH_COUNTS): B1 at 32768 launched, a fix within 30 m,
@@ -2396,7 +2500,8 @@ def large_path(fx8: dict, fx_gps: dict, dev, card) -> dict:
     nperseg 65536 on phase 5's clean capture (its first 2^23 samples) with
     a seeded CW tone at 312.5 kHz added: B2 launched once with every
     torch.fft function patched to raise, the peak on the tone's bin, equal
-    to the plain version. Returns the launches of each."""
+    to the plain version, and CUDA-event times of both. Returns the
+    launches of each and (c)'s B2 entry (times, bound)."""
     from gps_jamming_tpu_torch.models.receiver import acquisition as acq
     from gps_jamming_tpu_torch.models.receiver import galileo, pvt
     from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
@@ -2500,9 +2605,22 @@ def large_path(fx8: dict, fx_gps: dict, dev, card) -> dict:
     fail_unless(int(psd.argmax()) == tone_bin,
                 f"phase 10c: the PSD peaks at bin {int(psd.argmax())}")
     fail_unless(ok, "phase 10c: B2 disagrees with welch_psd_plain")
-    return {"cli_receiver_galileo_8192k": cli_launches,
-            "acquire_all_std_32768": std_launches,
-            "welch_psd_65536": psd_launches}
+    ms, plain_ms = time_pair(
+        lambda: spectral.welch_psd(x_dev, FS, TONE_NPERSEG),
+        lambda: spectral.welch_psd_plain(x_dev, FS, TONE_NPERSEG), 5, 2)
+    segs = (n_t - TONE_NPERSEG) // (TONE_NPERSEG // 2) + 1
+    b2 = with_bound({"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
+                     "plain_ms": plain_ms},
+                    fft_flops(segs, TONE_NPERSEG) + 10.0 * segs
+                    * TONE_NPERSEG, 8.0 * n_t + 4.0 * TONE_NPERSEG)
+    print(f"phase 10c: welch_psd at nperseg {TONE_NPERSEG} over {n_t} "
+          f"samples: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+          f"{b2['bound_ms']:.4f} ms ({b2['bound_by']}), share "
+          f"{b2['bound_share']:.3f}; launches {psd_launches['welch_psd']}; "
+          f"card {card}", flush=True)
+    return ({"cli_receiver_galileo_8192k": cli_launches,
+             "acquire_all_std_32768": std_launches,
+             "welch_psd_65536": psd_launches}, b2)
 
 
 def phases(args_cli, start_render) -> int:
@@ -3161,8 +3279,10 @@ def phases(args_cli, start_render) -> int:
     shard = sharded_phase(sim, op_td, card, dev, kernels)
     print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 10. above 16384 points (the four-step FFT): each kernel at each new
-    # size against its plain version, then (a) the Galileo receiver at
+    # 10. above 16384 points (the four-step FFT, the cluster) and the
+    # sizes at 128, with a prime above 127 and above 131072: each kernel
+    # at each such size against its plain
+    # version, B1's trace, then (a) the Galileo receiver at
     # 8.192 MS/s through the CLI, (b) its std acquisition, (c) a CW tone
     # in a Welch PSD at nperseg 65536
     t0 = time.perf_counter()
@@ -3174,9 +3294,10 @@ def phases(args_cli, start_render) -> int:
     large = large_kernels(x8.reshape(10, GAL8K_N), gal8k_rep, dev, card)
     del x8, gal8k_rep
     torch.cuda.empty_cache()
-    large_launches = large_path(fx8, fx_gps, dev, card)
+    large_launches, large["welch_psd"]["65536_tone"] = large_path(
+        fx8, fx_gps, dev, card)
     for k in kernels:
-        k["sizes_above_16384"] = large[k["name"]]
+        k["sizes_phase10"] = large[k["name"]]
     print(f"phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 11. results

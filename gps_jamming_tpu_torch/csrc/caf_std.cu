@@ -31,16 +31,20 @@
 // 16384: 4 passes, 3 exchanges, one 1024-thread block per SM, the note of
 // pcf_correlate.cuh says why).
 //
-// n: every length in [256, 16384] whose prime factors are all <= 127, as
+// n: every length in [128, 16384] whose prime factors are all <= 127, as
 // v1 takes every multiple of 128 with a divisor <= 256 (3200 = 25*128 at
 // 3.2 MS/s GPS, 10368 = 81*128) and the RTL-SDR rates give 2400, 2560 and
 // 2800: a power of two and these five (GJT_CORR_SIZES) run the register
 // FFT, any other n the mixed-radix one of fft_smem.cuh (radix-2 stages,
 // then a direct radix-p stage per odd prime factor). Above 16384
-// (gjt_caf_std_large: every multiple of 128 up to 131072 whose prime
-// factors are all <= 127, as v1 and v2 take them) the mix-forward and the
-// correlate stage run the four-step FFT of fft_large.cuh through scratch
-// in device memory, the Doppler bins and the (PRN, bin) cells in chunks.
+// (gjt_caf_std_large: every multiple of 128 up to 262144 whose prime
+// factors are all <= 1021, so every n that v1 and v2 take there) the
+// mix-forward runs the four-step FFT of fft_large.cuh through device
+// memory, the Doppler bins in chunks; the correlate stage runs in one
+// thread-block cluster of n1 CTAs per (PRN, bin) cell up to 131072
+// (pcf_correlate_cluster), and above it (n1 = 16) on the four-step's two
+// passes through scratch, the cells in chunks (pcf_correlate.cuh,
+// cluster_n1).
 #include <cuda_runtime.h>
 
 #include "pcf_correlate.cuh"
@@ -91,7 +95,7 @@ cudaError_t launch_mix_forward(const float2* x, const float2* osc, float2* Y,
 // natural-order conj replica spectra; tw: the table of
 // `build.row_twiddles(n)` (two-level for a size of GJT_CORR_SIZES, else
 // half), complex64; out: the
-// (P, F, n) float32 surface. n in [256, 16384] with every prime factor
+// (P, F, n) float32 surface. n in [128, 16384] with every prime factor
 // <= 127. Returns a cudaError_t (0 on success).
 extern "C" int gjt_caf_std(const void* x, const void* osc, void* Y,
                            const void* rep, const void* tw, void* out, int F,
@@ -111,22 +115,26 @@ extern "C" int gjt_caf_std(const void* x, const void* osc, void* Y,
       nb, 1, P, plan, 0, 0, s));
 }
 
-// n above 16384 (fft_large.cuh, up to GJT_FFT_LARGE_MAX_N): x, osc, rep
+// n above 16384 (fft_large.cuh, up to GJT_FFT_STD_MAX_N): x, osc, rep
 // and out as gjt_caf_std; the Doppler bins run in chunks of f_chunk: Y:
 // (f_chunk*nb, n) complex64 scratch, the chunk's forward spectra in the
 // permuted order of launch_large_forward; Bs: (cells_chunk, nb, n)
-// complex64 scratch, the cells (p, f) of one pass of the correlate stage;
-// tw2: the table of the n2-point rows (`build.large_row_twiddles`); twn:
-// the n-point two-level table (`build.reg_twiddles(n)`). Returns a
-// cudaError_t (0 on success).
+// complex64 scratch, the cells (p, f) of one pass of the two-pass
+// correlate stage, unused (cells_chunk 0, Bs null) where the cluster plan
+// takes n (gjt_corr_cluster_n1); tw2: the table of the n2-point rows
+// (`build.large_row_twiddles`); twn: the n-point two-level table
+// (`build.reg_twiddles(n)`). Returns a cudaError_t (0 on success).
 extern "C" int gjt_caf_std_large(const void* x, const void* osc, void* Y,
                                  void* Bs, const void* rep, const void* tw2,
                                  const void* twn, void* out, int F, int nb,
                                  int P, int n, int f_chunk, int cells_chunk,
                                  void* stream) {
   gjt::LargePlan lp;
-  if (!gjt::large_plan(n, &lp) || F < 1 || nb < 1 || P < 1 || f_chunk < 1 ||
-      cells_chunk < 1)
+  if (!gjt::large_plan(n, gjt::kStdMaxN, &lp) || F < 1 || nb < 1 || P < 1 ||
+      f_chunk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool cluster = gjt::cluster_n1(lp) > 0;
+  if (!cluster && cells_chunk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float2* Y2 = static_cast<float2*>(Y);
@@ -141,11 +149,26 @@ extern "C" int gjt_caf_std_large(const void* x, const void* osc, void* Y,
     cudaError_t err =
         gjt::launch_large_forward(src, Y2, tw2_, twn_, fc * nb, lp, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = gjt::launch_large_correlate(
-        Y2, static_cast<const float2*>(rep), tw2_, twn_,
-        static_cast<float*>(out), static_cast<float2*>(Bs), fc, F, f0, nb, 1,
-        P, lp, 0, 0, cells_chunk, s);
+    if (cluster) {
+      err = gjt::launch_cluster_correlate(
+          Y2, static_cast<const float2*>(rep), tw2_, twn_,
+          static_cast<float*>(out), fc, F, f0, nb, 1, P, lp, 0, 0, s);
+    } else {
+      err = gjt::launch_large_correlate(
+          Y2, static_cast<const float2*>(rep), tw2_, twn_,
+          static_cast<float*>(out), static_cast<float2*>(Bs), fc, F, f0, nb,
+          1, P, lp, cells_chunk, s);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+// The cluster size of the correlate stage of an n-point search above
+// 16384 (kernels B1 and B3), or 0 where it runs the two passes through
+// scratch, or where no four-step plan takes n: `cluster_n1` of the plan,
+// which kernels/fft_plan.py's `cluster_split` mirrors.
+extern "C" int gjt_corr_cluster_n1(int n) {
+  gjt::LargePlan lp;
+  return gjt::large_plan(n, gjt::kStdMaxN, &lp) ? gjt::cluster_n1(lp) : 0;
 }

@@ -5,22 +5,26 @@
 // A 32768-point complex64 row is 256 KB, more than the 227 KB of shared
 // memory one block can take, so the one-block-per-row FFTs of fft_reg.cuh
 // and fft_smem.cuh stop at kMaxN = 16384. Above it, n = n1 * n2 with n1
-// the least of 2, 4 and 8 that leaves n2 <= 16384 (large_plan), and the
-// transform goes through device memory in two passes built from the FFTs
-// the port already has:
+// the least of 2, 4, 8 and 16 that leaves n2 <= 16384 (large_plan; n1 =
+// 16 only above 131072, kernel B3's sizes up to kStdMaxN = 262144), and
+// the transform goes through device memory in two passes built from the
+// FFTs the port already has:
 // - the column pass: thread j2 < n2 runs the n1-point DFT (in registers)
 //   of the strided column x[j2 + n2*j1], j1 < n1, and multiplies output k1
 //   by the twiddle w_n^(k1*j2); the row (k1) layout A[k1*n2 + j2] is
 //   written coalesced, each thread one column;
 // - the row pass: n1 rows of n2 points, one block each, on the register
 //   FFT at the sizes of GJT_LARGE_REG_SIZES (the B2 schedules 10240, 12288
-//   and 14336, and 16384), else on the mixed-radix shared-memory FFT.
+//   and 14336, and 16384), else on the mixed-radix shared-memory FFT,
+//   whose odd primes go up to kRowMaxRadix (1021) here.
 // Forward, columns then rows, this leaves X[k1 + n1*k2] at A[k1*n2 + k2]:
 // the spectrum in a permuted order, with no transpose. The inverse of the
 // correlate stage runs the other way round on that order: rows first
 // (the replica product folded into their load, the twiddle w_n^-(k1*t2)
 // into their store), then the n1-point columns, whose outputs
-// x[t2 + n2*t1] come out in natural lag order (pcf_correlate.cuh). So
+// x[t2 + n2*t1] come out in natural lag order (pcf_correlate.cuh; for n1
+// <= 8 the correlate stage runs both in one thread-block cluster instead,
+// the rows in the CTAs' shared memory, pcf_correlate_cluster). So
 // neither direction transposes, and kernels/fft_plan.py's four_step_*
 // run the same index arithmetic in NumPy against np.fft.
 //
@@ -40,13 +44,19 @@
 #include "fft_reg.cuh"
 #include "fft_smem.cuh"
 
-#if !defined(GJT_FFT_LARGE_MAX_N)
+#if !defined(GJT_FFT_LARGE_MAX_N) || !defined(GJT_FFT_STD_MAX_N)
 #error "kernels/build.py defines the four-step FFT's largest n"
 #endif
 
 namespace gjt {
 
+// The largest n of kernels B1 and B2 (their gates take less: v3's 32768,
+// `pallas_psd`'s 131072), and of kernel B3.
 constexpr int kLargeMaxN = GJT_FFT_LARGE_MAX_N;
+constexpr int kStdMaxN = GJT_FFT_STD_MAX_N;
+constexpr int kMaxN1 = 16;
+static_assert(kStdMaxN <= kMaxN1 * kMaxN && kLargeMaxN <= kStdMaxN,
+              "the four-step splits n into at most 16 rows of kMaxN");
 constexpr int kColThreads = 256;     // threads per column-pass block
 
 // The row lengths n2 whose row pass runs the register FFT (each a size of
@@ -62,17 +72,17 @@ struct LargePlan {
   FftPlan row;
 };
 
-// Fills `lp` for kMaxN < n <= kLargeMaxN (host side): n1 the least of 2,
-// 4 and 8 with n2 = n/n1 <= kMaxN, n2 every prime factor <= kMaxRadix.
-// False otherwise.
-static inline bool large_plan(int n, LargePlan* lp) {
-  if (n <= kMaxN || n > kLargeMaxN) return false;
-  for (int n1 = 2; n1 <= 8; n1 *= 2) {
+// Fills `lp` for kMaxN < n <= max_n (host side; max_n kLargeMaxN or
+// kStdMaxN): n1 the least of 2, 4, 8 and 16 with n2 = n/n1 <= kMaxN, n2
+// every prime factor <= kRowMaxRadix. False otherwise.
+static inline bool large_plan(int n, int max_n, LargePlan* lp) {
+  if (n <= kMaxN || n > max_n) return false;
+  for (int n1 = 2; n1 <= kMaxN1; n1 *= 2) {
     if (n % n1 == 0 && n / n1 <= kMaxN) {
       lp->n = n;
       lp->n1 = n1;
       lp->n2 = n / n1;
-      return make_plan(lp->n2, &lp->row);
+      return make_plan(lp->n2, &lp->row, kRowMaxRadix);
     }
   }
   return false;
@@ -99,10 +109,11 @@ static __device__ __forceinline__ int large_wrap(int v, int n) {
   return v < 0 ? v + n : (v >= n ? v - n : v);
 }
 
-// The R-point DFT of v in registers, natural order out (R: 2, 4 or 8).
+// The R-point DFT of v in registers, natural order out (R: 2, 4, 8 or 16).
 template <int R, bool INV>
 static __device__ __forceinline__ void small_dft(float2 (&v)[R]) {
-  static_assert(R == 2 || R == 4 || R == 8, "n1 is 2, 4 or 8");
+  static_assert(R == 2 || R == 4 || R == 8 || R == 16,
+                "n1 is 2, 4, 8 or 16");
   dft_nat<R, INV, 16384>(v, nullptr);
 }
 
@@ -156,7 +167,7 @@ large_rows_reg(Op op, const float2* __restrict__ tab) {
 }
 
 // The row pass on the mixed-radix shared-memory FFT (any other n2; n2 >
-// 8192 here, so a block of kMaxThreads).
+// 8192 here, so a block of kMaxThreads, which fft_radix_p_direct needs).
 template <class Op>
 static __global__ void __launch_bounds__(kMaxThreads)
 large_rows_smem(Op op, const float2* __restrict__ tw, FftPlan plan) {
@@ -169,7 +180,7 @@ large_rows_smem(Op op, const float2* __restrict__ tw, FftPlan plan) {
   for (int k = threadIdx.x; k < n2; k += blockDim.x)
     buf[digit_rev(k, plan)] = row.load(k);
   __syncthreads();
-  fft_mixed<Op::kInverse>(buf, tw_s, plan);
+  fft_mixed<Op::kInverse, true>(buf, tw_s, plan);
   for (int k = threadIdx.x; k < n2; k += blockDim.x) row.store(k, buf[k]);
 }
 
@@ -216,6 +227,10 @@ static inline cudaError_t launch_large_cols_fwd(const Src& src, float2* A,
       break;
     case 8:
       large_cols_fwd<8, Src><<<grid, kColThreads, 0, s>>>(src, A, twn, lp.n2);
+      break;
+    case 16:
+      large_cols_fwd<16, Src><<<grid, kColThreads, 0, s>>>(src, A, twn,
+                                                           lp.n2);
       break;
     default:
       return cudaErrorInvalidValue;

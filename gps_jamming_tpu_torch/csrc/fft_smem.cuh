@@ -9,7 +9,10 @@
 //   a radix-2 stages (fft_radix2), then one radix-p stage per odd prime,
 //   ascending. B1 and B3 take it at every n that is not one of
 //   GJT_CORR_SIZES (pcf_correlate.cuh; those rows take the register FFT of
-//   fft_reg.cuh).
+//   fft_reg.cuh). The rows of the four-step FFT (fft_large.cuh) also take
+//   odd primes up to kRowMaxRadix (1021): a prime above kMaxRadix runs
+//   fft_radix_p_direct, one output per thread and slot, so no thread holds
+//   p values.
 // The twiddle table tw[k] = exp(-2*pi*i*k/n), k < (n+1)/2, is float32
 // computed in float64 on the host and staged into shared memory by the
 // caller; `twiddle` reads the rest of the circle from its conjugate
@@ -22,7 +25,7 @@
 namespace gjt {
 
 #if !defined(GJT_FFT_MIN_N) || !defined(GJT_FFT_MAX_N) || \
-    !defined(GJT_FFT_MAX_RADIX)
+    !defined(GJT_FFT_MAX_RADIX) || !defined(GJT_FFT_ROW_MAX_RADIX)
 #error "kernels/build.py defines the FFT's size rule (GJT_FFT_*)"
 #endif
 
@@ -34,6 +37,15 @@ constexpr int kMaxThreads = 1024;
 constexpr int kMinN = GJT_FFT_MIN_N;
 constexpr int kMaxN = GJT_FFT_MAX_N;
 constexpr int kMaxRadix = GJT_FFT_MAX_RADIX;
+// The largest odd prime of a four-step row (fft_large.cuh): the JAX
+// package's v1 takes n = n1 * 128 * m with n1 <= 256, so up to 262144 m
+// (and n) has prime factors up to 1021.
+constexpr int kRowMaxRadix = GJT_FFT_ROW_MAX_RADIX;
+// Outputs per thread of fft_radix_p_direct: the block has at least n/16
+// threads (n <= kMaxN at kMaxThreads).
+constexpr int kDirectPer = 16;
+static_assert(kDirectPer * kMaxThreads >= kMaxN,
+              "fft_radix_p_direct needs more outputs per thread");
 // The most odd prime factors (with multiplicity) of an n <= kMaxN
 // (16384: 3^8 = 6561).
 constexpr int kMaxOddFactors = 8;
@@ -54,8 +66,9 @@ struct FftPlan {
 };
 
 // Fills `pl` for n (host side); false when n has a prime factor above
-// kMaxRadix.
-static inline bool make_plan(int n, FftPlan* pl) {
+// max_radix (kMaxRadix for a one-block row, kRowMaxRadix for a four-step
+// row).
+static inline bool make_plan(int n, FftPlan* pl, int max_radix = kMaxRadix) {
   pl->n = n;
   pl->log2p2 = 0;
   pl->n_odd = 0;
@@ -65,7 +78,7 @@ static inline bool make_plan(int n, FftPlan* pl) {
     m >>= 1;
     ++pl->log2p2;
   }
-  for (int p = 3; p <= kMaxRadix && m > 1; p += 2) {
+  for (int p = 3; p <= max_radix && m > 1; p += 2) {
     while (m % p == 0) {
       if (pl->n_odd == kMaxOddFactors) return false;
       pl->odd[pl->n_odd++] = p;
@@ -186,9 +199,76 @@ static __device__ void fft_radix_p(float2* buf, const float2* tw, int n,
   __syncthreads();
 }
 
-// The whole mixed-radix transform of a digit-reversed row; returns after a
-// final __syncthreads.
+// One radix-p DIT stage for an odd prime p in (kMaxRadix, kRowMaxRadix]:
+// the stage of fft_radix_p, out of place through registers. Slot k =
+// g*L + j + q*Lp (j < Lp, q < p) receives y_q of butterfly (g, j) =
+// sum_m x_m W_L^(j*m) W_p^(q*m) = sum_m buf[g*L + j + m*Lp] W_L^(m*r),
+// r = j + q*Lp; each thread computes the slots threadIdx.x +
+// i*blockDim.x (i < kDirectPer, so the block has at least n/kDirectPer
+// threads) from the row in shared memory, and writes them back after
+// every thread has read its inputs. No thread holds p values, so nothing
+// spills at p = 1021. The twiddle W_L^(m*r) is the row's table entry at
+// every kDirectRun-th m and a product by W_L^r between: read from the
+// table at every m, whose addresses m*r stride the banks, it made B3 at
+// 261376 = 256 * 1021 2.4 times slower (574 against 237 ms at 8 PRN x 35
+// bins x 4 on the H100), and kDirectRun = 16 products keep the twiddle
+// within about 2e-6 of the table's.
+constexpr int kDirectRun = 16;
+
 template <bool INVERSE>
+static __device__ void fft_radix_p_direct(float2* buf, const float2* tw,
+                                          int n, int Lp, int p) {
+  const int L = Lp * p;
+  const int stride_l = n / L;
+  float2 y[kDirectPer];
+#pragma unroll
+  for (int i = 0; i < kDirectPer; ++i) {
+    const int k = threadIdx.x + i * blockDim.x;
+    if (k < n) {
+      const int g = k / L;
+      const int r = k - g * L;
+      const int q = r / Lp;
+      const float2* x = buf + g * L + (r - q * Lp);
+      float2 ws = twiddle(tw, r * stride_l, n);
+      if (INVERSE) ws.y = -ws.y;
+      // e = m0*r mod L at each run's first m0; er = kDirectRun*r mod L
+      const int er = static_cast<int>(
+          (static_cast<long long>(kDirectRun) * r) % L);
+      float2 acc = make_float2(0.f, 0.f);
+      int e = 0;
+#pragma unroll 1
+      for (int m0 = 0; m0 < p; m0 += kDirectRun) {
+        float2 w = twiddle(tw, e * stride_l, n);
+        if (INVERSE) w.y = -w.y;
+        const int m1 = m0 + kDirectRun < p ? m0 + kDirectRun : p;
+#pragma unroll 4
+        for (int m = m0; m < m1; ++m) {
+          const float2 t = cmul(x[m * Lp], w);
+          acc.x += t.x;
+          acc.y += t.y;
+          w = cmul(w, ws);
+        }
+        e += er;
+        if (e >= L) e -= L;
+      }
+      y[i] = acc;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kDirectPer; ++i) {
+    const int k = threadIdx.x + i * blockDim.x;
+    if (k < n) buf[k] = y[i];
+  }
+  __syncthreads();
+}
+
+// The whole mixed-radix transform of a digit-reversed row; returns after a
+// final __syncthreads. kRowPrimes: the row of a four-step plan, whose odd
+// primes go up to kRowMaxRadix (fft_radix_p_direct above kMaxRadix); the
+// one-block rows (false) keep the stages up to kMaxRadix alone, so the
+// direct stage's registers do not count against them.
+template <bool INVERSE, bool kRowPrimes = false>
 static __device__ void fft_mixed(float2* buf, const float2* tw,
                                  const FftPlan& pl) {
   fft_radix2<INVERSE>(buf, tw, pl.n, pl.log2p2);
@@ -202,8 +282,10 @@ static __device__ void fft_mixed(float2* buf, const float2* tw,
       fft_radix_p<INVERSE, 5>(buf, tw, pl.n, Lp, p);
     } else if (p == 7) {
       fft_radix_p<INVERSE, 7>(buf, tw, pl.n, Lp, p);
-    } else {
+    } else if (!kRowPrimes || p <= kMaxRadix) {
       fft_radix_p<INVERSE, 0>(buf, tw, pl.n, Lp, p);
+    } else {
+      fft_radix_p_direct<INVERSE>(buf, tw, pl.n, Lp, p);
     }
     Lp *= p;
   }
@@ -229,24 +311,38 @@ static __device__ __forceinline__ void stage_twiddles(float2* tw_s,
   for (int k = threadIdx.x; k < tw_len(n); k += blockDim.x) tw_s[k] = tw[k];
 }
 
+// The lanes that shuffle: a warp, or the whole block where it is smaller
+// (a power of two: the register FFT's 128-point rows run 16 threads). A
+// shuffle's width of blockDim.x keeps its reads inside the block.
+static __device__ __forceinline__ int shfl_width() {
+  return blockDim.x < 32 ? static_cast<int>(blockDim.x) : 32;
+}
+
+static __device__ __forceinline__ unsigned shfl_mask() {
+  return blockDim.x < 32 ? (1u << blockDim.x) - 1u : 0xffffffffu;
+}
+
 static __device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
+  const int w = shfl_width();
+  for (int off = w >> 1; off > 0; off >>= 1)
+    v += __shfl_down_sync(shfl_mask(), v, off, w);
   return v;
 }
 
 static __device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, off));
+  const int w = shfl_width();
+  for (int off = w >> 1; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_down_sync(shfl_mask(), v, off, w));
   return v;
 }
 
 // Block-wide sum in a fixed order (lane tree, then warps 0..W-1), so the
 // result is the same on every run. red holds >= 32 floats. Every thread
-// gets the result. blockDim.x is a multiple of 32.
+// gets the result. blockDim.x is a multiple of 32, or a power of two
+// below it.
 static __device__ float block_sum(float v, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
   v = warp_sum(v);
   __syncthreads();
   if (lane == 0) red[warp] = v;
@@ -262,7 +358,7 @@ static __device__ float block_sum(float v, float* red) {
 
 static __device__ float block_max(float v, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
   v = warp_max(v);
   __syncthreads();
   if (lane == 0) red[warp] = v;
@@ -281,10 +377,11 @@ static __device__ float block_max(float v, float* red) {
 static __device__ void block_max_arg(float v, int a, float* red, int* redi,
                                      float* out_v, int* out_a) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oa = __shfl_down_sync(0xffffffffu, a, off);
+  const int nw = (blockDim.x + 31) >> 5;
+  const int width = shfl_width();
+  for (int off = width >> 1; off > 0; off >>= 1) {
+    const float ov = __shfl_down_sync(shfl_mask(), v, off, width);
+    const int oa = __shfl_down_sync(shfl_mask(), a, off, width);
     if (ov > v || (ov == v && oa < a)) {
       v = ov;
       a = oa;
@@ -311,6 +408,84 @@ static __device__ void block_max_arg(float v, int a, float* red, int* redi,
   __syncthreads();
   *out_v = red[0];
   *out_a = redi[0];
+}
+
+
+// block_max_arg and block_sum in one pass: (max of v, its a, the lowest a
+// winning ties; sum of s, in block_sum's order). red holds >= 64 floats,
+// redi >= 32 ints. Every thread gets the results.
+static __device__ void block_max_arg_sum(float v, int a, float s, float* red,
+                                         int* redi, float* out_v, int* out_a,
+                                         float* out_s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  const int width = shfl_width();
+  for (int off = width >> 1; off > 0; off >>= 1) {
+    const float ov = __shfl_down_sync(shfl_mask(), v, off, width);
+    const int oa = __shfl_down_sync(shfl_mask(), a, off, width);
+    s += __shfl_down_sync(shfl_mask(), s, off, width);
+    if (ov > v || (ov == v && oa < a)) {
+      v = ov;
+      a = oa;
+    }
+  }
+  __syncthreads();
+  if (lane == 0) {
+    red[warp] = v;
+    red[32 + warp] = s;
+    redi[warp] = a;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float bv = red[0], bs = 0.f;
+    int ba = redi[0];
+    for (int w = 0; w < nw; ++w) {
+      if (red[w] > bv || (red[w] == bv && redi[w] < ba)) {
+        bv = red[w];
+        ba = redi[w];
+      }
+      bs += red[32 + w];
+    }
+    red[0] = bv;
+    red[32] = bs;
+    redi[0] = ba;
+  }
+  __syncthreads();
+  *out_v = red[0];
+  *out_a = redi[0];
+  *out_s = red[32];
+}
+
+// block_max of a and block_sum of b in one pass, each in that function's
+// order. red holds >= 64 floats. Every thread gets the results.
+static __device__ void block_max_sum(float* a, float* b, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  const int width = shfl_width();
+  float x = *a, y = *b;
+  for (int off = width >> 1; off > 0; off >>= 1) {
+    x = fmaxf(x, __shfl_down_sync(shfl_mask(), x, off, width));
+    y += __shfl_down_sync(shfl_mask(), y, off, width);
+  }
+  __syncthreads();
+  if (lane == 0) {
+    red[warp] = x;
+    red[32 + warp] = y;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    x = red[0];
+    y = 0.f;
+    for (int w = 0; w < nw; ++w) {
+      x = fmaxf(x, red[w]);
+      y += red[32 + w];
+    }
+    red[0] = x;
+    red[32] = y;
+  }
+  __syncthreads();
+  *a = red[0];
+  *b = red[32];
 }
 
 }  // namespace gjt

@@ -27,14 +27,16 @@
 // memory), and in statistics mode the delay x Doppler surface never
 // reaches device memory: the only output is 5 x (P, rows) floats.
 //
-// n: every length in [256, 16384] whose prime factors are all <= 127; a
+// n: every length in [128, 16384] whose prime factors are all <= 127; a
 // power of two and 2400, 2560, 2800, 3200 and 10368 (GJT_CORR_SIZES) run
 // the register FFT, any other n the mixed-radix shared-memory one
 // (fft_smem.cuh). Above 16384 (gjt_pcf_large: 20480 ... 32768, the sizes
 // of the TPU kernel's v3; Galileo E1B at 8.192 MS/s is 32768) a row no
-// longer fits one block: the forward transforms and the correlate stage
-// run the four-step FFT of fft_large.cuh through scratch in device memory
-// (pcf_correlate.cuh, launch_large_correlate).
+// longer fits one block: the forward transforms run the four-step FFT of
+// fft_large.cuh through device memory, and the correlate stage runs in one
+// thread-block cluster of two CTAs per cell, the two 16384-point halves of
+// each row in the CTAs' shared memory (pcf_correlate.cuh,
+// pcf_correlate_cluster), so no row goes back to device memory.
 #include <cuda_runtime.h>
 
 #include "pcf_correlate.cuh"
@@ -80,7 +82,7 @@ cudaError_t launch_forward(const float2* y, float2* Y, const float2* tw,
 // (the two-level table of fft_reg.cuh for a size of GJT_CORR_SIZES, else
 // the half table of fft_smem.cuh), complex64; out: the surface
 // (P, n_c*R, n) float32 when stats == 0, else (5, P, n_c*R) float32.
-// n in [256, 16384] with every prime factor <= 127. Returns a cudaError_t
+// n in [128, 16384] with every prime factor <= 127. Returns a cudaError_t
 // (0 on success).
 extern "C" int gjt_pcf(const void* y, void* Y, const void* rep,
                        const void* tw, void* out, int R, int G, int n_c,
@@ -102,20 +104,20 @@ extern "C" int gjt_pcf(const void* y, void* Y, const void* rep,
 
 // n above 16384 (fft_large.cuh; kernels B1 take it up to 32768): y as
 // above; Y: (R*G, n) complex64 scratch, left in the permuted order of
-// launch_large_forward; Bs: (cells_chunk, G, n) complex64 scratch, the
-// cells (p, c, r) of one pass of the correlate stage; tw2: the table of
-// the n2-point rows (`build.large_row_twiddles`); twn: the n-point
-// two-level table (`build.reg_twiddles(n)`); out as gjt_pcf. Returns a
-// cudaError_t (0 on success).
-extern "C" int gjt_pcf_large(const void* y, void* Y, void* Bs,
-                             const void* rep, const void* tw2,
-                             const void* twn, void* out, int R, int G,
-                             int n_c, int P, int n, int stats, int excl,
-                             int cells_chunk, void* stream) {
+// launch_large_forward; tw2: the table of the n2-point rows
+// (`build.large_row_twiddles`); twn: the n-point two-level table
+// (`build.reg_twiddles(n)`); out as gjt_pcf. The correlate stage runs in
+// one thread-block cluster per cell (pcf_correlate_cluster); an n whose
+// plan the cluster does not take is refused. Returns a cudaError_t (0 on
+// success).
+extern "C" int gjt_pcf_large(const void* y, void* Y, const void* rep,
+                             const void* tw2, const void* twn, void* out,
+                             int R, int G, int n_c, int P, int n, int stats,
+                             int excl, void* stream) {
   gjt::LargePlan lp;
-  if (!gjt::large_plan(n, &lp) || R < 1 || G < 1 || P < 1 || n_c < 1 ||
-      (n_c & 1) == 0 || n_c / 2 >= n || cells_chunk < 1 ||
-      (stats && (excl >= n / 2 || !gjt::large_stats_fit(n))))
+  if (!gjt::large_plan(n, gjt::kLargeMaxN, &lp) ||
+      gjt::cluster_n1(lp) == 0 || R < 1 || G < 1 || P < 1 || n_c < 1 ||
+      (n_c & 1) == 0 || n_c / 2 >= n || (stats && excl >= n / 2))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float2* Y2 = static_cast<float2*>(Y);
@@ -125,8 +127,7 @@ extern "C" int gjt_pcf_large(const void* y, void* Y, void* Bs,
       gjt::SrcRows{static_cast<const float2*>(y), n}, Y2, tw2_, twn_, R * G,
       lp, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(gjt::launch_large_correlate(
+  return static_cast<int>(gjt::launch_cluster_correlate(
       Y2, static_cast<const float2*>(rep), tw2_, twn_,
-      static_cast<float*>(out), static_cast<float2*>(Bs), R, R, 0, G, n_c, P,
-      lp, stats, excl, cells_chunk, s));
+      static_cast<float*>(out), R, R, 0, G, n_c, P, lp, stats, excl, s));
 }

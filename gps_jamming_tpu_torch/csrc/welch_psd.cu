@@ -502,7 +502,7 @@ extern "C" int gjt_welch_psd_large(const void* x, const void* win,
                                    void* stream) {
   gjt::LargePlan lp;
   if (n_segs < 1 || seg_chunk < 1 || seg_chunk > 65535 ||
-      !gjt::large_plan(nperseg, &lp))
+      !gjt::large_plan(nperseg, gjt::kLargeMaxN, &lp))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int hop = nperseg / 2;

@@ -16,10 +16,14 @@ periods) at 2048, 2400, 2560, 2800, 3200 and 10368 lags, and Galileo E1B's
 36 PRN at 16384; and, above 16384, the four-step entry points
 (`gjt_welch_psd_large`, `gjt_pcf_large`, `gjt_caf_std_large`) at the
 shapes of phase 10: B2 on 8 192 512 samples at nperseg 32768 and 131072,
-B1 in statistics mode on Galileo E1B at 8.192 MS/s (36 PRN x 57 coarse x 6
-rows x 2 groups at 32768), B3 at 32768 (36 x 71 x 10) and at 32000, 65536
-and 131072 (8 PRN x 35 bins x 4). A shape the other tree's kernel refuses
-is timed on this tree alone. Each reading is the median over
+B1 in its statistics, peak-only and surface modes on Galileo E1B at 8.192
+MS/s (36 PRN x 57 coarse x 6 rows x 2 groups at 32768), B3 at 32768 (36 x
+71 x 10) and at 32000, 65536 and 131072 (8 PRN x 35 bins x 4); and B1 peak
+and B3 at 128 (32 PRN). Each tree's large entry points get the scratch
+its own wrappers allocate (the two-pass correlate stage takes B1's cells
+through scratch; the cluster's entry point takes none). A shape the other
+tree's kernel refuses is timed on this tree alone. Each reading is the
+median over
 `--reps` samples of CUDA-event time over `--inner` back-to-back calls,
 divided by `--inner`; beside it, in the same turns, the device time of
 the calls' kernels per call (`torch.profiler` over `--inner` calls),
@@ -47,7 +51,9 @@ SHAPES = (("B2", 1024), ("B2", 1536),
           ("B3", 2048), ("B3", 2400), ("B3", 2560), ("B3", 2800),
           ("B3", 3200), ("B3", 10368), ("B3", 16384),
           ("B2", 32768), ("B2", 131072), ("B1 stats", 32768),
-          ("B3", 32768), ("B3", 32000), ("B3", 65536), ("B3", 131072))
+          ("B1 peak", 32768), ("B1 surface", 32768),
+          ("B3", 32768), ("B3", 32000), ("B3", 65536), ("B3", 131072),
+          ("B1 peak", 128), ("B3", 128))
 B2_SAMPLES = 1 << 19
 B2_LARGE_SAMPLES = 8_192_512          # above 16384 points per segment
 
@@ -107,8 +113,11 @@ def _b2(mod, lib, n: int, dev, stream):
 
 def _large(mod, lib, what: str, n: int, dev, stream):
     """`what` above 16384 through the four-step entry points of `mod`'s
-    library, with the scratch chunks of this tree's wrappers."""
-    from ..ops import cuda_caf, cuda_pcf, cuda_psd
+    library, with the scratch chunks of that tree's own wrappers."""
+    pkg = mod.__name__.rsplit(".kernels", 1)[0]
+    cuda_caf = importlib.import_module(f"{pkg}.ops.cuda_caf")
+    cuda_pcf = importlib.import_module(f"{pkg}.ops.cuda_pcf")
+    cuda_psd = importlib.import_module(f"{pkg}.ops.cuda_psd")
     if "gjt_pcf_large" not in mod._SIGNATURES:
         raise RuntimeError(f"{what} n={n}: no four-step entry points")
     tw2 = mod.large_row_twiddles(n, dev)
@@ -131,23 +140,35 @@ def _large(mod, lib, what: str, n: int, dev, stream):
                 A.data_ptr(), pw.data_ptr(), half.data_ptr(), acc.data_ptr(),
                 out.data_ptr(), n, n_segs, chunk, 1, 1.0 / n_segs, stream)
         return fn, out
-    if what == "B1 stats":
-        n_c, rows, groups, n_prn, excl = 57, 6, 2, 36, 16
+    if what.startswith("B1"):
+        n_c, rows, groups, n_prn = 57, 6, 2, 36
+        excl = {"B1 stats": 16, "B1 peak": -1, "B1 surface": 0}[what]
+        stats = int(what != "B1 surface")
         y = _cplx((rows * groups, n), n, dev)
         rep = _cplx((n_prn, n), n + 1, dev)
         Y = torch.empty_like(y)
+        out = torch.empty((5, n_prn, n_c * rows) if stats
+                          else (n_prn, n_c * rows, n), dtype=torch.float32,
+                          device=dev)
+        ptrs = (tw2.data_ptr(), twn.data_ptr(), out.data_ptr(), rows, groups,
+                n_c, n_prn, n, stats, excl)
+        if len(mod._SIGNATURES["gjt_pcf_large"]) == 14:
+            # the cluster's entry point: no scratch for the correlate stage
+            def fn():
+                return lib.gjt_pcf_large(y.data_ptr(), Y.data_ptr(),
+                                         rep.data_ptr(), *ptrs, stream)
+            return fn, out
+        # the two-pass correlate stage: its scratch of cells, chunked as
+        # that tree's wrapper chunks it
         cells = n_prn * n_c * rows
         chunk = cuda_pcf.large_cells_chunk(n, groups, cells, Y.numel() * 8)
         Bs = torch.empty((chunk * groups, n), dtype=torch.complex64,
                          device=dev)
-        out = torch.empty((5, n_prn, n_c * rows), dtype=torch.float32,
-                          device=dev)
 
         def fn():
-            return lib.gjt_pcf_large(
-                y.data_ptr(), Y.data_ptr(), Bs.data_ptr(), rep.data_ptr(),
-                tw2.data_ptr(), twn.data_ptr(), out.data_ptr(), rows, groups,
-                n_c, n_prn, n, 1, excl, chunk, stream)
+            return lib.gjt_pcf_large(y.data_ptr(), Y.data_ptr(),
+                                     Bs.data_ptr(), rep.data_ptr(), *ptrs,
+                                     chunk, stream)
         return fn, out
     n_f, nb, n_prn = (71, 10, 36) if n == 32768 else (35, 4, 8)
     x = _cplx((nb, n), n + 2, dev)
@@ -155,14 +176,16 @@ def _large(mod, lib, what: str, n: int, dev, stream):
     rep = _cplx((n_prn, n), n + 4, dev)
     bins, cells = cuda_caf.large_chunks(n, nb, n_f, n_prn)
     Y = torch.empty((bins * nb, n), dtype=torch.complex64, device=dev)
-    Bs = torch.empty((cells * nb, n), dtype=torch.complex64, device=dev)
+    Bs = torch.empty((cells * nb, n), dtype=torch.complex64,
+                     device=dev) if cells else None
     out = torch.empty((n_prn, n_f, n), dtype=torch.float32, device=dev)
 
     def fn():
         return lib.gjt_caf_std_large(
-            x.data_ptr(), osc.data_ptr(), Y.data_ptr(), Bs.data_ptr(),
-            rep.data_ptr(), tw2.data_ptr(), twn.data_ptr(), out.data_ptr(),
-            n_f, nb, n_prn, n, bins, cells, stream)
+            x.data_ptr(), osc.data_ptr(), Y.data_ptr(),
+            Bs.data_ptr() if cells else None, rep.data_ptr(), tw2.data_ptr(),
+            twn.data_ptr(), out.data_ptr(), n_f, nb, n_prn, n, bins, cells,
+            stream)
     return fn, out
 
 

@@ -19,7 +19,6 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-import numpy as np
 import torch
 
 from . import fft_plan
@@ -35,15 +34,22 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # n in [FFT_MIN_N, FFT_MAX_N] with every prime factor <= FFT_MAX_RADIX. The
 # C gate (`row_plan`, csrc/pcf_correlate.cuh) gets them as -D defines, and
 # kernels/gates.py reads them here: one rule for both.
-FFT_MIN_N, FFT_MAX_N, FFT_MAX_RADIX = 256, 16384, 127
+FFT_MIN_N, FFT_MAX_N, FFT_MAX_RADIX = 128, 16384, 127
 # Above FFT_MAX_N the rows of kernels B1, B3 and B2 run the four-step FFT
-# of csrc/fft_large.cuh, n = n1 * n2 with n2 <= FFT_MAX_N, up to this n
-# (GJT_FFT_LARGE_MAX_N in the C gate, `large_plan`).
+# of csrc/fft_large.cuh, n = n1 * n2 with n2 <= FFT_MAX_N and every prime
+# factor of n2 <= FFT_ROW_MAX_RADIX, up to FFT_LARGE_MAX_N for B1 and B2
+# and FFT_STD_MAX_N for B3 (GJT_FFT_* in the C gate, `large_plan`). The
+# JAX package's v1 takes n = n1 * 128 * m with n1 <= 256, so up to 262144
+# every prime factor of such an n is at most 1021.
 FFT_LARGE_MAX_N = 131072
+FFT_STD_MAX_N = 262144
+FFT_ROW_MAX_RADIX = 1021
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               f"-DGJT_FFT_MIN_N={FFT_MIN_N}", f"-DGJT_FFT_MAX_N={FFT_MAX_N}",
               f"-DGJT_FFT_MAX_RADIX={FFT_MAX_RADIX}",
-              f"-DGJT_FFT_LARGE_MAX_N={FFT_LARGE_MAX_N}")
+              f"-DGJT_FFT_ROW_MAX_RADIX={FFT_ROW_MAX_RADIX}",
+              f"-DGJT_FFT_LARGE_MAX_N={FFT_LARGE_MAX_N}",
+              f"-DGJT_FFT_STD_MAX_N={FFT_STD_MAX_N}")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,10 +60,11 @@ _SIGNATURES = {
     "gjt_caf_std": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gjt_welch_psd_large": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, ctypes.c_float, _P],
-    "gjt_pcf_large": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _I, _I, _P],
+    "gjt_pcf_large": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _P],
     "gjt_caf_std_large": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, _P],
+    "gjt_corr_cluster_n1": [_I],
 }
 
 
@@ -161,9 +168,7 @@ def twiddles(n: int, device) -> torch.Tensor:
     host: the half table of fft_smem.cuh (n/2 entries for even n), which
     the rows of B1 and B3 read at an n off `fft_plan.CORRELATE_SIZES`.
     Cached per (n, device); read-only."""
-    k = np.arange((n + 1) // 2, dtype=np.float64)
-    return torch.from_numpy(np.exp(-2j * np.pi * k / n).astype(
-        np.complex64)).to(device)
+    return torch.from_numpy(fft_plan.half_table(n)).to(device)
 
 
 @functools.lru_cache(maxsize=16)

@@ -232,9 +232,9 @@ def bank_ways(n: int) -> int:
 # The four-step FFT of csrc/fft_large.cuh, above one block's 16384 points.
 
 def large_split(n: int, max_row: int = 16384) -> tuple[int, int] | None:
-    """(n1, n2) of `large_plan`: n1 the least of 2, 4 and 8 with n2 = n/n1
-    <= max_row; None where there is none."""
-    for n1 in (2, 4, 8):
+    """(n1, n2) of `large_plan`: n1 the least of 2, 4, 8 and 16 with n2 =
+    n/n1 <= max_row; None where there is none."""
+    for n1 in (2, 4, 8, 16):
         if n % n1 == 0 and n // n1 <= max_row:
             return n1, n // n1
     return None
@@ -294,3 +294,195 @@ def four_step_depermute(v: np.ndarray) -> np.ndarray:
     n1, n2 = large_split(n)
     return np.swapaxes(v.reshape(v.shape[:-1] + (n1, n2)), -1, -2).reshape(
         v.shape)
+
+
+# The mixed-radix shared-memory FFT of csrc/fft_smem.cuh (`fft_mixed`), the
+# row FFT of every n off the register FFT's table: the four-step's rows take
+# odd primes up to 1021, each above 127 in the direct stage
+# (`fft_radix_p_direct`).
+
+def mixed_plan(n: int, max_radix: int = 1021) -> tuple[int, list[int]] | None:
+    """(log2 of the power of two, the odd primes ascending) of `make_plan`;
+    None where a prime factor is above max_radix."""
+    a = (n & -n).bit_length() - 1
+    m, odd, p = n >> a, [], 3
+    while m > 1 and p <= max_radix:
+        while m % p == 0:
+            odd.append(p)
+            m //= p
+        p += 2
+    return (a, odd) if m == 1 else None
+
+
+def digit_rev(i, n: int):
+    """`digit_rev`: the slot of input sample i in the digit-reversed row."""
+    a, odd = mixed_plan(n)
+    i = np.asarray(i)
+    pos, r, w = np.zeros_like(i), i.copy(), n
+    for p in reversed(odd):
+        q = r // p
+        w //= p
+        pos += (r - q * p) * w
+        r = q
+    if a:
+        rev = np.zeros_like(r)
+        for b in range(a):
+            rev |= ((r >> b) & 1) << (a - 1 - b)
+        pos += rev
+    return pos
+
+
+def half_table(n: int) -> np.ndarray:
+    """The shared-memory FFT's table exp(-2*pi*i*k/n), k < (n+1)//2,
+    computed in float64, stored float32 (`build.twiddles`)."""
+    k = np.arange((n + 1) // 2, dtype=np.float64)
+    return np.exp(-2j * np.pi * k / n).astype(np.complex64)
+
+
+def _half_twiddle(tw: np.ndarray, k, n: int, inverse: bool):
+    """`twiddle`: exp(-+2*pi*i*k/n) for 0 <= k < n from the half table."""
+    k = np.asarray(k)
+    half = (n + 1) // 2
+    w = np.where(k < half, tw[np.minimum(k, half - 1)],
+                 np.conj(tw[np.clip(n - k, 0, half - 1)]))
+    w = np.where(2 * k == n, np.complex64(-1.0), w).astype(np.complex64)
+    return np.conj(w) if inverse else w
+
+
+DIRECT_RUN = 16                 # `kDirectRun` of csrc/fft_smem.cuh
+
+
+def mixed_fft(x: np.ndarray, inverse: bool = False) -> np.ndarray:
+    """`fft_mixed` of a (n,) complex64 row in float32 (no 1/n): the
+    digit-reversed load, the radix-2 stages, then one stage per odd prime
+    ascending: a butterfly per (group, position) up to 127, the direct
+    stage above it (each slot the sum of its p inputs; the twiddle
+    W_L^(m*r) the table's at every DIRECT_RUN-th m, products by W_L^r
+    between)."""
+    n = x.size
+    a, odd = mixed_plan(n)
+    tw = half_table(n)
+    buf = np.empty(n, np.complex64)
+    buf[digit_rev(np.arange(n), n)] = x
+    for st in range(1, a + 1):
+        half, tstride = 1 << (st - 1), n >> st
+        j = np.arange(n >> 1)
+        pos = j & (half - 1)
+        i0 = ((j >> (st - 1)) << st) + pos
+        w = tw[pos * tstride]
+        w = np.conj(w) if inverse else w
+        u, v = buf[i0], (buf[i0 + half] * w).astype(np.complex64)
+        buf[i0], buf[i0 + half] = u + v, u - v
+    lp = 1 << a
+    for p in odd:
+        big_l, stride_l = lp * p, n // (lp * p)
+        if p <= 127:
+            b = np.arange(n // p)
+            g, j = b // lp, b % lp
+            base = g * big_l + j
+            v = np.stack([buf[base + m * lp] for m in range(p)])
+            for m in range(1, p):
+                v[m] = (v[m] * _half_twiddle(tw, j * m * stride_l, n,
+                                             inverse)).astype(np.complex64)
+            wp = _half_twiddle(tw, np.arange(p) * (n // p), n, inverse)
+            for q in range(p):
+                acc = v[0].copy()
+                for m in range(1, p):
+                    acc += (v[m] * wp[q * m % p]).astype(np.complex64)
+                buf[base + q * lp] = acc
+        else:
+            k = np.arange(n)
+            g = k // big_l
+            r = k - g * big_l
+            q = r // lp
+            base = g * big_l + r - q * lp
+            ws = _half_twiddle(tw, r * stride_l, n, inverse)
+            acc = np.zeros(n, np.complex64)
+            for m0 in range(0, p, DIRECT_RUN):
+                w = _half_twiddle(tw, (m0 * r % big_l) * stride_l, n,
+                                  inverse)
+                for m in range(m0, min(m0 + DIRECT_RUN, p)):
+                    acc += (buf[base + m * lp] * w).astype(np.complex64)
+                    w = (w * ws).astype(np.complex64)
+            buf = acc
+        lp *= p
+    return buf
+
+
+# The correlate stage in one thread-block cluster per cell
+# (csrc/pcf_correlate.cuh, `pcf_correlate_cluster`, `cluster_n1`).
+
+SMEM_PER_BLOCK = 227 * 1024
+CLUSTER_WORDS = 136             # red, redi and the published statistics
+
+
+def _reg_row_bytes(n: int) -> int:
+    """The register FFT's exchange buffer and staged table of an n-point
+    row above 4096 (one buffer), bytes."""
+    _, pad, _, _ = SCHEDULES[n]
+    buf = int(slot(n - 1, n)) + 1 if pad else n
+    return 8 * (buf + _coarse_slots(n) + (1 << FINE_BITS))
+
+
+def cluster_smem_bytes(n1: int, n2: int) -> int:
+    """A cluster CTA's shared memory in an n1 * n2 plan: its n2-point row
+    and table with the power slice (n2 floats) at LARGE_REG_SIZES (the
+    register FFT), else the row and its half table (the power slice in
+    registers); the n-point two-level table; and CLUSTER_WORDS."""
+    tabn = 8 * (-(-(n1 * n2) >> FINE_BITS) + (1 << FINE_BITS))
+    if n2 in LARGE_REG_SIZES:
+        return _reg_row_bytes(n2) + tabn + 4 * (n2 + CLUSTER_WORDS)
+    return 8 * (n2 + (n2 + 1) // 2) + tabn + 4 * CLUSTER_WORDS
+
+
+def cluster_split(n: int) -> tuple[int, int] | None:
+    """(n1, n2) where the cluster plan runs the correlate stage of an
+    n-point search above 16384 (`cluster_n1`): n1 <= 8, n2 a multiple of
+    n1 and a CTA within SMEM_PER_BLOCK; None where it stays on the
+    four-step's two passes."""
+    sp = large_split(n)
+    if sp is None or sp[0] > 8 or sp[1] % sp[0]:
+        return None
+    return sp if cluster_smem_bytes(*sp) <= SMEM_PER_BLOCK else None
+
+
+def cluster_lags(n: int) -> np.ndarray:
+    """(n1, n2) int: the lag of CTA k1's power slot t1*S + j (S = n2/n1),
+    column t2 = k1*S + j: t1*n2 + t2. A thread of T takes the columns j =
+    t + i*T and walks its slots by (t1, i), so its lags ascend."""
+    n1, n2 = cluster_split(n)
+    s = n2 // n1
+    k1 = np.arange(n1)[:, None, None]
+    t1 = np.arange(n1)[None, :, None]
+    j = np.arange(s)[None, None, :]
+    return (t1 * n2 + k1 * s + j).reshape(n1, n2)
+
+
+def cluster_correlate(yp: np.ndarray, rep: np.ndarray,
+                      shift: int) -> np.ndarray:
+    """|ifft(Y * rep shifted)|^2 * n^2 of one forward row as the cluster
+    runs it: CTA k1's row B[k1] is the n2-point inverse over k2 of
+    yp[k1*n2 + k2] * rep[(k1 - shift + n1*k2) mod n]; CTA c then takes its
+    columns t2 in [c*S, c*S + S), multiplies B[q][t2] by w_n^-(q*t2), runs
+    the n1-point inverse over q and puts |.|^2 into its slot t1*S + t2 -
+    c*S, and the slots land at `cluster_lags`. Returns the (n,) float32
+    power in natural lag order (no 1/n)."""
+    n = yp.size
+    n1, n2 = cluster_split(n)
+    s = n2 // n1
+    k1 = np.arange(n1)[:, None]
+    k2 = np.arange(n2)[None, :]
+    z = yp.reshape(n1, n2) * rep[(k1 - shift + n1 * k2) % n]
+    rows = (np.fft.ifft(z.astype(np.complex128), axis=1) * n2).astype(
+        np.complex64)                                        # B[k1][t2]
+    slices = np.empty((n1, n2), np.float32)
+    for c in range(n1):                                      # CTA c
+        t2 = np.arange(c * s, (c + 1) * s)[None, :]
+        cols = rows[:, c * s:(c + 1) * s] * large_twiddle(
+            n, k1 * t2, inverse=True)
+        x = (np.fft.ifft(cols.astype(np.complex128), axis=0) * n1).astype(
+            np.complex64)
+        slices[c] = (np.abs(x) ** 2).astype(np.float32).reshape(n2)
+    out = np.empty(n, np.float32)
+    out[cluster_lags(n)] = slices
+    return out

@@ -4,10 +4,13 @@ Pallas kernels take: one rule, in one place. `ops.cuda_pcf`,
 
 Up to build.FFT_MAX_N a row runs in one block: n from build.FFT_MIN_N with
 every prime factor <= build.FFT_MAX_RADIX (the C gate gets the same bounds
-as -D defines). Above it, up to build.FFT_LARGE_MAX_N, a row runs the
-four-step FFT of csrc/fft_large.cuh through scratch in device memory, at
-the sizes that the JAX package's Pallas kernel for the same computation
-takes there.
+as -D defines). Above it a row runs the four-step FFT of csrc/fft_large.cuh
+(rows of at most build.FFT_MAX_N points with prime factors up to
+build.FFT_ROW_MAX_RADIX), at the sizes that the JAX package's Pallas kernel
+for the same computation takes there: B1 up to v3's 32768, B2 up to
+`pallas_psd`'s 131072, B3 every multiple of 128 up to build.FFT_STD_MAX_N.
+The rule they meet together: for every n <= build.FFT_STD_MAX_N that a
+Pallas kernel takes, the port's kernel takes n too.
 """
 from __future__ import annotations
 
@@ -72,11 +75,13 @@ def tpu_psd_takes(nperseg: int) -> bool:
     return tpu_n2(nperseg, _V2_N1S) is not None
 
 
-def small_primes(n: int) -> bool:
-    """Are all of n's prime factors <= build.FFT_MAX_RADIX?"""
-    for p in range(2, build.FFT_MAX_RADIX + 1):
+def small_primes(n: int, max_radix: int = build.FFT_MAX_RADIX) -> bool:
+    """Are all of n's prime factors <= max_radix?"""
+    for p in range(2, max_radix + 1):
         while n % p == 0:
             n //= p
+        if n == 1:
+            return True
     return n == 1
 
 
@@ -91,7 +96,7 @@ def _one_block_reason(n: int) -> str:
 
 
 def pcf_supported(n: int) -> bool:
-    """Kernel B1's code-period lengths: up to 16384 every n from 256 whose
+    """Kernel B1's code-period lengths: up to 16384 every n from 128 whose
     prime factors are all <= 127 (the register FFT for powers of two,
     csrc/fft_reg.cuh; the mixed-radix shared-memory FFT for the rest,
     csrc/fft_smem.cuh); above it the n that v3 factorizes (n1 = 32, n2 a
@@ -111,20 +116,24 @@ def pcf_unsupported_reason(n: int) -> str:
 
 def std_supported(n: int) -> bool:
     """Kernel B3's code-period lengths: up to 16384 those of B1; above it
-    every multiple of 128 up to 131072 whose prime factors are all <= 127
-    (the JAX package's v1 takes n1*128 with n1 <= 256, its v2 n up to
-    128*1024)."""
+    every multiple of 128 up to 262144 whose prime factors are all <= 1021
+    (the JAX package's v1 takes n1*128*m with n1 <= 256, its v2 n up to
+    128*1024; up to 262144 their n have no prime factor above 1021)."""
     if n > build.FFT_MAX_N:
-        return (n <= build.FFT_LARGE_MAX_N and n % _LANE == 0
-                and small_primes(n))
+        return (n <= build.FFT_STD_MAX_N and n % _LANE == 0
+                and small_primes(n, build.FFT_ROW_MAX_RADIX))
     return _one_block(n)
 
 
 def std_unsupported_reason(n: int) -> str:
-    if n > build.FFT_LARGE_MAX_N:
-        return f"n {n} is above {build.FFT_LARGE_MAX_N}"
+    if n > build.FFT_STD_MAX_N:
+        return (f"n {n} is above {build.FFT_STD_MAX_N}, the cap of kernel "
+                f"B3's four-step FFT")
     if n > build.FFT_MAX_N and n % _LANE:
         return f"n {n} above {build.FFT_MAX_N} is not a multiple of {_LANE}"
+    if n > build.FFT_MAX_N:
+        return (f"n {n} has a prime factor above "
+                f"{build.FFT_ROW_MAX_RADIX}")
     return _one_block_reason(n)
 
 

@@ -69,11 +69,10 @@ def plain_on_card(blocks: torch.Tensor, n_prn: int, pcf: bool) -> bool:
     search, `cuda_caf.supported` for std) nor any of the JAX package's
     Pallas kernels (`tpu_kernel_takes`; both rules in kernels/gates.py)
     takes n, so that the reference computes XLA there (n = 2062 = 2 *
-    1031; above 32768 for PCF). Where a Pallas kernel takes n and the
-    port's does not (n below 256, as PCF at 128; a prime factor above 127,
-    as std at 131 * 128; std above 131072, which v1 takes), the search
-    goes to the kernel's wrapper, which raises with its
-    `unsupported_reason`.
+    1031; above 32768 for PCF). Up to 262144 the port's kernels take every
+    n a Pallas kernel takes; above it (std, which v1 takes there: 2 * 128
+    * 1031 ...) the search goes to the kernel's wrapper, which raises with
+    its `unsupported_reason`.
     """
     n = int(blocks.shape[-1])
     ours = cuda_pcf.supported(n) if pcf else cuda_caf.supported(n)

@@ -24,8 +24,7 @@ import numpy as np
 import torch
 
 from ..device import check_tensor
-from ..kernels import build, gates
-from . import cuda_pcf
+from ..kernels import build, fft_plan, gates
 
 # Searches launched by `caf_accumulate_fused` (one per call on a CUDA
 # tensor; each runs the mix-forward and the correlate kernel).
@@ -37,13 +36,19 @@ unsupported_reason = gates.std_unsupported_reason
 
 
 def large_chunks(n: int, nb: int, n_freq: int, n_prn: int) -> tuple[int, int]:
-    """(bins, cells) per pass above 16384 lags: the forward spectra of a
-    chunk of Doppler bins take at most half of
-    `gates.LARGE_SCRATCH_BYTES`, the correlate stage's cells (p, f) the
-    rest; each at least one."""
+    """(bins, cells) per pass above 16384 lags. Where the correlate stage
+    runs in one thread-block cluster per cell (`fft_plan.cluster_split`,
+    up to 131072) it needs no scratch (cells 0), and the forward spectra
+    of a chunk of Doppler bins take up to `gates.LARGE_SCRATCH_BYTES`;
+    else they take at most half of it and the two-pass correlate stage's
+    cells (p, f), nb n-point complex64 rows each, the rest; each at least
+    one."""
     row = nb * n * 8
+    if fft_plan.cluster_split(n) is not None:
+        return max(1, min(n_freq, gates.LARGE_SCRATCH_BYTES // row)), 0
     bins = max(1, min(n_freq, gates.LARGE_SCRATCH_BYTES // 2 // row))
-    return bins, cuda_pcf.large_cells_chunk(n, nb, n_prn * bins, bins * row)
+    cells = (gates.LARGE_SCRATCH_BYTES - bins * row) // row
+    return bins, max(1, min(n_prn * bins, cells))
 
 
 @functools.lru_cache(maxsize=8)
@@ -112,13 +117,14 @@ def caf_accumulate_fused(blocks: torch.Tensor, replica: torch.Tensor, freqs,
         Y = torch.empty((bins * nb, n), dtype=torch.complex64,
                         device=blocks.device)
         Bs = torch.empty((cells * nb, n), dtype=torch.complex64,
-                         device=blocks.device)
+                         device=blocks.device) if cells else None
         tw2 = build.large_row_twiddles(n, blocks.device)
         twn = build.reg_twiddles(n, blocks.device)
         with torch.cuda.device(blocks.device):
             err = lib.gjt_caf_std_large(
                 blocks.data_ptr(), osc.data_ptr(), Y.data_ptr(),
-                Bs.data_ptr(), replica.data_ptr(), tw2.data_ptr(),
+                Bs.data_ptr() if cells else None, replica.data_ptr(),
+                tw2.data_ptr(),
                 twn.data_ptr(), out.data_ptr(), n_freq, nb, n_prn, n, bins,
                 cells, torch.cuda.current_stream().cuda_stream)
         build.check(err, "gjt_caf_std_large")

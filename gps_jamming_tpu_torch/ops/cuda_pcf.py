@@ -34,17 +34,6 @@ supported = gates.pcf_supported
 unsupported_reason = gates.pcf_unsupported_reason
 
 
-def large_cells_chunk(n: int, groups: int, cells: int,
-                      fixed_bytes: int = 0) -> int:
-    """Cells per pass of the correlate stage above 16384 lags: each holds
-    `groups` n-point complex64 rows of scratch, and with `fixed_bytes` of
-    other scratch they stay within `gates.LARGE_SCRATCH_BYTES` (at least
-    one cell, at most `cells`)."""
-    per_cell = groups * n * 8
-    return max(1, min(cells,
-                      (gates.LARGE_SCRATCH_BYTES - fixed_bytes) // per_cell))
-
-
 def n_coarse(sample_rate: float, n: int, max_doppler_hz: float) -> int:
     """Number of integer FFT-bin shifts covering +/- max_doppler_hz."""
     return 2 * int(np.floor(max_doppler_hz / (sample_rate / n))) + 1
@@ -151,19 +140,14 @@ def pcf_search(y: torch.Tensor, replica: torch.Tensor, n_c: int,
                           device=y.device)
     lib = build.load()
     if n > build.FFT_MAX_N:
-        cells = n_prn * n_c * n_rows
-        chunk = large_cells_chunk(n, n_groups, cells, Y.numel() * 8)
-        Bs = torch.empty((chunk * n_groups, n), dtype=torch.complex64,
-                         device=y.device)
         tw2 = build.large_row_twiddles(n, y.device)
         twn = build.reg_twiddles(n, y.device)
         with torch.cuda.device(y.device):
             err = lib.gjt_pcf_large(
-                y.data_ptr(), Y.data_ptr(), Bs.data_ptr(),
-                replica.data_ptr(), tw2.data_ptr(), twn.data_ptr(),
-                out.data_ptr(), n_rows, n_groups, n_c, n_prn, n,
-                int(stats_excl is not None),
-                0 if stats_excl is None else stats_excl, chunk,
+                y.data_ptr(), Y.data_ptr(), replica.data_ptr(),
+                tw2.data_ptr(), twn.data_ptr(), out.data_ptr(), n_rows,
+                n_groups, n_c, n_prn, n, int(stats_excl is not None),
+                0 if stats_excl is None else stats_excl,
                 torch.cuda.current_stream().cuda_stream)
         build.check(err, "gjt_pcf_large")
         LAUNCHES += 1

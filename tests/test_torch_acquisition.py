@@ -253,11 +253,12 @@ def test_replica_conversion_round_trip():
 
 def _c1_case(system):
     """(blocks, jax replica planes, port replica, fs, n, kw, cfg pair, the
-    injected (index, lag, Hz)) at an n kernels B1 and B3 do not take:
-    Galileo E1B at 4.192 MS/s (n = 16768 = 131 * 128, a prime factor above
-    127 that the JAX package's v1 takes; 3 PRNs, +/-2 kHz to keep the CPU
-    surface small) or GPS at 2.062 MS/s (n = 2062 = 2 * 1031, a prime
-    factor above 127)."""
+    injected (index, lag, Hz)) at an n kernel B1 does not take: Galileo
+    E1B at 4.192 MS/s (n = 16768 = 131 * 128, a prime factor above 127
+    that the JAX package's v1 takes for std, and so B3 since its four-step
+    rows take primes up to 1021; no PCF kernel takes it; 3 PRNs, +/-2 kHz
+    to keep the CPU surface small) or GPS at 2.062 MS/s (n = 2062 = 2 *
+    1031, a prime factor above 1021: no kernel of either package)."""
     from gps_jamming_tpu.models.receiver import galileo as jgal
     if system == "galileo":
         fs, n, prns, hz, lag = 4.192e6, 16768, [4, 11, 19], -1500.0, 5000
@@ -289,14 +290,15 @@ def _c1_case(system):
 @pytest.mark.parametrize("method", ["pcf", "std", "auto"])
 def test_acquire_all_where_the_kernels_do_not_apply_matches_jax(system,
                                                                 method):
-    """At an n kernels B1 and B3 do not take, the port's CPU search equals
-    the JAX package's: its XLA surface at 2062 (no Pallas kernel takes it;
-    the card computes the plain surface too), its XLA surface on the CPU
-    at 16768 (a Pallas kernel, v1, on a TPU for std; the card raises there,
-    tests/test_torch_cuda.py). Both acquire the same PRN at the same lag
-    and Doppler."""
+    """At an n kernel B1 does not take, the port's CPU search equals the
+    JAX package's: its XLA surface at 2062 (no Pallas kernel takes it; the
+    card computes the plain surfaces too), its XLA surface on the CPU at
+    16768 (a Pallas kernel, v1, on a TPU for std, and B3 on the card, in a
+    thread-block cluster with a radix-131 row stage; tests/test_torch_
+    cuda.py). Both acquire the same PRN at the same lag and Doppler."""
     x, planes, fs, n, kw, (cfg, jcfg), (want_i, lag, hz) = _c1_case(system)
-    assert not cuda_pcf.supported(n) and not cuda_caf.supported(n)
+    assert not cuda_pcf.supported(n)
+    assert cuda_caf.supported(n) == (system == "galileo")
     want = jacq.acquire_all(_jax_blocks(x), cplx.CArray(*planes), fs, jcfg,
                             method=method, **kw)
     got = tacq.acquire_all(torch.from_numpy(x),

@@ -142,8 +142,9 @@ def test_pcf_search_rejects_bad_arguments():
     # qualifies, though its search stays in plain torch
     assert cuda_pcf.supported(2400) and cuda_pcf.supported(10000)
     assert cuda_pcf.supported(4 * 127) and cuda_pcf.supported(3 ** 8)
-    assert not cuda_pcf.supported(128) and not cuda_pcf.supported(2 * 131)
-    assert not cuda_pcf.supported(2 * 127)
+    # from 128 (v3's 1 x 128, the register FFT's 128-point schedule)
+    assert cuda_pcf.supported(128) and not cuda_pcf.supported(2 * 131)
+    assert cuda_pcf.supported(2 * 127) and not cuda_pcf.supported(64)
     # above 16384 the sizes of the TPU's v3, on the four-step FFT
     assert cuda_pcf.supported(32768) and cuda_pcf.supported(20480)
     assert not cuda_pcf.supported(32768 + 128)

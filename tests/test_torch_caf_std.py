@@ -165,8 +165,12 @@ def test_std_search_rejects_other_devices():
     assert cuda_caf.supported(16384) and cuda_caf.supported(3200)
     assert cuda_caf.supported(10368) and cuda_caf.supported(16384 * 2)
     assert cuda_caf.supported(250 * 128) and cuda_caf.supported(131072)
-    assert not cuda_caf.supported(131 * 128)
-    assert not cuda_caf.supported(2 * 131072)
+    # a prime factor up to 1021 and n up to 262144 above 16384 (every n
+    # the JAX package's v1 takes there), from 128 below
+    assert cuda_caf.supported(131 * 128) and cuda_caf.supported(2 * 131072)
+    assert cuda_caf.supported(128) and cuda_caf.supported(2 * 128 * 1021)
+    assert not cuda_caf.supported(128 * 1031)
+    assert not cuda_caf.supported(2 * 128 * 1031)      # above 262144
 
 
 @pytest.mark.parametrize("channels", [(-3, 4), (-7, 0, 6)])

@@ -13,7 +13,7 @@ the noise; without the detrend the max leaves out bins 0, 1 and N-1,
 where a DC offset lands, so that the atol stays at the noise's scale);
 stats max and sums rtol 1e-3; the arg-lag exact on rows whose top two
 values differ by more than 1e-4 relative. B1 (all three modes) and B3 are
-held at every power of two from 256 to 16384 and at the mixed-radix n of
+held at every power of two from 128 to 16384 and at the mixed-radix n of
 GPS at 2.4, 2.56, 2.8 and 3.2 MS/s (2400, 2560, 2800, 3200) and v1's
 81*128 = 10368 (the register FFT of csrc/fft_reg.cuh), and at an odd n
 (3^7), one with a generic-radix stage (4*127) and some of B2's mixed
@@ -21,16 +21,20 @@ sizes (384, 1536, 12288, 14336), which keep the shared-memory FFT, to the
 same tolerances. B2 is also held at a full-scale DC of 127 LSB over 1 LSB
 of noise at nperseg 16384, the detrend's worst case. Above 16384 all three
 run the four-step FFT (csrc/fft_large.cuh), held to the same tolerances:
-B1 at 20480 and 32768 (Galileo E1B at 8.192 MS/s), B3 at 32768, 32000
-(rows of 16000 on the shared-memory FFT), 65536 and 131072, B2 at nperseg
-20480, 32768, 49152 and 131072; a CUDA Welch at nperseg 65536 never calls
-torch.fft.
+B1 at 20480, 24576, 28672 and 32768 (Galileo E1B at 8.192 MS/s) and B3 at
+20480, 32768, 32000 (rows of 16000 on the shared-memory FFT), 65536 and
+131072, each correlate stage in a thread-block cluster (its plan equal to
+`fft_plan.cluster_split`), B3 also at the sizes it took last (16768 = 131
+* 128, 130304 = 256 * 509, 160000, 240000 and 261376 = 256 * 1021; n1 =
+16 above 131072, on the two passes), B2 at nperseg 20480, 32768, 49152
+and 131072; a CUDA Welch at nperseg 65536 never calls torch.fft.
 
 Where neither B1 and B3 nor the JAX package's Pallas kernels take an n
 (2062, a prime factor 1031) their callers compute the plain surfaces on the
-card without a launch, and acquisition equals the CPU's; where only a TPU
-kernel takes it (the std search at 16768 = 131 * 128, Galileo E1B at 4.192
-MS/s: a prime factor above 127) the card raises, with no launch. The localization ops
+card without a launch, and acquisition equals the CPU's; PCF at n = 128
+(GPS at 128 kS/s) launches B1 once and equals the CPU; where only a TPU
+kernel takes n (std above 262144, 263936 = 2 * 128 * 1031) the card
+raises, with no launch. The localization ops
 and the batch product path (`pipeline.analyze_capture(streaming=False)`)
 on the card equal the CPU on a seeded 1 s 3-antenna jammed set. B2 also
 runs over (rows, n), one launch per row, each row the plain version's,
@@ -153,7 +157,9 @@ def test_welch_dispatch_on_cuda(dev):
                                        (4096, 4, 4), (8192, 4, 3),
                                        (2560, 10, 32), (2800, 10, 32),
                                        (1536, 4, 5), (14336, 4, 3),
-                                       (20480, 4, 3), (32768, 4, 3)])
+                                       (20480, 4, 3), (32768, 4, 3),
+                                       (128, 10, 32), (24576, 4, 3),
+                                       (28672, 4, 3)])
 def test_pcf_kernel_matches_plain(dev, n, nb, nprn):
     blocks = _cplx((nb, n), seed=n, dev=dev)
     rep = _cplx((nprn, n), seed=n + 1, dev=dev)
@@ -179,7 +185,7 @@ def test_pcf_kernel_matches_plain(dev, n, nb, nprn):
         _assert_close(got[4][same], want[4][same], 1e-3, 0.0)
 
 
-@pytest.mark.parametrize("n", [256, 2048, 16384, 2400, 32768])
+@pytest.mark.parametrize("n", [256, 2048, 16384, 2400, 32768, 128, 20480])
 def test_pcf_stats_ties_take_the_lowest_lag(dev, n):
     """Rows whose surface is flat (a zero replica row: every lag ties at
     exactly 0) report the lowest lag, 0, as kernel B1's contract says;
@@ -236,12 +242,19 @@ def test_pcf_dispatch_on_cuda(dev):
     (2560, 10, 32, 71, 2.56e6), (2800, 10, 32, 71, 2.8e6),
     (384, 3, 5, 7, FS), (12288, 4, 3, 15, 12.288e6),
     (32768, 4, 3, 15, 8.192e6), (32000, 4, 3, 15, 8e6),
-    (65536, 2, 2, 7, 16.384e6), (131072, 2, 2, 7, 32.768e6)])
+    (65536, 2, 2, 7, 16.384e6), (131072, 2, 2, 7, 32.768e6),
+    (128, 10, 8, 15, 128e3), (20480, 4, 3, 15, 5.12e6),
+    (16768, 4, 3, 15, 4.192e6), (130304, 2, 2, 7, 32.576e6),
+    (160000, 2, 2, 7, 40e6), (240000, 2, 2, 7, 60e6),
+    (261376, 2, 2, 7, 65.344e6)])
 def test_caf_std_kernel_matches_plain(dev, n, nb, nprn, nf, fs):
     """Kernel B3 against its plain version: the GPS shape, Galileo E1B's
-    16384 lags (one 1024-thread block per SM), every power of two between,
-    the mixed-radix n (GPS at 2.4 and 3.2 MS/s, 81*128, 3^7, 4*127) and
-    the four-step FFT's 32768, 32000, 65536 and 131072."""
+    16384 lags (one 1024-thread block per SM), every power of two between
+    and 128, the mixed-radix n (GPS at 2.4 and 3.2 MS/s, 81*128, 3^7,
+    4*127) and the four-step FFT's 20480, 32768, 32000, 65536 and 131072
+    (the correlate stage in a cluster), and the sizes with a prime above
+    127 (16768 = 131 * 128; 130304 = 256 * 509) or above 131072 (n1 = 16:
+    160000, 240000, 261376 = 256 * 1021)."""
     from gps_jamming_tpu_torch.ops import caf
     blocks = _cplx((nb, n), seed=n + 2, dev=dev)
     rep = _cplx((nprn, n), seed=n + 3, dev=dev)
@@ -364,28 +377,82 @@ def test_acquire_all_where_the_kernels_do_not_apply(dev, system, method):
 def test_acquire_all_raises_where_only_a_tpu_kernel_applies(dev, method):
     """Where the JAX package runs a Pallas kernel and the port's kernel
     does not take n, the card raises from the kernel's wrapper, with no
-    launch of B1 or B3, and does not give way to the plain surface. PCF at
-    n = 128 (GPS at 128 kS/s): v3 takes it (1 x 128), B1 does not (below
-    256). std at n = 16768 = 131 * 128 (Galileo E1B at 4.192 MS/s): v1
-    takes it (131 x 128), B3 does not (a prime factor above 127); 'auto'
-    resolves to std there at 500 Hz bins."""
+    launch of B1 or B3, and does not give way to the plain surface: std
+    (and 'auto', which resolves to std at 500 Hz bins) at 263936 = 2 * 128
+    * 1031 (Galileo E1B at 65.984 MS/s), which v1 takes (2 x 131968) and
+    B3 does not, above its cap of 262144. PCF at n = 128 (GPS at 128 kS/s),
+    which v3 takes (1 x 128) and which raised before B1 took it, launches
+    B1 once and equals the CPU: decisions, lags and Dopplers exact, ratios
+    rtol 1e-3."""
     from gps_jamming_tpu_torch.config import AcquisitionConfig
     from gps_jamming_tpu_torch.models.receiver import acquisition as acq
+    from gps_jamming_tpu_torch.models.receiver import galileo
     from gps_jamming_tpu_torch.ops import caf
-    pcf = method == "pcf"
-    if pcf:
+    if method == "pcf":
         blocks, rep, fs, cfg, kw = _c1_blocks("gps_128", dev)
-        match = "below 256"
-    else:
-        blocks, rep, fs, _, kw = _c1_blocks("galileo", dev)
-        cfg = AcquisitionConfig(doppler_max_hz=2000.0, doppler_step_hz=500.0)
-        match = "prime factor above 127"
-    assert caf.tpu_kernel_takes(blocks.shape[-1], rep.shape[0], pcf=pcf)
-    assert not caf.plain_on_card(blocks, rep.shape[0], pcf=pcf)
+        assert caf.tpu_kernel_takes(128, rep.shape[0], pcf=True)
+        before = (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES)
+        got = acq.acquire_all(blocks, rep, fs, cfg, method=method, **kw)
+        torch.cuda.synchronize()
+        assert (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES) == (before[0] + 1,
+                                                          before[1])
+        want = acq.acquire_all(blocks.cpu(), rep.cpu(), fs, cfg,
+                               method=method, **kw)
+        for f in ("acquired", "code_phase", "doppler_hz"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+        for f in ("peak_ratio", "cn0_dbhz", "peak_power"):
+            _assert_close(getattr(got, f).cpu(), getattr(want, f), 1e-3,
+                          0.0)
+        return
+    n = 2 * 128 * 1031
+    fs = n / galileo.PERIOD_S
+    blocks = _cplx((10, n), seed=n, dev=dev)
+    rep = _cplx((3, n), seed=n + 1, dev=dev)
+    cfg = AcquisitionConfig(doppler_max_hz=2000.0, doppler_step_hz=500.0)
+    kw = dict(code_period_s=galileo.PERIOD_S,
+              code_len_chips=float(galileo.BOC_LEN))
+    assert caf.tpu_kernel_takes(n, rep.shape[0], pcf=False)
+    assert not caf.plain_on_card(blocks, rep.shape[0], pcf=False)
     before = (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES)
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match="above 262144"):
         acq.acquire_all(blocks, rep, fs, cfg, method=method, **kw)
     assert (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES) == before
+
+
+def test_cluster_plan_matches_its_twin(dev):
+    """The C plan of the correlate stage above 16384 (`gjt_corr_cluster_n1`,
+    csrc/caf_std.cu) equals its NumPy twin (`fft_plan.cluster_split`) at
+    every n B1 or B3 takes there: a cluster of n1 CTAs up to 131072, none
+    (the two passes) above; and B1 and B3 at 20480, 32768, 65536 and 131072
+    launch it (one `pcf_correlate_cluster` device kernel, no
+    `large_cols_corr`, in torch.profiler's trace)."""
+    from torch.profiler import ProfilerActivity, profile
+    from gps_jamming_tpu_torch.kernels import build, fft_plan
+    lib = build.load()
+    for n in range(16384 + 128, build.FFT_STD_MAX_N + 1, 128):
+        if not cuda_caf.supported(n):
+            continue
+        sp = fft_plan.cluster_split(n)
+        assert lib.gjt_corr_cluster_n1(n) == (sp[0] if sp else 0), n
+        assert (sp is not None) == (n <= build.FFT_LARGE_MAX_N), n
+    for n in (20480, 32768, 65536, 131072):
+        blocks = _cplx((2, n), seed=n + 4, dev=dev)
+        rep = _cplx((2, n), seed=n + 5, dev=dev)
+        calls = [lambda: cuda_caf.caf_accumulate_fused(blocks, rep, [0.0],
+                                                       n / 4e-3)]
+        if cuda_pcf.supported(n):
+            y = cuda_pcf.pcf_prologue(blocks, n / 4e-3)
+            calls.append(lambda: cuda_pcf.pcf_search(y, rep, 3, 6, 2,
+                                                     stats_excl=4))
+        for call in calls:
+            call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            names = [e.key for e in prof.key_averages()]
+            assert sum("pcf_correlate_cluster" in k for k in names) == 1, n
+            assert not any("large_cols_corr" in k for k in names), n
 
 
 @pytest.mark.parametrize("method", ["pcf", "std"])

@@ -1,26 +1,31 @@
-"""Kernels B1, B3 and B2 above 16384 points: the port against the JAX
-package, on the CPU.
+"""Kernels B1, B3 and B2 above 16384 points, and the sizes the port took
+last (n = 128; std with prime factors up to 1021 and up to 262144): the
+port against the JAX package, on the CPU.
 
 Above 16384 a row no longer fits one block on the card, and kernels B1, B3
-and B2 run the four-step FFT of csrc/fft_large.cuh. Here (no card) their
-wrappers take their plain versions, so these tests hold:
+and B2 run the four-step FFT of csrc/fft_large.cuh (B1 and B3's correlate
+stage in one thread-block cluster per cell up to 131072). Here (no card)
+their wrappers take their plain versions, so these tests hold:
 - the four-step's index arithmetic (`fft_plan.four_step_*`, the NumPy twin
   of the column and row passes) against np.fft, at the sizes whose
-  factorizations differ (n1 = 2, 4, 8; n2 a register or a shared-memory
-  size): within 2e-6 of the largest value (float32 sums);
+  factorizations differ (n1 = 2, 4, 8, 16; n2 a register or a
+  shared-memory size): within 2e-6 of the largest value (float32 sums);
+  the cluster's column split (`fft_plan.cluster_correlate`) to the same
+  tolerance in tests/test_torch_fft_plan.py;
 - the port's plain versions against the JAX package on the same seeded
   inputs: the PCF surface (rtol 2e-4, atol 2e-4 * max) and its statistics
   (max and sums rtol 1e-4, arg-lag exact) at 32768 against the Pallas PCF
   kernel in interpret mode and the XLA surface; the std search at 32768
   (v3), 32000 (v1 only) and 65536 (v2) against those Pallas layouts in
   interpret mode and XLA; Welch at nperseg 32768 and 131072 against the
-  Pallas kernel in interpret mode (rtol 1e-4, atol 1e-6 * max);
-- the gates over every n from 16385 to 131072: the port launches where a
-  Pallas kernel of the JAX package runs, computes the plain surface where
-  the JAX package computes XLA, and raises only where
-  `unsupported_reason` names a prime factor above 127; and below, over
-  every n from 1 to 16384, the plain surface only where no Pallas kernel
-  runs and a raise only below 256 (PCF at 128);
+  Pallas kernel in interpret mode (rtol 1e-4, atol 1e-6 * max); the PCF
+  surface and statistics at n = 128 and the std search at 128, 16768 =
+  131 * 128 (v1) and 160000 (v1, Galileo E1B at 40 MS/s), to the same
+  tolerances;
+- the gates over every n from 1 to 262144, at 32 and 36 PRNs: wherever a
+  Pallas kernel of the JAX package runs, the port launches its kernel; the
+  surface is plain only where the JAX package computes XLA; above 262144
+  std raises where v1 takes n, and `unsupported_reason` names the cap;
 - Galileo E1B acquisition at 8.192 MS/s on the first 40 ms of the JAX
   package's 13 s fixture, re-rendered by the port's simulator: the port's
   `acquire_all` equals the JAX package's (decisions, lags and Dopplers
@@ -49,7 +54,7 @@ from gps_jamming_tpu_torch.sim import constellation as con
 
 torch.set_num_threads(2)
 
-FOUR_STEP_N = (20480, 32000, 32768, 65536, 131072)
+FOUR_STEP_N = (20480, 32000, 32768, 65536, 131072, 160000, 261376)
 
 
 def _rows(shape, seed):
@@ -85,22 +90,35 @@ def test_four_step_matches_numpy_fft(n):
 
 
 def test_large_split_covers_every_size_the_gates_take():
-    """Every n above 16384 that a gate takes splits into n1 in (2, 4, 8)
-    and n2 <= 16384 with prime factors <= 127; the row tables exist for
-    the register sizes (GJT_LARGE_REG_SIZES) and the shared-memory ones."""
-    sizes = [n for n in range(16385, build.FFT_LARGE_MAX_N + 1)
+    """Every n above 16384 that a gate takes (B3 up to 262144, B2 up to
+    131072) splits into n1 in (2, 4, 8, 16) and n2 <= 16384 with prime
+    factors <= 1021, n1 = 16 exactly above 131072; the correlate stage of
+    every such n up to 131072 runs in one thread-block cluster
+    (`fft_plan.cluster_split`: n1 CTAs within 227 KB of shared memory
+    each), above it on the two passes; the row tables exist for the
+    register sizes (GJT_LARGE_REG_SIZES) and the shared-memory ones."""
+    sizes = [n for n in range(16385, build.FFT_STD_MAX_N + 1)
              if cuda_caf.supported(n) or cuda_psd.supported(n)]
-    assert len(sizes) == 603
+    assert len(sizes) == 1783
+    assert sum(n <= build.FFT_LARGE_MAX_N for n in sizes) == 896
     for n in sizes:
         n1, n2 = fft_plan.large_split(n)
-        assert n1 in (2, 4, 8) and n1 * n2 == n and n2 <= build.FFT_MAX_N
-        assert gates.small_primes(n2)
+        assert n1 in (2, 4, 8, 16) and n1 * n2 == n and n2 <= build.FFT_MAX_N
+        assert (n1 == 16) == (n > build.FFT_LARGE_MAX_N)
+        assert gates.small_primes(n2, build.FFT_ROW_MAX_RADIX)
+        assert (fft_plan.cluster_split(n) == (n1, n2)) == (n1 <= 8), n
+    assert max(fft_plan.cluster_smem_bytes(8, n2)
+               for n2 in range(8193, 16385)) \
+        == fft_plan.cluster_smem_bytes(8, 16384) <= fft_plan.SMEM_PER_BLOCK
     assert fft_plan.LARGE_REG_SIZES == (10240, 12288, 14336, 16384)
     assert fft_plan.large_split(32768) == (2, 16384)
     assert fft_plan.large_split(32000) == (2, 16000)
     assert fft_plan.large_split(131072) == (8, 16384)
+    assert fft_plan.large_split(130304) == (8, 16288)        # 32 * 509
+    assert fft_plan.large_split(261376) == (16, 16336)       # 16 * 1021
     assert build.large_row_twiddles(32768, "cpu").shape == (256 + 64,)
     assert build.large_row_twiddles(32000, "cpu").shape == (8000,)
+    assert build.large_row_twiddles(261376, "cpu").shape == (8168,)
     assert fft_plan.large_twiddle(32768, 12345).dtype == np.complex64
 
 
@@ -204,6 +222,79 @@ def test_welch_above_16384_matches_jax(nperseg):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6 * want.max())
 
 
+@pytest.mark.parametrize("excl", [None, 4, -1])
+def test_pcf_at_128_matches_jax(excl):
+    """B1's plain version at n = 128 (GPS at 128 kS/s, 1 kHz bins, +/-7
+    kHz: 15 coarse bins), 2 PRNs, 2 code periods, against the Pallas PCF
+    kernel (v3, 1 x 128) in interpret mode: the surface (rtol 2e-4, atol
+    2e-4 * max; also against XLA), the statistics and peak-only (max and
+    sums rtol 1e-4, arg-lag exact)."""
+    fs, n = 128e3, 128
+    x = _rows((2, n), seed=128)
+    planes = tuple(np.random.default_rng(s).standard_normal((2, n)).astype(
+        np.float32) for s in (129, 130))
+    assert pallas_caf.supported_pcf(n, 2) and cuda_pcf.supported(n)
+    want = pallas_caf.caf_accumulate_pcf_fused(
+        _jb(x), cplx.CArray(*planes), fs, precision="f32", interpret=True,
+        stats_excl=excl)
+    before = cuda_pcf.LAUNCHES
+    got = cuda_pcf.caf_accumulate_pcf_fused(
+        torch.from_numpy(x), convert.replica_from_jax(planes, "cpu"), fs,
+        stats_excl=excl)
+    assert cuda_pcf.LAUNCHES == before
+    if excl is None:
+        want = np.asarray(want)
+        assert got.shape == want.shape == (2, 90, n)
+        _surf_close(got.numpy(), want)
+        xla = np.asarray(jcaf.caf_accumulate_pcf(
+            _jb(x), cplx.CArray(jnp.asarray(planes[0]),
+                                jnp.asarray(planes[1])), fs))
+        _surf_close(got.numpy(), xla)
+        return
+    want = [np.asarray(w) for w in want]
+    got = [g.numpy() for g in got]
+    assert all(g.shape == w.shape == (2, 90) for g, w in zip(got, want))
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
+    for i in (2, 3, 4):
+        if excl < 0:
+            assert not got[i].any() and not want[i].any()
+        else:
+            np.testing.assert_allclose(got[i], want[i], rtol=1e-4)
+
+
+@pytest.mark.parametrize("n,kind", [(128, "v3"), (16768, "v1"),
+                                    (160000, "v1")])
+def test_std_search_at_the_sizes_taken_last_matches_jax(n, kind):
+    """B3's plain version at the sizes the port's kernel took last, each
+    against the Pallas layout `fused_dispatch` picks (interpret mode) and
+    the XLA search: 128 (v3's 1 x 128), 16768 = 131 * 128 (v1; Galileo E1B
+    at 4.192 MS/s, a prime factor above 127) and 160000 (v1; Galileo E1B's
+    4 ms at 40 MS/s, n1 = 16 on the card): 2 PRNs, 5 Doppler bins, 2 code
+    periods, rtol 2e-4, atol 2e-4 * max."""
+    fs = n / 4e-3
+    x = _rows((2, n), seed=n + 10)
+    planes = tuple(np.random.default_rng(n + s).standard_normal(
+        (2, n)).astype(np.float32) for s in (11, 12))
+    freqs = jcaf.doppler_bins(500.0, 250.0)
+    assert jcaf.fused_dispatch(n, 2) == kind and cuda_caf.supported(n)
+    before = cuda_caf.LAUNCHES
+    got = tcaf.caf_accumulate(torch.from_numpy(x),
+                              convert.replica_from_jax(planes, "cpu"), freqs,
+                              fs).numpy()
+    assert cuda_caf.LAUNCHES == before
+    assert got.shape == (2, 5, n)
+    fn = {"v1": pallas_caf.caf_accumulate_fused,
+          "v3": pallas_caf.caf_accumulate_fused_v3}[kind]
+    want = np.asarray(fn(_jb(x), cplx.CArray(*planes), freqs, fs,
+                         precision="f32", freq_tile=4, interpret=True))
+    _surf_close(got, want)
+    xla = np.asarray(jcaf.caf_accumulate(
+        _jb(x), cplx.CArray(jnp.asarray(planes[0]), jnp.asarray(planes[1])),
+        freqs, fs))
+    _surf_close(got, xla)
+
+
 def _route(n: int, n_prn: int, pcf: bool) -> str:
     """Where a search of n lags goes on a CUDA tensor: the kernel, the
     plain surface (`caf.plain_on_card`) or the wrapper's ValueError."""
@@ -215,58 +306,59 @@ def _route(n: int, n_prn: int, pcf: bool) -> str:
     return "kernel" if ours else "raise"
 
 
-def test_gates_match_the_tpu_kernels_from_16385_to_131072():
-    """For every n in (16384, 131072]: PCF (36 PRNs, as Galileo) launches
-    B1 exactly where `pallas_caf.supported_pcf` runs the Pallas kernel and
-    is plain elsewhere; std launches B3 where `fused_dispatch` runs a
-    Pallas layout, is plain where it runs XLA, and raises only at the n the
-    TPU takes with a prime factor above 127 (131 * 128 ...), as
-    `unsupported_reason` says; Welch launches B2 exactly at the nperseg of
-    `pallas_psd.supported`."""
+@pytest.mark.parametrize("n_prn", [32, 36])
+def test_gates_match_the_tpu_kernels_from_16385_to_262144(n_prn):
+    """For every n in (16384, 262144], at 32 and 36 PRNs (GPS, Galileo):
+    PCF launches B1 exactly where `pallas_caf.supported_pcf` runs the
+    Pallas kernel (20480-32768) and is plain elsewhere; std launches B3
+    wherever `fused_dispatch` runs a Pallas layout (v3, v2 or v1, prime
+    factors up to 1021) and is plain only where it runs XLA; Welch
+    launches B2 exactly at the nperseg of `pallas_psd.supported`. Above
+    262144 std raises where v1 takes n (128 * 3 * 683, 2 * 128 * 1031
+    ...), and `unsupported_reason` names the cap."""
     routes = {"pcf": {}, "std": {}}
-    for n in range(16385, build.FFT_LARGE_MAX_N + 1):
-        tpu_pcf = pallas_caf.supported_pcf(n, 36)
-        tpu_std = jcaf.fused_dispatch(n, 36) is not None
-        r = _route(n, 36, pcf=True)
+    for n in range(16385, build.FFT_STD_MAX_N + 1):
+        tpu_pcf = pallas_caf.supported_pcf(n, n_prn)
+        tpu_std = jcaf.fused_dispatch(n, n_prn) is not None
+        r = _route(n, n_prn, pcf=True)
         assert r == ("kernel" if tpu_pcf else "plain"), n
         routes["pcf"][r] = routes["pcf"].get(r, 0) + 1
-        r = _route(n, 36, pcf=False)
-        if tpu_std:
-            assert r in ("kernel", "raise"), n
-            if r == "raise":
-                assert "prime factor above 127" in \
-                    cuda_caf.unsupported_reason(n), n
-        else:
-            assert r == "plain", n
+        r = _route(n, n_prn, pcf=False)
+        assert r != "raise" and (r == "kernel" or not tpu_std), n
         routes["std"][r] = routes["std"].get(r, 0) + 1
-        assert cuda_psd.supported(n) == pallas_psd.supported(n), n
-    assert routes["pcf"] == {"kernel": 4, "plain": 114684}
-    assert routes["std"]["kernel"] == 603 and routes["std"]["raise"] > 0
-    assert cuda_caf.unsupported_reason(2 * 131072).endswith(
-        "is above 131072")
+        if n <= build.FFT_LARGE_MAX_N:
+            assert cuda_psd.supported(n) == pallas_psd.supported(n), n
+    assert routes["pcf"] == {"kernel": 4, "plain": 245756}
+    assert routes["std"] == {"kernel": 1783, "plain": 243977}
+    raised = [n for n in range(build.FFT_STD_MAX_N + 1,
+                               build.FFT_STD_MAX_N + 4097)
+              if _route(n, n_prn, pcf=False) == "raise"]
+    assert raised[0] == build.FFT_STD_MAX_N + 128 == 128 * 3 * 683
+    assert 2 * 128 * 1031 in raised and all(
+        jcaf.fused_dispatch(n, n_prn) == "v1" for n in raised)
+    assert cuda_caf.unsupported_reason(raised[0]).endswith(
+        "is above 262144, the cap of kernel B3's four-step FFT")
 
 
-def test_gates_below_16385_raise_only_where_a_tpu_kernel_alone_applies():
-    """For every n in [1, 16384], PCF and std (36 PRNs): the surface is
-    plain only where no Pallas kernel takes n, and the wrapper raises only
-    where one does and the port's kernel does not, at an n below 256 or
-    with a prime factor above 127, as `unsupported_reason` says; PCF at
-    n = 128 (v3's 1 x 128) is such an n."""
-    raised = {True: [], False: []}
+@pytest.mark.parametrize("n_prn", [32, 36])
+def test_gates_below_16385_raise_only_where_a_tpu_kernel_alone_applies(
+        n_prn):
+    """For every n in [1, 16384], PCF and std at 32 and 36 PRNs: wherever a
+    Pallas kernel takes n, the port launches its kernel (n = 128 too: v3's
+    1 x 128, the register FFT's 128-point schedule), so no n raises; the
+    surface is plain only where no Pallas kernel takes n."""
+    taken = {True: 0, False: 0}
     for n in range(1, build.FFT_MAX_N + 1):
         for pcf in (True, False):
-            tpu = (pallas_caf.supported_pcf(n, 36) if pcf
-                   else jcaf.fused_dispatch(n, 36) is not None)
-            r = _route(n, 36, pcf)
-            assert r != "plain" or not tpu, (n, pcf)
-            if r == "raise":
-                assert tpu, (n, pcf)
-                why = (cuda_pcf if pcf else cuda_caf).unsupported_reason(n)
-                assert ("below 256" in why
-                        or "prime factor above 127" in why), (n, why)
-                raised[pcf].append(n)
-    assert 128 in raised[True] and 128 in raised[False]
-    assert all(n < 256 for n in raised[True] + raised[False])
+            tpu = (pallas_caf.supported_pcf(n, n_prn) if pcf
+                   else jcaf.fused_dispatch(n, n_prn) is not None)
+            r = _route(n, n_prn, pcf)
+            assert r != "raise", (n, pcf)
+            assert r == "kernel" if tpu else True, (n, pcf)
+            taken[pcf] += tpu
+    assert _route(128, n_prn, True) == _route(128, n_prn, False) == "kernel"
+    assert _route(127, n_prn, True) == "plain"
+    assert taken[True] > 0 and taken[False] > taken[True]
 
 
 GAL_FS = 8.192e6
