@@ -164,7 +164,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
     PRNs; (c) `spectral.welch_psd` at nperseg 65536 on phase 5's capture
     plus a CW tone, torch.fft patched to raise: B2 once, the peak on the
     tone;
-11. print the per-kernel JSON line, the card line, and the success line.
+11. the `benchmark` verb's module (`runtime/benchmarks.py`), each part
+    with the counts from 0: (a) `single_chip()` in this process (the
+    flagship chain, 8 blocks of 512k samples per call, 181 calls): B1 and
+    B2 once per block, B3 never; (b) `receiver_chain('gps')` at its
+    defaults (6 s at 2.048 MS/s, 2 s segments): whole segments processed,
+    B1 launched, every key printed; (c) `weak_scaling([1])` on the card,
+    its child printing the worker's launch counts: no error, efficiency
+    1.0, B2 once per shard per step and chain call, B3 once per shard per
+    chain call; then B3 at the worker's per-shard shape (32 PRN x 71 bins
+    x 256 periods x 2048) against its plain version; (d) `python -m
+    gps_jamming_tpu_torch benchmark --no-single --scaling 1` in a child:
+    its JSON holds the weak-scaling row; each line beside the card's name
+    and power limit;
+12. print the per-kernel JSON line, the card line, and the success line.
 
 Each kernel's entry in the JSON line, and each of its shapes, carries
 `bound_ms`: the least time the card could take for the same work, the
@@ -2623,6 +2636,146 @@ def large_path(fx8: dict, fx_gps: dict, dev, card) -> tuple[dict, dict]:
              "welch_psd_65536": psd_launches}, b2)
 
 
+BENCH_CHAIN_CALLS = 1 + 5 * (2 + 34)   # `_time_chain`'s calls at its defaults
+BENCH_SLOPE_CALLS = 1 + 3 * (2 + 12)   # `_slope_time`'s at its defaults
+
+
+def bench_scaling_launches(rows_out: list):
+    """A stand-in for subprocess.run inside `benchmarks.weak_scaling` that
+    runs the same child with one more statement at its end, printing the
+    kernels' launch counts of the worker as a LAUNCHES line; appends each
+    child's counts (None where it printed none) to rows_out."""
+    real_run = subprocess.run
+
+    def run(cmd, **kw):
+        cmd = list(cmd)
+        cmd[-1] += (";from gps_jamming_tpu_torch.ops import cuda_caf, "
+                    "cuda_pcf, cuda_psd;print('LAUNCHES '+json.dumps("
+                    "{'welch_psd': cuda_psd.LAUNCHES, 'pcf': "
+                    "cuda_pcf.LAUNCHES, 'caf_std': cuda_caf.LAUNCHES}))")
+        res = real_run(cmd, **kw)
+        lines = [ln for ln in res.stdout.splitlines()
+                 if ln.startswith("LAUNCHES ")]
+        rows_out.append(json.loads(lines[0][len("LAUNCHES "):])
+                        if lines else None)
+        return res
+    return run
+
+
+def benchmark_phase(dev, card: str, kernels: list) -> dict:
+    """Phase 11: the `benchmark` verb's module on the card, each part with
+    the counts from 0. (a) `single_chip()` in this process: B1 and B2 once
+    per block of every chain call (8 x 181), B3 never, backend 'gpu'; (b)
+    `receiver_chain('gps')` at its defaults (6 s, 2 s segments): whole
+    segments processed, B1 launched, every key printed; (c)
+    `weak_scaling([1])` on the card, its child printing the worker's
+    launch counts: no error, efficiency 1.0, B2 once per shard in every
+    step and chain call and B3 once per shard in every chain call; then B3
+    at the worker's per-shard shape (32 PRN x 71 bins x 256 periods x
+    2048) against its plain version; (d) `python -m gps_jamming_tpu_torch
+    benchmark --no-single --scaling 1` in a child: its JSON holds the
+    weak-scaling row. Returns the launches by path."""
+    from gps_jamming_tpu_torch.ops import caf, codes, cuda_caf
+    from gps_jamming_tpu_torch.parallel import mesh as mesh_lib
+    from gps_jamming_tpu_torch.runtime import benchmarks
+    out = {}
+
+    reset_launches()
+    t0 = time.perf_counter()
+    row = benchmarks.single_chip()
+    seconds = time.perf_counter() - t0
+    out["benchmark_single_chip"] = la = read_launches()
+    want = 8 * BENCH_CHAIN_CALLS
+    print(f"11a single_chip: {row}; {seconds:.1f} s; launches {la} "
+          f"({BENCH_CHAIN_CALLS} chain calls of 8 blocks); card {card}",
+          flush=True)
+    fail_unless(la == {"welch_psd": want, "pcf": want, "caf_std": 0},
+                f"11a: launches {la}, expected B2 and B1 {want} times each")
+    fail_unless(row["backend"] == "gpu"
+                and row["msamples_per_s_per_chip"] > 0,
+                f"11a: single_chip {row}")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = benchmarks.receiver_chain("gps")
+    seconds = time.perf_counter() - t0
+    out["benchmark_receiver_chain_gps"] = lb = read_launches()
+    for k, v in rc.items():
+        print(f"11b receiver_chain gps: {k} = {v}", flush=True)
+    print(f"11b receiver_chain gps: {seconds:.1f} s; launches {lb}; card "
+          f"{card}", flush=True)
+    fail_unless(rc["processed_s"] > 0 and lb["pcf"] >= 1,
+                f"11b: processed_s {rc['processed_s']}, launches {lb}")
+
+    worker = []
+    real_run = subprocess.run
+    subprocess.run = bench_scaling_launches(worker)
+    try:
+        t0 = time.perf_counter()
+        rows = benchmarks.weak_scaling([1], platform="gpu")
+        seconds = time.perf_counter() - t0
+    finally:
+        subprocess.run = real_run
+    (row,) = rows
+    out["benchmark_weak_scaling_worker"] = lc = worker[0]
+    print(f"11c weak_scaling([1]): {row}; {seconds:.1f} s; the worker's "
+          f"launches {lc}; card {card}", flush=True)
+    fail_unless("error" not in row
+                and row.get("weak_scaling_efficiency") == 1.0,
+                f"11c: row {row}")
+    shards = row["n_devices"]
+    fail_unless(lc == {"welch_psd": 2 * BENCH_SLOPE_CALLS * shards,
+                       "pcf": 0, "caf_std": BENCH_SLOPE_CALLS * shards},
+                f"11c: the worker's launches {lc}, expected B2 "
+                f"{2 * BENCH_SLOPE_CALLS} and B3 {BENCH_SLOPE_CALLS} per "
+                "shard")
+    mesh, blocks, _, _, _ = benchmarks._scaling_setup(1)
+    shard = mesh_lib.place_blocks(blocks, mesh)[0][0].reshape(-1, N_CODE)
+    rep = codes.replica_tensor(codes.sampled_code_fft_conj_host(
+        codes.gps_ca_table()[:32], 1.023e6, FS, N_CODE), dev)
+    freqs = caf.doppler_bins(7000.0, 200.0)
+    ref = cuda_caf.caf_accumulate_reference(shard, rep, freqs, FS)
+    ok, abs_err, rel = close(cuda_caf.caf_accumulate_fused(
+        shard, rep, freqs, FS), ref, 1e-3, 1e-4 * float(ref.max()))
+    fail_unless(ok, "B3 at the scaling shard's shape disagrees with its "
+                    "plain version")
+    del ref
+    ms, plain_ms = time_pair(
+        lambda: cuda_caf.caf_accumulate_fused(shard, rep, freqs, FS),
+        lambda: cuda_caf.caf_accumulate_reference(shard, rep, freqs, FS),
+        reps=3, inner=1)
+    b3 = with_bound({"ms": ms, "plain_ms": plain_ms, "max_abs_err": abs_err,
+                     "max_rel_err": rel},
+                    *b3_work(32, len(freqs), shard.shape[0], N_CODE))
+    next(k for k in kernels if k["name"] == "caf_std")["scaling_shard"] = b3
+    print(f"11c B3 at the scaling shard (32 PRN x {len(freqs)} bins x "
+          f"{shard.shape[0]} x {N_CODE}): max_abs_err {abs_err:.3e} "
+          f"max_rel_err {rel:.3e} (rtol 1e-3, atol 1e-4*max); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b3['bound_ms']:.4f} ms ({b3['bound_by']}), share "
+          f"{b3['bound_share']:.3f}; card {card}", flush=True)
+    del shard
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "gps_jamming_tpu_torch", "benchmark",
+         "--no-single", "--scaling", "1"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    fail_unless(res.returncode == 0,
+                f"11d: benchmark exited {res.returncode}: "
+                f"{res.stderr[-2000:]}")
+    verb = json.loads(res.stdout)
+    (vrow,) = verb.get("weak_scaling", [{}])
+    print(f"11d `benchmark --no-single --scaling 1` in a child: "
+          f"{json.dumps(verb)}; {seconds:.1f} s; card {card}", flush=True)
+    fail_unless(set(verb) == {"weak_scaling"} and "error" not in vrow
+                and vrow.get("weak_scaling_efficiency") == 1.0,
+                f"11d: {verb}")
+    return out
+
+
 def phases(args_cli, start_render) -> int:
     """Every phase after the CUDA check. `start_render(name)` starts a
     receiver fixture's render (`render_fixture`) in a worker process and
@@ -3300,7 +3453,14 @@ def phases(args_cli, start_render) -> int:
         k["sizes_phase10"] = large[k["name"]]
     print(f"phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 11. results
+    # 11. the benchmark verb's module: (a) single_chip, (b) the GPS
+    # receiver chain, (c) weak_scaling on this card with its worker's
+    # launches, then B3 at its shard's shape, (d) the verb in a child
+    t0 = time.perf_counter()
+    bench_launches = benchmark_phase(dev, card, kernels)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 12. results
     for k in kernels:
         k["launches"] = (std_launches if k["name"] == "caf_std"
                          else launches)[k["name"]]
@@ -3326,7 +3486,8 @@ def phases(args_cli, start_render) -> int:
             **{p: shard[p][k["name"]] for p in (
                 "sharded_analysis", "sharded_acquire_pcf",
                 "sharded_acquire_std", "cli_detect_devices")},
-            **{p: v[k["name"]] for p, v in large_launches.items()}}
+            **{p: v[k["name"]] for p, v in large_launches.items()},
+            **{p: v[k["name"]] for p, v in bench_launches.items()}}
         k["library_ms"] = None
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -12,6 +12,7 @@
     python -m gps_jamming_tpu_torch record --dry-run
     python -m gps_jamming_tpu_torch analyze telemetry.jsonl --ref-lat ...
     python -m gps_jamming_tpu_torch info capture.bin
+    python -m gps_jamming_tpu_torch benchmark --receiver gps --scaling 1
 
 The verbs take the JAX package's flags and print its JSON keys. Each runs
 on the card unless `--device` names another device (`--device cpu`);
@@ -22,7 +23,9 @@ runs it over segments of `--segment-seconds`. `--system` takes the JAX
 CLI's systems (GPS, Galileo, GLONASS; `receiver` also SBAS, whose
 messages it prints). `detect --devices N` runs the sharded analysis
 over an (antenna, time) mesh of the first N cards (`--device cpu`: N CPU
-entries). The `benchmark` verb (ROADMAP A2) is not ported yet.
+entries). `benchmark` times the flagship chain, the receiver chain and
+weak scaling; its `--platform` defaults to `gpu` (the visible cards),
+where the JAX CLI's `cpu` meant a virtual mesh.
 """
 from __future__ import annotations
 
@@ -536,6 +539,26 @@ def cmd_info(args) -> int:
     return 0
 
 
+def cmd_benchmark(args) -> int:
+    """Single-chip flagship throughput, receiver-chain throughput per
+    constellation, and/or the weak-scaling sweep."""
+    from .runtime import benchmarks
+    out = {}
+    if not args.no_single:
+        out["single_chip"] = benchmarks.single_chip(device=args.device)
+    if args.receiver:
+        out["receiver_chain"] = [
+            benchmarks.receiver_chain(sys_, seconds=args.seconds,
+                                      device=args.device)
+            for sys_ in args.receiver.split(",")]
+    if args.scaling:
+        counts = [int(v) for v in args.scaling.split(",")]
+        out["weak_scaling"] = benchmarks.weak_scaling(
+            counts, platform=args.platform)
+    print(json.dumps(out, default=_np_default, indent=2))
+    return 0
+
+
 def _np_default(o):
     if isinstance(o, (np.integer,)):
         return int(o)
@@ -752,6 +775,26 @@ def build_parser() -> argparse.ArgumentParser:
     an.add_argument("--out", help="write table here (.xlsx or .csv)")
     _add_device(an, host=True)
     an.set_defaults(fn=cmd_analyze)
+
+    bm = sub.add_parser("benchmark",
+                        help="flagship throughput + weak scaling")
+    bm.add_argument("--scaling", help="comma device counts, e.g. 1,2,4 "
+                    "(the first N cards unless --platform cpu)")
+    bm.add_argument("--platform", default="gpu", choices=["cpu", "gpu"],
+                    help="where the scaling meshes run: gpu (default) on "
+                         "the visible cards, cpu on N CPU entries sharing "
+                         "the host's cores")
+    bm.add_argument("--no-single", action="store_true",
+                    help="skip the single-chip flagship measurement")
+    bm.add_argument("--receiver",
+                    help="comma list of constellations to benchmark the "
+                         "full receiver chain on (gps,galileo,glonass) "
+                         "at native sample rates; combine with "
+                         "--no-single to skip the flagship sweep")
+    bm.add_argument("--seconds", type=float, default=6.0,
+                    help="receiver benchmark capture length [s]")
+    _add_device(bm)
+    bm.set_defaults(fn=cmd_benchmark)
 
     inf = sub.add_parser("info", help="capture file facts (sample counter)")
     inf.add_argument("files", nargs="+")

@@ -57,6 +57,20 @@ def exclusion_half_width(n: int, cfg: AcquisitionConfig,
     return excl
 
 
+def gps_replica_table(sample_rate: float, n_samples: int,
+                      device=None) -> torch.Tensor:
+    """(32, n) complex64 conj-FFT replicas of every GPS PRN at the capture
+    rate, on `device` (None: the card): `codes.gps_replica_table`."""
+    return codes_ops.gps_replica_table(sample_rate, n_samples, device)
+
+
+def gps_replica_table_host(sample_rate: float,
+                           n_samples: int) -> tuple[np.ndarray, np.ndarray]:
+    """(32, n) conj-FFT replica planes (re, im), numpy float32:
+    `codes.gps_replica_table_host`."""
+    return codes_ops.gps_replica_table_host(sample_rate, n_samples)
+
+
 def sbas_replica_table_host(sample_rate: float,
                             n_samples: int) -> tuple[np.ndarray, np.ndarray]:
     """(19, n) conj-FFT replica planes of the SBAS C/A PRNs 120..138."""

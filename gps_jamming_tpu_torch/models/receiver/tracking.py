@@ -57,6 +57,12 @@ from ...device import as_device
 from ...ops import codes as codes_ops
 
 
+class LoopCoeffs(NamedTuple):
+    """2nd-order loop filter coefficients (SoftGNSS/Kaplan form)."""
+    c1: torch.Tensor   # proportional: applied to (err - err_prev)
+    c2: torch.Tensor   # integral: applied to err * 1 (per epoch)
+
+
 def loop_coeffs(bw_hz: float, damping: float, dt: float,
                 gain: float = 1.0) -> tuple[float, float]:
     """Classic 0.53-rule coefficients: wn = bw/0.53 (sdrinit.c:187-207).

@@ -17,7 +17,7 @@ grid fix.
 from __future__ import annotations
 
 import itertools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -28,6 +28,14 @@ from ..ops import corr as corr_ops
 from ..ops import iq as iq_ops
 from ..ops import power as power_ops
 from ..utils import constants as C
+
+
+class PairTdoa(NamedTuple):
+    pair: tuple               # (i, j) antenna indices
+    lag_samples: float        # signal_j relative to signal_i (j later > 0)
+    tdoa_s: float
+    path_difference_m: float
+    peak_magnitude: float
 
 
 def aligned_slices(iq_list: Sequence, cfg: TdoaConfig, device=None):

@@ -2,7 +2,8 @@
 
 Counterpart of gps_jamming_tpu.ops.codes, whose NumPy builders are copied
 because that module imports jax: GPS and SBAS C/A codes (IS-GPS-200 LFSR
-definitions and the SBAS G2 delays), the GLONASS 511-chip code, BOC(1,1),
+definitions and the SBAS G2 delays), the GPS L1C Weil codes (IS-GPS-800)
+and Neuman-Hofman overlays, the GLONASS 511-chip code, BOC(1,1),
 the floor-index resampler on tensors (`resample_code`) and its band-limited
 form for fixtures. The acquisition replica is conj(FFT(sampled code)),
 computed once on the host and moved to the device as one complex64 table.
@@ -14,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from ..device import as_device
+from ..device import as_device, on_device
 from ..utils import constants as C
 
 # IS-GPS-200 G2 phase-selector tap pairs (1-indexed) for PRN 1..32.
@@ -122,6 +123,101 @@ def glonass_carrier_hz(freq_ch: int) -> float:
     return C.GLO_G1_BASE_FREQ_HZ + freq_ch * C.GLO_G1_CH_SPACING_HZ
 
 
+# IS-GPS-800 L1C Weil indices (w) and expansion insertion points (p,
+# 1-based) for PRN 1..63: published ICD constants (the tables sdrcode.c:
+# 162-310 embeds for its gencode_L1CP/L1CD).
+_L1CP_WEIL = (
+    5111, 5109, 5108, 5106, 5103, 5101, 5100, 5098, 5095, 5094, 5093,
+    5091, 5090, 5081, 5080, 5069, 5068, 5054, 5044, 5027, 5026, 5014,
+    5004, 4980, 4915, 4909, 4893, 4885, 4832, 4824, 4591, 3706, 5092,
+    4986, 4965, 4920, 4917, 4858, 4847, 4790, 4770, 4318, 4126, 3961,
+    3790, 4911, 4881, 4827, 4795, 4789, 4725, 4675, 4539, 4535, 4458,
+    4197, 4096, 3484, 3481, 3393, 3175, 2360, 1852)
+_L1CP_INSERT = (
+    412, 161, 1, 303, 207, 4971, 4496, 5, 4557, 485, 253, 4676, 1, 66,
+    4485, 282, 193, 5211, 729, 4848, 982, 5955, 9805, 670, 464, 29, 429,
+    394, 616, 9457, 4429, 4771, 365, 9705, 9489, 4193, 9947, 824, 864,
+    347, 677, 6544, 6312, 9804, 278, 9461, 444, 4839, 4144, 9875, 197,
+    1156, 4674, 10035, 4504, 5, 9937, 430, 5, 355, 909, 1622, 6284)
+_L1CD_WEIL = (
+    5097, 5110, 5079, 4403, 4121, 5043, 5042, 5104, 4940, 5035, 4372,
+    5064, 5084, 5048, 4950, 5019, 5076, 3736, 4993, 5060, 5061, 5096,
+    4983, 4783, 4991, 4815, 4443, 4769, 4879, 4894, 4985, 5056, 4921,
+    5036, 4812, 4838, 4855, 4904, 4753, 4483, 4942, 4813, 4957, 4618,
+    4669, 4969, 5031, 5038, 4740, 4073, 4843, 4979, 4867, 4964, 5025,
+    4579, 4390, 4763, 4612, 4784, 3716, 4703, 4851)
+_L1CD_INSERT = (
+    181, 359, 72, 1110, 1480, 5034, 4622, 1, 4547, 826, 6284, 4195,
+    368, 1, 4796, 523, 151, 713, 9850, 5734, 34, 6142, 190, 644, 467,
+    5384, 801, 594, 4450, 9437, 4307, 5906, 378, 9448, 9432, 5849,
+    5547, 9546, 9132, 403, 3766, 3, 684, 9711, 333, 6124, 10216, 4251,
+    9893, 9884, 4627, 4449, 9798, 985, 4272, 126, 10024, 434, 1029,
+    561, 289, 638, 4353)
+_WEIL_P = 10223
+_L1C_LEN = 10230
+_L1C_EXPANSION = np.array([0, 1, 1, 0, 1, 0, 0], np.int8)
+
+
+@functools.lru_cache(maxsize=1)
+def legendre_10223() -> np.ndarray:
+    """Legendre sequence L(t): 1 where t is a nonzero quadratic residue
+    mod 10223, else 0 (L(0) = 0); the base sequence of every L1C Weil
+    code (IS-GPS-800 3.2.2.1.1)."""
+    residues = np.zeros(_WEIL_P, np.int8)
+    x = np.arange(1, _WEIL_P, dtype=np.int64)
+    residues[(x * x) % _WEIL_P] = 1
+    residues[0] = 0
+    return residues
+
+
+def weil_code(weil_index: int, insert_1based: int) -> np.ndarray:
+    """10230-chip L1C spreading code as +/-1 int8 (0 -> +1): the Weil
+    sequence W(t) = L(t) xor L((t + w) mod 10223) with the 7-chip
+    expansion 0110100 inserted at the 1-based insertion point
+    (IS-GPS-800 3.2.2.1.1-2; gencode_L1CP, sdrcode.c:162-233). Raises
+    ValueError unless 1 <= insert_1based <= 10224."""
+    if not 1 <= insert_1based <= _WEIL_P + 1:
+        raise ValueError(f"insertion point {insert_1based} outside "
+                         f"1..{_WEIL_P + 1}")
+    L = legendre_10223()
+    t = np.arange(_WEIL_P)
+    w = L ^ L[(t + weil_index) % _WEIL_P]
+    p = insert_1based - 1
+    bits = np.concatenate([w[:p], _L1C_EXPANSION, w[p:]])
+    return (1 - 2 * bits).astype(np.int8)
+
+
+@functools.lru_cache(maxsize=128)
+def gps_l1cp_code(prn: int) -> np.ndarray:
+    """L1C pilot spreading code (before TMBOC and the overlay), PRN 1..63."""
+    if not 1 <= prn <= len(_L1CP_WEIL):
+        raise ValueError(f"L1CP PRN must be 1..{len(_L1CP_WEIL)}")
+    return weil_code(_L1CP_WEIL[prn - 1], _L1CP_INSERT[prn - 1])
+
+
+@functools.lru_cache(maxsize=128)
+def gps_l1cd_code(prn: int) -> np.ndarray:
+    """L1C data spreading code, PRN 1..63."""
+    if not 1 <= prn <= len(_L1CD_WEIL):
+        raise ValueError(f"L1CD PRN must be 1..{len(_L1CD_WEIL)}")
+    return weil_code(_L1CD_WEIL[prn - 1], _L1CD_INSERT[prn - 1])
+
+
+def nh10() -> np.ndarray:
+    """10-bit Neuman-Hofman overlay 0000110101 as +/-1 (0 -> +1), 1 kcps
+    (gencode_NH10)."""
+    bits = np.array([0, 0, 0, 0, 1, 1, 0, 1, 0, 1], np.int8)
+    return (1 - 2 * bits).astype(np.int8)
+
+
+def nh20() -> np.ndarray:
+    """20-bit Neuman-Hofman overlay 00000100110101001110, 500 cps
+    (gencode_NH20)."""
+    bits = np.array([0, 0, 0, 0, 0, 1, 0, 0, 1, 1, 0, 1, 0, 1, 0, 0,
+                     1, 1, 1, 0], np.int8)
+    return (1 - 2 * bits).astype(np.int8)
+
+
 def boc11(code: np.ndarray) -> np.ndarray:
     """BOC(1,1): each chip split into (+c, -c) half-chips (Galileo E1B/E1C);
     doubles the chip rate."""
@@ -188,6 +284,19 @@ def resample_code_bandlimited(code: torch.Tensor, code_freq_hz: float,
     low = torch.cat([spec[..., :keep], spec[..., -keep:]], dim=-1)
     # ifft over n_samples normalizes by n_samples, not n_hi: rescale by 1/os
     return (torch.fft.ifft(low, dim=-1).real / oversample).to(torch.float32)
+
+
+def sampled_code_fft_conj(code_table, code_freq_hz: float,
+                          sample_rate_hz: float, n_samples: int,
+                          device=None) -> torch.Tensor:
+    """conj(FFT(sampled code)) replicas for acquisition, computed on the
+    device (sdrinit.c:431-442): code_table (n_code, clen) +/-1, a tensor
+    (which keeps its device) or an array (sent to `device`; None: the
+    card) -> (n_code, n_samples) complex64."""
+    codes = on_device(code_table, device).to(torch.float32)
+    sampled = resample_code(codes, code_freq_hz, sample_rate_hz, n_samples)
+    return torch.conj_physical(torch.fft.fft(sampled.to(torch.complex64),
+                                             dim=-1))
 
 
 def resample_code_np(code_table: np.ndarray, code_freq_hz: float,

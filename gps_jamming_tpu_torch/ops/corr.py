@@ -1,5 +1,6 @@
-"""Correlation (counterpart of gps_jamming_tpu.ops.corr): the full linear
-cross-correlation of the TDOA pairs (scipy.signal.correlate(a, b, 'full')
+"""Correlation (counterpart of gps_jamming_tpu.ops.corr): the circular FFT
+correlation power of the reference's acquisition engine (`cpxconv`,
+sdrcmn.c:124-147), the full linear cross-correlation of the TDOA pairs (scipy.signal.correlate(a, b, 'full')
 as triangulateTDOA.py:86-89 uses it) with a parabolic sub-sample peak, and
 the acquisition rows' excluded-peak reductions (checkacquisition).
 
@@ -12,6 +13,18 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def circular_correlation_power(x: torch.Tensor,
+                               replica_fft_conj: torch.Tensor) -> torch.Tensor:
+    """|IFFT(FFT(x) * conj(FFT(replica)))|^2 over every circular lag
+    (cpxconv, sdrcmn.c:124-147).
+
+    x: (..., n) complex64 block; replica_fft_conj: (..., n) precomputed
+    conj(FFT(code replica)). Returns float32 (..., n).
+    """
+    v = torch.fft.ifft(torch.fft.fft(x, dim=-1) * replica_fft_conj, dim=-1)
+    return v.real * v.real + v.imag * v.imag
 
 
 def xcorr_full(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,12 @@ def uint8_np_to_int8(raw: np.ndarray) -> np.ndarray:
     return (raw ^ 0x80).view(np.int8)
 
 
+def uint8_to_int8(raw: torch.Tensor) -> torch.Tensor:
+    """Receiver-path convention of `sdrrcv.c:104-106`: uint8 - 128 ->
+    int8, on the tensor's device."""
+    return (raw.to(torch.int32) - 128).to(torch.int8)
+
+
 def int8_to_complex(x8: torch.Tensor, *,
                     convention: str = "centered") -> torch.Tensor:
     """Interleaved int8 I/Q (..., 2n) -> complex64 (..., n).

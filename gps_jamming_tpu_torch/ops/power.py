@@ -37,6 +37,13 @@ def chunk_power(iq: torch.Tensor, chunk_samples: int) -> torch.Tensor:
     return pm + 1e-10
 
 
+def chunk_power_streaming_init(chunk_samples: int) -> tuple:
+    """Carry of a streaming power accumulation over blocks: none, since
+    `chunk_power` keeps the final partial chunk of every block."""
+    del chunk_samples
+    return ()
+
+
 def power_baseline(power_map: torch.Tensor,
                    percentile: float = 5.0) -> torch.Tensor:
     """Noise-floor baseline: the linear-interpolation percentile of the
