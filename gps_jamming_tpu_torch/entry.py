@@ -18,6 +18,7 @@ import torch
 from .config import DEFAULT_CONFIG as CFG
 from .device import as_device
 from .ops import caf, codes, cuda_pcf, iq, power, spectral
+from .runtime import profiling
 
 FS = CFG.frontend.sample_rate_hz
 N_CODE = 2048                  # one C/A period at 2.048 MS/s
@@ -29,11 +30,14 @@ CHUNK = 32768                  # power chunk, samples
 
 def _detect(x: torch.Tensor):
     """Welch PSD, chunk power, baseline and +6 dB flags of one block."""
-    psd = spectral.welch_psd(x, FS, CFG.spectral.nperseg)
-    pm = power.chunk_power(x, CHUNK)
-    base = power.power_baseline(pm, CFG.detector.baseline_percentile)
-    thr = power.power_threshold_linear(base, CFG.detector.power_rise_db)
-    return psd, pm, pm > thr
+    with profiling.span("gjt.step.psd"):
+        psd = spectral.welch_psd(x, FS, CFG.spectral.nperseg)
+    with profiling.span("gjt.step.power"):
+        pm = power.chunk_power(x, CHUNK)
+        base = power.power_baseline(pm, CFG.detector.baseline_percentile)
+        thr = power.power_threshold_linear(base, CFG.detector.power_rise_db)
+        flags = pm > thr
+    return psd, pm, flags
 
 
 def entry(device=None):
@@ -70,20 +74,24 @@ def detect_acquire_step(raw_i8: torch.Tensor,
     benchmark). A full cold 32-PRN x +/-7 kHz x 10-period search runs on
     every block, by the PCF method (kernel B1) or, with method='std', by
     the per-Doppler search over 71 bins (kernel B3); peak_per_prn (32,) is
-    the search's maximum per PRN.
+    the search's maximum per PRN. Its stages run inside the spans of
+    `runtime.profiling.SPANS` (`gjt.step` and its children).
     """
-    if replica is None:
-        replica = codes.gps_replica_table(FS, N_CODE, raw_i8.device)
-    x = iq.int8_to_complex(raw_i8)
-    psd, pm, flags = _detect(x)
-    blocks = x[: N_INTG * N_CODE].reshape(N_INTG, N_CODE)
-    if method == "pcf":
-        peak = cuda_pcf.caf_accumulate_pcf_fused(
-            blocks, replica, FS, max_doppler_hz=MAX_DOPPLER_HZ,
-            stats_excl=-1)[0].amax(dim=-1)
-    elif method == "std":
-        peak = caf.caf_accumulate(blocks, replica, STD_FREQS,
-                                  FS).amax(dim=(-2, -1))
-    else:
-        raise ValueError(f"unknown acquisition method {method!r}")
+    with profiling.span("gjt.step"):
+        if replica is None:
+            replica = codes.gps_replica_table(FS, N_CODE, raw_i8.device)
+        with profiling.span("gjt.step.ingest"):
+            x = iq.int8_to_complex(raw_i8)
+        psd, pm, flags = _detect(x)
+        with profiling.span("gjt.step.acquire"):
+            blocks = x[: N_INTG * N_CODE].reshape(N_INTG, N_CODE)
+            if method == "pcf":
+                peak = cuda_pcf.caf_accumulate_pcf_fused(
+                    blocks, replica, FS, max_doppler_hz=MAX_DOPPLER_HZ,
+                    stats_excl=-1)[0].amax(dim=-1)
+            elif method == "std":
+                peak = caf.caf_accumulate(blocks, replica, STD_FREQS,
+                                          FS).amax(dim=(-2, -1))
+            else:
+                raise ValueError(f"unknown acquisition method {method!r}")
     return psd, pm, flags, peak

@@ -24,6 +24,7 @@ import torch
 
 from ..device import check_tensor
 from ..kernels import build, gates
+from ..runtime import profiling
 
 # Searches launched by `pcf_search` (one per call on a CUDA tensor; each
 # runs the forward and the correlate kernel).
@@ -112,7 +113,9 @@ def pcf_search_reference(y: torch.Tensor, replica: torch.Tensor, n_c: int,
 
 def pcf_search(y: torch.Tensor, replica: torch.Tensor, n_c: int,
                n_rows: int, n_groups: int, stats_excl: int | None = None):
-    """The PCF search of `pcf_search_reference`, as kernel B1 on CUDA."""
+    """The PCF search of `pcf_search_reference`, as kernel B1 on CUDA,
+    whose host side, from the checks to the launch's error check, runs in
+    the `gjt.b1.launch` span (`runtime.profiling.span`)."""
     global LAUNCHES
     n = y.shape[-1]
     if n_c % 2 == 0 or n_c // 2 >= n:
@@ -126,43 +129,44 @@ def pcf_search(y: torch.Tensor, replica: torch.Tensor, n_c: int,
                                     stats_excl)
     if y.device.type != "cuda":
         raise ValueError(f"pcf_search: unsupported device {y.device}")
-    if not supported(n):
-        raise ValueError(f"pcf_search: {unsupported_reason(n)}")
-    check_tensor(y, "y", torch.complex64, (n_rows * n_groups, n))
-    check_tensor(replica, "replica", torch.complex64, (None, n), y.device)
-    n_prn = replica.shape[0]
-    Y = torch.empty_like(y)
-    if stats_excl is None:
-        out = torch.empty((n_prn, n_c * n_rows, n), dtype=torch.float32,
-                          device=y.device)
-    else:
-        out = torch.empty((5, n_prn, n_c * n_rows), dtype=torch.float32,
-                          device=y.device)
-    lib = build.load()
-    if n > build.FFT_MAX_N:
-        tw2 = build.large_row_twiddles(n, y.device)
-        twn = build.reg_twiddles(n, y.device)
+    with profiling.span("gjt.b1.launch"):
+        if not supported(n):
+            raise ValueError(f"pcf_search: {unsupported_reason(n)}")
+        check_tensor(y, "y", torch.complex64, (n_rows * n_groups, n))
+        check_tensor(replica, "replica", torch.complex64, (None, n), y.device)
+        n_prn = replica.shape[0]
+        Y = torch.empty_like(y)
+        if stats_excl is None:
+            out = torch.empty((n_prn, n_c * n_rows, n), dtype=torch.float32,
+                              device=y.device)
+        else:
+            out = torch.empty((5, n_prn, n_c * n_rows), dtype=torch.float32,
+                              device=y.device)
+        lib = build.load()
+        if n > build.FFT_MAX_N:
+            tw2 = build.large_row_twiddles(n, y.device)
+            twn = build.reg_twiddles(n, y.device)
+            with torch.cuda.device(y.device):
+                err = lib.gjt_pcf_large(
+                    y.data_ptr(), Y.data_ptr(), replica.data_ptr(),
+                    tw2.data_ptr(), twn.data_ptr(), out.data_ptr(), n_rows,
+                    n_groups, n_c, n_prn, n, int(stats_excl is not None),
+                    0 if stats_excl is None else stats_excl,
+                    torch.cuda.current_stream().cuda_stream)
+            build.check(err, "gjt_pcf_large")
+            LAUNCHES += 1
+            return out if stats_excl is None else tuple(out.unbind(0))
+        tw = build.row_twiddles(n, y.device)
         with torch.cuda.device(y.device):
-            err = lib.gjt_pcf_large(
-                y.data_ptr(), Y.data_ptr(), replica.data_ptr(),
-                tw2.data_ptr(), twn.data_ptr(), out.data_ptr(), n_rows,
-                n_groups, n_c, n_prn, n, int(stats_excl is not None),
+            err = lib.gjt_pcf(
+                y.data_ptr(), Y.data_ptr(), replica.data_ptr(), tw.data_ptr(),
+                out.data_ptr(), n_rows, n_groups, n_c, n_prn, n,
+                int(stats_excl is not None),
                 0 if stats_excl is None else stats_excl,
                 torch.cuda.current_stream().cuda_stream)
-        build.check(err, "gjt_pcf_large")
+        build.check(err, "gjt_pcf")
         LAUNCHES += 1
         return out if stats_excl is None else tuple(out.unbind(0))
-    tw = build.row_twiddles(n, y.device)
-    with torch.cuda.device(y.device):
-        err = lib.gjt_pcf(
-            y.data_ptr(), Y.data_ptr(), replica.data_ptr(), tw.data_ptr(),
-            out.data_ptr(), n_rows, n_groups, n_c, n_prn, n,
-            int(stats_excl is not None),
-            0 if stats_excl is None else stats_excl,
-            torch.cuda.current_stream().cuda_stream)
-    build.check(err, "gjt_pcf")
-    LAUNCHES += 1
-    return out if stats_excl is None else tuple(out.unbind(0))
 
 
 def caf_accumulate_pcf_fused(blocks: torch.Tensor, replica: torch.Tensor,

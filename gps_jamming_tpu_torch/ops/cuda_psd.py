@@ -23,6 +23,7 @@ import torch
 from ..device import check_tensor
 from ..kernels import build, gates
 from ..kernels.gates import MIXED_NPERSEG
+from ..runtime import profiling
 
 # Kernel launches made by `welch_psd_fused` (one per row on a CUDA tensor).
 LAUNCHES = 0
@@ -68,48 +69,52 @@ def welch_psd_fused(x: torch.Tensor, sample_rate: float, nperseg: int = 1024,
 
     On the card each row is one launch on the current stream, writing its
     own row of the output; the rows share the scratch, whose tickets each
-    launch leaves at zero, and launches on one stream run in order."""
+    launch leaves at zero, and launches on one stream run in order. The
+    card's host side, from the checks to the last launch, runs in the
+    `gjt.b2.launch` span (`runtime.profiling.span`)."""
     global LAUNCHES
     if x.device.type == "cpu":
         return welch_psd_reference(x, sample_rate, nperseg, detrend)
     if x.device.type != "cuda":
         raise ValueError(f"welch_psd_fused: unsupported device {x.device}")
-    if not supported(nperseg):
-        raise ValueError(f"welch_psd_fused: nperseg {nperseg} is neither a "
-                         "power of two in [64, 16384], one of "
-                         f"{MIXED_NPERSEG} nor a size above 16384 that the "
-                         "TPU kernel takes")
-    if x.dim() not in (1, 2):
-        raise ValueError(f"welch_psd_fused: expected (n,) or (rows, n), "
-                         f"got {tuple(x.shape)}")
-    check_tensor(x, "x", torch.complex64, (None,) * x.dim())
-    n = x.shape[-1]
-    if n < nperseg:
-        raise ValueError(f"welch_psd_fused: {n} samples < nperseg {nperseg}")
-    rows = 1 if x.dim() == 1 else x.shape[0]
-    n_segs = 1 + (n - nperseg) // (nperseg // 2)
-    win, wsum2 = _window(nperseg, x.device)
-    tab = build.reg_twiddles(nperseg, x.device)
-    out = torch.empty(x.shape[:-1] + (nperseg,), dtype=torch.float32,
-                      device=x.device)
-    scale = 1.0 / (sample_rate * wsum2) / n_segs
-    lib = build.load()
-    x_row, out_row = n * x.element_size(), nperseg * out.element_size()
-    if nperseg > build.FFT_MAX_N:
-        _welch_large(lib, x, win, tab, out, rows, nperseg, n_segs, detrend,
-                     scale, x_row, out_row)
+    with profiling.span("gjt.b2.launch"):
+        if not supported(nperseg):
+            raise ValueError(f"welch_psd_fused: nperseg {nperseg} is "
+                             "neither a power of two in [64, 16384], one of "
+                             f"{MIXED_NPERSEG} nor a size above 16384 that "
+                             "the TPU kernel takes")
+        if x.dim() not in (1, 2):
+            raise ValueError(f"welch_psd_fused: expected (n,) or (rows, n), "
+                             f"got {tuple(x.shape)}")
+        check_tensor(x, "x", torch.complex64, (None,) * x.dim())
+        n = x.shape[-1]
+        if n < nperseg:
+            raise ValueError(f"welch_psd_fused: {n} samples < nperseg "
+                             f"{nperseg}")
+        rows = 1 if x.dim() == 1 else x.shape[0]
+        n_segs = 1 + (n - nperseg) // (nperseg // 2)
+        win, wsum2 = _window(nperseg, x.device)
+        tab = build.reg_twiddles(nperseg, x.device)
+        out = torch.empty(x.shape[:-1] + (nperseg,), dtype=torch.float32,
+                          device=x.device)
+        scale = 1.0 / (sample_rate * wsum2) / n_segs
+        lib = build.load()
+        x_row, out_row = n * x.element_size(), nperseg * out.element_size()
+        if nperseg > build.FFT_MAX_N:
+            _welch_large(lib, x, win, tab, out, rows, nperseg, n_segs,
+                         detrend, scale, x_row, out_row)
+            return out
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            scratch = _scratch(nperseg, x.device, stream)
+            for r in range(rows):
+                err = lib.gjt_welch_psd(
+                    x.data_ptr() + r * x_row, win.data_ptr(), tab.data_ptr(),
+                    scratch.data_ptr(), out.data_ptr() + r * out_row, nperseg,
+                    n_segs, int(detrend), scale, stream)
+                build.check(err, "gjt_welch_psd")
+                LAUNCHES += 1
         return out
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        scratch = _scratch(nperseg, x.device, stream)
-        for r in range(rows):
-            err = lib.gjt_welch_psd(
-                x.data_ptr() + r * x_row, win.data_ptr(), tab.data_ptr(),
-                scratch.data_ptr(), out.data_ptr() + r * out_row, nperseg,
-                n_segs, int(detrend), scale, stream)
-            build.check(err, "gjt_welch_psd")
-            LAUNCHES += 1
-    return out
 
 
 def large_seg_chunk(nperseg: int, n_segs: int) -> int:

@@ -5,8 +5,10 @@ The reference's observability is wall-clock stamping (`sdrmain.c:195-204`),
 a mutex-guarded message ring (`sdrout.c:66-81`), and the (compiled, unused)
 RTKLIB trace framework (`lib/rtklib/rtkcmn.c:463-505`). Here: a structured
 JSONL event log, throughput counters (samples/s per stage), stage timers
-that wait for the devices of their results, and a `torch.profiler` trace
-context that writes a Chrome trace.
+that wait for the devices of their results, a `torch.profiler` trace
+context that writes a Chrome trace, and the named spans (`span`, `SPANS`)
+that the main path opens inside its step, which a running profiler records
+on its own clock and which cost nothing to speak of when none runs.
 
 A CUDA result is waited for with `torch.cuda.synchronize` of its device;
 no device-to-host copy is needed.
@@ -154,6 +156,38 @@ class Profiler:
 
     def report(self) -> list[dict]:
         return [s.as_dict() for s in self.stages.values()]
+
+
+# The spans the program opens, by `span`, each nested by time in the one
+# that encloses it on the host thread:
+#   gjt.step          entry.detect_acquire_step, the whole call
+#   gjt.step.ingest   its int8 -> complex64 conversion
+#   gjt.step.psd      entry._detect's Welch PSD
+#   gjt.step.power    entry._detect's chunk power, baseline, threshold and
+#                     flags
+#   gjt.step.acquire  the PCF (or std) search and its per-PRN peak
+#   gjt.b1.launch     kernel B1's host side on a CUDA tensor
+#                     (ops.cuda_pcf.pcf_search: checks, outputs, build,
+#                     twiddles, the call and its error check)
+#   gjt.b2.launch     kernel B2's host side on a CUDA tensor
+#                     (ops.cuda_psd.welch_psd_fused, over all its rows)
+# Every name starts with "gjt.", so that a trace reader can tell them from
+# the operators; none holds a kernel's name.
+SPANS = ("gjt.step", "gjt.step.ingest", "gjt.step.psd", "gjt.step.power",
+         "gjt.step.acquire", "gjt.b1.launch", "gjt.b2.launch")
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks its block as `name` (one of SPANS) in a running
+    `torch.profiler` session: a `record_function` span, on the profiler's
+    clock, that a CUDA trace holds beside the device's records. Without a
+    running profiler it is one shared no-op context, so that a span costs
+    one check of the profiler's state and creates nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 # The span `torch_trace` puts around its block in the trace.

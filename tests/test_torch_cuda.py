@@ -314,6 +314,51 @@ def test_caf_std_dispatch_on_cuda(dev):
     assert cuda_caf.LAUNCHES == before + 4
 
 
+def test_monitor_step_spans_on_cuda(dev, tmp_path):
+    """One monitor step on the card inside `torch_trace`: one
+    `gjt.b2.launch` inside `gjt.step.psd` and one `gjt.b1.launch` inside
+    `gjt.step.acquire`, each kernel's device records starting after its
+    launch span opens, and no launch of the step lost (`torch_trace`
+    raises on one; the trace is read again here)."""
+    import json
+
+    from gps_jamming_tpu_torch import entry
+    from gps_jamming_tpu_torch.ops import codes
+    from gps_jamming_tpu_torch.runtime import profiling
+    raw = torch.randint(-128, 128, (2 * (1 << 19),), dtype=torch.int8,
+                        device=dev)
+    replica = codes.gps_replica_table(entry.FS, entry.N_CODE, dev)
+    entry.detect_acquire_step(raw, replica)
+    torch.cuda.synchronize(dev)
+    with profiling.torch_trace(str(tmp_path), dev):
+        out = entry.detect_acquire_step(raw, replica)
+        torch.cuda.synchronize(dev)
+    assert out[3].shape == (32,)
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert profiling.lost_launches(events)[1] == []
+
+    def host(name):
+        return [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("name") == name
+                and e.get("cat") == "user_annotation"]
+
+    def within(inner, outer):
+        return outer[0] <= inner[0] and inner[1] <= outer[1]
+
+    (psd,), (acquire,) = host("gjt.step.psd"), host("gjt.step.acquire")
+    (b2,), (b1,) = host("gjt.b2.launch"), host("gjt.b1.launch")
+    assert within(b2, psd) and within(b1, acquire)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    b2_k = [e for e in kernels if "welch_" in e["name"]]
+    b1_k = [e for e in kernels if any(
+        k in e["name"] for k in ("pcf_forward_kernel", "reg_forward_kernel",
+                                 "pcf_correlate"))]
+    assert b2_k and b1_k
+    assert all(e["ts"] >= b2[0] for e in b2_k)
+    assert all(e["ts"] >= b1[0] for e in b1_k)
+
+
 def _c1_blocks(system, dev):
     """10 code periods of unit noise plus one PRN at -18 dB per sample, at
     an n kernels B1 and B3 do not take: Galileo E1B at 4.192 MS/s (n =

@@ -7,6 +7,12 @@ CPU.
   samples/s, a sync over a nesting of tensors and other leaves, and a
   Chrome trace written and non-empty; the trace's block span and
   `lost_launches` on a host trace and on made-up events.
+- `span` and `SPANS`: outside a profiler one shared no-op context that
+  makes no RecordFunction; under a host profiler one monitor step on CPU
+  tensors records `gjt.step` with its four stages inside it, in order,
+  and no kernel launch span; the names keep clear of the benchmark's own
+  spans and of the kernel names its roofline metrics match; the kernel
+  wrappers import `runtime.profiling` with no import cycle.
 - `ops.caf.caf_pair` against the JAX package's on the same seeded pair
   (rtol 3e-3, atol 1e-3 * max: float32 FFTs of another factorization),
   and the delay and Doppler of its peak.
@@ -15,6 +21,10 @@ CPU.
 """
 import json
 import os
+import re
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,7 +34,8 @@ import jax.numpy as jnp
 
 from gps_jamming_tpu.ops import caf as jcaf
 from gps_jamming_tpu.ops import interp as jinterp
-from gps_jamming_tpu_torch.ops import caf, interp
+from gps_jamming_tpu_torch import entry
+from gps_jamming_tpu_torch.ops import caf, codes, interp, iq
 from gps_jamming_tpu_torch.runtime import profiling
 
 torch.set_num_threads(2)
@@ -106,6 +117,74 @@ def test_lost_launches_pairs_launches_with_kernel_records():
     assert profiling.lost_launches(events) == (3, [])
     with pytest.raises(ValueError, match="0 'torch_trace' spans"):
         profiling.lost_launches(events[1:])
+
+
+def test_span_outside_a_profiler_is_one_no_op(monkeypatch):
+    """Without a running profiler a span is the same shared context every
+    time and never reaches `record_function`."""
+    def no_record(*a, **k):
+        raise AssertionError("a span made a RecordFunction")
+    monkeypatch.setattr(torch.profiler, "record_function", no_record)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        no_record)
+    first = profiling.span("gjt.step")
+    assert profiling.span("gjt.b1.launch") is first
+    with first:
+        with profiling.span("gjt.step.psd"):
+            pass
+
+
+def test_monitor_step_spans_nest_on_the_cpu():
+    """One step of 65 536 samples (two power chunks) under a host profiler:
+    one `gjt.step`, its four stages inside it in the order they run, and no
+    launch span, since the CPU runs the kernels' plain versions."""
+    rng = np.random.default_rng(3)
+    raw = torch.from_numpy(iq.uint8_np_to_int8(
+        rng.integers(0, 256, 2 * 65536, dtype=np.uint8)))
+    replica = codes.gps_replica_table(entry.FS, entry.N_CODE, "cpu")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = entry.detect_acquire_step(raw, replica)
+    assert out[1].shape == (2,)
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.name().startswith("gjt."))
+    (step,) = [sp for sp in spans if sp[2] == "gjt.step"]
+    stages = [sp for sp in spans if sp[2] != "gjt.step"]
+    assert [sp[2] for sp in stages] == ["gjt.step.ingest", "gjt.step.psd",
+                                        "gjt.step.power", "gjt.step.acquire"]
+    assert all(step[0] <= s and e <= step[1] for s, e, _ in stages)
+    assert all(a[1] <= b[0] for a, b in zip(stages, stages[1:]))
+
+
+def test_span_names_keep_clear_of_the_benchmark():
+    """Every span is named in SPANS, starts with "gjt.", is none of the
+    benchmark's own spans and holds no kernel name that a roofline metric
+    matches; every span the package opens is one of SPANS."""
+    names = profiling.SPANS
+    assert len(set(names)) == len(names)
+    for name in names:
+        assert name.startswith("gjt.")
+        assert name not in ("gjt.window", "gjt.block")
+        assert not any(k in name for k in ("welch_", "pcf_correlate",
+                                           "pcf_forward_kernel",
+                                           "reg_forward_kernel"))
+    pkg = Path(profiling.__file__).resolve().parents[1]
+    opened = set()
+    for path in pkg.rglob("*.py"):
+        opened |= set(re.findall(r'span\("([^"]+)"\)', path.read_text()))
+    assert opened == set(names)
+
+
+@pytest.mark.parametrize("module", ["gps_jamming_tpu_torch.ops.cuda_pcf",
+                                    "gps_jamming_tpu_torch.ops.cuda_psd",
+                                    "gps_jamming_tpu_torch.entry"])
+def test_span_users_import_alone(module):
+    """A module that opens spans imports first in a fresh interpreter: the
+    kernel wrappers import `runtime.profiling` with no import cycle."""
+    root = Path(profiling.__file__).resolve().parents[2]
+    subprocess.run([sys.executable, "-c", f"import {module}"], cwd=root,
+                   check=True, timeout=120)
 
 
 def test_caf_pair_matches_jax():
