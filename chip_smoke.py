@@ -31,9 +31,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    blocks of a synthetic capture (noise, GPS PRN 7, a tone jammer in blocks
    3-5), then `acquire_all(method='pcf')` on the clean first 10 ms and
    `power_profile_file` on the same bytes, checked against the known
-   answer and against the CPU plain path;
+   answer and against the CPU plain path; F1, B2 and B1 once a block and
+   once in `entry()`'s forward; kernel F1 (the block front) against its
+   plain version on the first block (x bitwise, pm rtol 1e-6, flags
+   equal, bitwise repeatable) with CUDA-event median times of both;
    (b) the std chain: `detect_acquire_step(method='std')` over the same 8
-   blocks; (c) the GPS receiver's `acquire_all(method='std')` on the first
+   blocks, F1, B2 and B3 once a block; (c) the GPS receiver's `acquire_all(method='std')` on the first
    10 ms and `refine_doppler` of PRN 7 over 32 ms; (d) Galileo E1B
    acquisition of a seeded 40 ms capture at 4.096 MS/s, 'std' (kernel B3
    at 16384 lags) and 'auto' (kernel B1 in stats mode at 16384 lags), each
@@ -166,8 +169,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
     tone;
 11. the `benchmark` verb's module (`runtime/benchmarks.py`), each part
     with the counts from 0: (a) `single_chip()` in this process (the
-    flagship chain, 8 blocks of 512k samples per call, 181 calls): B1 and
-    B2 once per block, B3 never; (b) `receiver_chain('gps')` at its
+    flagship chain, 8 blocks of 512k samples per call, 181 calls): F1, B1
+    and B2 once per block, B3 never; (b) `receiver_chain('gps')` at its
     defaults (6 s at 2.048 MS/s, 2 s segments): whole segments processed,
     B1 launched, every key printed; (c) `weak_scaling([1])` on the card,
     its child printing the worker's launch counts: no error, efficiency
@@ -651,14 +654,17 @@ def make_gps_blocks(rng, fs, dev, code_phase) -> torch.Tensor:
 
 
 def reset_launches():
-    from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf, cuda_psd
+    from gps_jamming_tpu_torch.ops import (cuda_caf, cuda_front, cuda_pcf,
+                                           cuda_psd)
     cuda_psd.LAUNCHES = cuda_pcf.LAUNCHES = cuda_caf.LAUNCHES = 0
+    cuda_front.LAUNCHES = 0
 
 
 def read_launches() -> dict:
-    from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf, cuda_psd
+    from gps_jamming_tpu_torch.ops import (cuda_caf, cuda_front, cuda_pcf,
+                                           cuda_psd)
     return {"welch_psd": cuda_psd.LAUNCHES, "pcf": cuda_pcf.LAUNCHES,
-            "caf_std": cuda_caf.LAUNCHES}
+            "caf_std": cuda_caf.LAUNCHES, "front": cuda_front.LAUNCHES}
 
 
 def b2_kernels_per_call(call, calls: int) -> str:
@@ -1894,7 +1900,7 @@ def sharded_analysis(paths, devs, label, card) -> dict:
                                 "devices": SHARD_DEVICES},
                 f"{label}: mesh {out['mesh']}")
     fail_unless(launches == {"welch_psd": SHARD_DEVICES,
-                             "pcf": SHARD_DEVICES, "caf_std": 0},
+                             "pcf": SHARD_DEVICES, "caf_std": 0, "front": 0},
                 f"{label}: launches {launches}, expected B2 and B1 "
                 f"{SHARD_DEVICES} times each")
     chunk = CFG.detector.power_chunk_samples
@@ -2574,7 +2580,8 @@ def large_path(fx8: dict, fx_gps: dict, dev, card) -> tuple[dict, dict]:
           f"{sorted(a['prn'] for a in out['acquired'])}), Doppler error "
           f"{[round(got[p] - truth[p], 1) for p in sorted(got) if p in truth]}"
           f" Hz; launches {std_launches}", flush=True)
-    fail_unless(std_launches == {"welch_psd": 0, "pcf": 0, "caf_std": 1},
+    fail_unless(std_launches == {"welch_psd": 0, "pcf": 0, "caf_std": 1,
+                                 "front": 0},
                 f"phase 10b: launches {std_launches}, expected one of B3")
     fail_unless(sorted(got) == sorted(a["prn"] for a in out["acquired"]),
                 "phase 10b: std and the CLI's acquisition differ")
@@ -2613,7 +2620,8 @@ def large_path(fx8: dict, fx_gps: dict, dev, card) -> tuple[dict, dict]:
           f"(the tone's {tone_bin}), {float(psd[tone_bin] / psd.median()):.1f}"
           f" x the median bin; max_abs_err {abs_err:.3e} against "
           f"welch_psd_plain; launches {psd_launches}", flush=True)
-    fail_unless(psd_launches == {"welch_psd": 1, "pcf": 0, "caf_std": 0},
+    fail_unless(psd_launches == {"welch_psd": 1, "pcf": 0, "caf_std": 0,
+                                 "front": 0},
                 f"phase 10c: launches {psd_launches}, expected one of B2")
     fail_unless(int(psd.argmax()) == tone_bin,
                 f"phase 10c: the PSD peaks at bin {int(psd.argmax())}")
@@ -2689,8 +2697,10 @@ def benchmark_phase(dev, card: str, kernels: list) -> dict:
     print(f"11a single_chip: {row}; {seconds:.1f} s; launches {la} "
           f"({BENCH_CHAIN_CALLS} chain calls of 8 blocks); card {card}",
           flush=True)
-    fail_unless(la == {"welch_psd": want, "pcf": want, "caf_std": 0},
-                f"11a: launches {la}, expected B2 and B1 {want} times each")
+    fail_unless(la == {"welch_psd": want, "pcf": want, "caf_std": 0,
+                       "front": want},
+                f"11a: launches {la}, expected F1, B2 and B1 {want} times "
+                "each")
     fail_unless(row["backend"] == "gpu"
                 and row["msamples_per_s_per_chip"] > 0,
                 f"11a: single_chip {row}")
@@ -2792,7 +2802,7 @@ def phases(args_cli, start_render) -> int:
     from gps_jamming_tpu_torch.models.receiver import acquisition as acq
     from gps_jamming_tpu_torch.models.receiver import galileo, glonass
     from gps_jamming_tpu_torch.models.receiver import tracking
-    from gps_jamming_tpu_torch.ops import caf, codes, cuda_psd, iq
+    from gps_jamming_tpu_torch.ops import caf, codes, cuda_front, cuda_psd, iq
     from gps_jamming_tpu_torch.runtime import pipeline
     from gps_jamming_tpu_torch.sim import constellation
     from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
@@ -2995,8 +3005,8 @@ def phases(args_cli, start_render) -> int:
         outs.append(out)
     launches = read_launches()
     fail_unless(launches == {"welch_psd": N_BLOCKS, "pcf": N_BLOCKS,
-                             "caf_std": 0},
-                f"main path: expected {N_BLOCKS} launches of B2 and B1, "
+                             "caf_std": 0, "front": N_BLOCKS},
+                f"main path: expected {N_BLOCKS} launches of F1, B2 and B1, "
                 f"none of B3, got {launches}")
     # the receiver's acquisition (B1 in stats mode) and entry()'s forward
     # (B2 + B1 surface), counted apart from the main path
@@ -3014,11 +3024,13 @@ def phases(args_cli, start_render) -> int:
     fwd_out = fwd(raw_ex)
     torch.cuda.synchronize()
     fwd_launches = read_launches()
-    fail_unless(acq_launches == {"welch_psd": 0, "pcf": 1, "caf_std": 0},
+    fail_unless(acq_launches == {"welch_psd": 0, "pcf": 1, "caf_std": 0,
+                                 "front": 0},
                 f"acquire_all: launches {acq_launches}, expected one of B1")
-    fail_unless(fwd_launches == {"welch_psd": 1, "pcf": 1, "caf_std": 0},
+    fail_unless(fwd_launches == {"welch_psd": 1, "pcf": 1, "caf_std": 0,
+                                 "front": 1},
                 f"entry forward: launches {fwd_launches}, expected one of "
-                "B2 and of B1")
+                "F1, of B2 and of B1")
 
     for b, (psd, pm, flags, peak) in enumerate(outs):
         fail_unless(psd.shape == (1024,) and pm.shape == (16,)
@@ -3072,6 +3084,38 @@ def phases(args_cli, start_render) -> int:
         ok, abs_err, rel = close(g.cpu(), r, 1e-3, 1e-4 * float(r.max()))
         fail_unless(ok, f"forward {nm} differs from the CPU path "
                         f"(max_abs_err {abs_err:.3e})")
+    # kernel F1 vs plain on the first block at the main path's shape (512k
+    # samples in 16 chunks of 32768): x bitwise, pm within rtol 1e-6 (F1
+    # rounds each chunk's exact integer sum once, torch's float32 reduce
+    # at every add), flags equal, bitwise repeatable; times of both
+    front_args = (raw[0], entry.CHUNK, CFG.detector.baseline_percentile,
+                  CFG.detector.power_rise_db)
+    got = cuda_front.block_front(*front_args)
+    ref = cuda_front.block_front_reference(*front_args)
+    fail_unless(bool(torch.equal(got[0], ref[0])),
+                "F1: x differs from its plain version")
+    ok, abs_err, rel = close(got[1], ref[1], 1e-6, 0.0)
+    fail_unless(ok, f"F1: pm differs from its plain version (max_rel_err "
+                    f"{rel:.3e}, rtol 1e-6)")
+    fail_unless(bool(torch.equal(got[2], ref[2])),
+                "F1: flags differ from its plain version")
+    again = cuda_front.block_front(*front_args)
+    fail_unless(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                "F1: two calls differ")
+    ms, plain_ms = time_pair(
+        lambda: cuda_front.block_front(*front_args),
+        lambda: cuda_front.block_front_reference(*front_args))
+    # int8 in, complex64 x, float32 pm and bool flags out; its arithmetic
+    # is integer
+    front = with_bound({"max_abs_err": abs_err, "max_rel_err": rel,
+                        "ms": ms, "plain_ms": plain_ms}, 0.0,
+                       10.0 * N_BLOCK + 5.0 * got[1].numel())
+    print(f"F1 block_front n={N_BLOCK} chunk={entry.CHUNK}: x bitwise, pm "
+          f"max_abs_err {abs_err:.3e} max_rel_err {rel:.3e} (rtol 1e-6), "
+          f"flags equal, bitwise repeatable; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; bound {front['bound_ms']:.6f} ms "
+          f"({front['bound_by']}), share of bound "
+          f"{front['bound_share']:.3f}; card {card}", flush=True)
     med = statistics.median(step_s)
     print(f"main path: detect_acquire_step x{N_BLOCKS} blocks of {N_BLOCK} "
           f"samples: median {med * 1e3:.3f} ms/block "
@@ -3096,8 +3140,8 @@ def phases(args_cli, start_render) -> int:
         std_outs.append(out)
     std_launches = read_launches()
     fail_unless(std_launches == {"welch_psd": N_BLOCKS, "pcf": 0,
-                                 "caf_std": N_BLOCKS},
-                f"std main path: expected {N_BLOCKS} launches of B2 and "
+                                 "caf_std": N_BLOCKS, "front": N_BLOCKS},
+                f"std main path: expected {N_BLOCKS} launches of F1, B2 and "
                 f"B3, none of B1, got {std_launches}")
     for b, (psd, pm, flags, peak) in enumerate(std_outs):
         fail_unless(peak.shape == (32,) and bool(torch.isfinite(peak).all()),
@@ -3130,7 +3174,8 @@ def phases(args_cli, start_render) -> int:
     res = acq.acquire_all(blocks, replica, FS, CFG.acquisition, method="std")
     torch.cuda.synchronize()
     gps_std_launches = read_launches()
-    fail_unless(gps_std_launches == {"welch_psd": 0, "pcf": 0, "caf_std": 1},
+    fail_unless(gps_std_launches == {"welch_psd": 0, "pcf": 0, "caf_std": 1,
+                                     "front": 0},
                 f"acquire_all(std): launches {gps_std_launches}, expected "
                 "one of B3")
     check_acquired("acquire_all(std) GPS", res, PRN - 1, CODE_PHASE,
@@ -3168,8 +3213,10 @@ def phases(args_cli, start_render) -> int:
     gi = GAL_PRN - 1
     gal = {}
     for method, hz_tol, want in (
-            ("std", 100.0, {"welch_psd": 0, "pcf": 0, "caf_std": 1}),
-            ("auto", 250.0, {"welch_psd": 0, "pcf": 1, "caf_std": 0})):
+            ("std", 100.0, {"welch_psd": 0, "pcf": 0, "caf_std": 1,
+                            "front": 0}),
+            ("auto", 250.0, {"welch_psd": 0, "pcf": 1, "caf_std": 0,
+                             "front": 0})):
         reset_launches()
         res = acq.acquire_all(gal_blocks, gal_rep, GAL_FS, CFG.acquisition,
                               method=method, **gal_kw)
@@ -3223,8 +3270,10 @@ def phases(args_cli, start_render) -> int:
         label = f"GPS {m['fs'] / 1e6:.1f} MS/s"
         times = {}
         for method, hz_tol, want in (
-                ("pcf", 250.0, {"welch_psd": 0, "pcf": 1, "caf_std": 0}),
-                ("std", 200.0, {"welch_psd": 0, "pcf": 0, "caf_std": 1})):
+                ("pcf", 250.0, {"welch_psd": 0, "pcf": 1, "caf_std": 0,
+                                "front": 0}),
+                ("std", 200.0, {"welch_psd": 0, "pcf": 0, "caf_std": 1,
+                                "front": 0})):
             args_m = (m["blocks"], m["rep"], m["fs"], CFG.acquisition)
             reset_launches()
             res = acq.acquire_all(*args_m, method=method)
@@ -3489,6 +3538,24 @@ def phases(args_cli, start_render) -> int:
             **{p: v[k["name"]] for p, v in large_launches.items()},
             **{p: v[k["name"]] for p, v in bench_launches.items()}}
         k["library_ms"] = None
+    kernels.append({
+        "name": "front", "route": "cuda",
+        "source": "gps_jamming_tpu_torch/csrc/block_front.cu",
+        "replaces": "no Pallas kernel: the port's plain front, "
+                    "iq.int8_to_complex and ops/power.py",
+        **{k: front[k] for k in ("max_abs_err", "max_rel_err", "ms",
+                                 "plain_ms", "bound_ms", "bound_by",
+                                 "bound_share")},
+        "launches": launches["front"],
+        "launches_per_step": launches["front"] / N_BLOCKS,
+        "launches_by_path": {
+            "detect_acquire_step": launches["front"],
+            "detect_acquire_step_std": std_launches["front"],
+            "entry_forward": fwd_launches["front"],
+            "acquire_all_pcf": acq_launches["front"],
+            "benchmark_single_chip":
+                bench_launches["benchmark_single_chip"]["front"]},
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

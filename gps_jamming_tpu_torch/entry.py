@@ -17,7 +17,7 @@ import torch
 
 from .config import DEFAULT_CONFIG as CFG
 from .device import as_device
-from .ops import caf, codes, cuda_pcf, iq, power, spectral
+from .ops import caf, codes, cuda_front, cuda_pcf, iq, spectral
 from .runtime import profiling
 
 FS = CFG.frontend.sample_rate_hz
@@ -28,16 +28,19 @@ STD_FREQS = caf.doppler_bins(MAX_DOPPLER_HZ, 200.0)      # 71 bins
 CHUNK = 32768                  # power chunk, samples
 
 
-def _detect(x: torch.Tensor):
-    """Welch PSD, chunk power, baseline and +6 dB flags of one block."""
+def _front(raw_i8: torch.Tensor):
+    """(x, pm, flags) of one block: complex baseband, chunk power and the
+    +6 dB flags over the 5th-percentile baseline (kernel F1 on the card)."""
+    with profiling.span("gjt.step.ingest"):
+        return cuda_front.block_front(raw_i8, CHUNK,
+                                      CFG.detector.baseline_percentile,
+                                      CFG.detector.power_rise_db)
+
+
+def _detect(x: torch.Tensor) -> torch.Tensor:
+    """Welch PSD of one block."""
     with profiling.span("gjt.step.psd"):
-        psd = spectral.welch_psd(x, FS, CFG.spectral.nperseg)
-    with profiling.span("gjt.step.power"):
-        pm = power.chunk_power(x, CHUNK)
-        base = power.power_baseline(pm, CFG.detector.baseline_percentile)
-        thr = power.power_threshold_linear(base, CFG.detector.power_rise_db)
-        flags = pm > thr
-    return psd, pm, flags
+        return spectral.welch_psd(x, FS, CFG.spectral.nperseg)
 
 
 def entry(device=None):
@@ -52,8 +55,8 @@ def entry(device=None):
     replica = codes.gps_replica_table(FS, N_CODE, device)
 
     def forward(raw_i8: torch.Tensor):
-        x = iq.int8_to_complex(raw_i8)
-        psd, pm, flags = _detect(x)
+        x, pm, flags = _front(raw_i8)
+        psd = _detect(x)
         blocks = x[: N_INTG * N_CODE].reshape(N_INTG, N_CODE)
         surf = caf.caf_accumulate_pcf(blocks, replica, FS,
                                       max_doppler_hz=MAX_DOPPLER_HZ)
@@ -73,16 +76,16 @@ def detect_acquire_step(raw_i8: torch.Tensor,
     raw_i8: (2n,) int8 I/Q, n >= 10 code periods (512k samples in the
     benchmark). A full cold 32-PRN x +/-7 kHz x 10-period search runs on
     every block, by the PCF method (kernel B1) or, with method='std', by
-    the per-Doppler search over 71 bins (kernel B3); peak_per_prn (32,) is
+    the per-Doppler search over 71 bins (kernel B3), after the block's
+    front (kernel F1) and Welch PSD (kernel B2); peak_per_prn (32,) is
     the search's maximum per PRN. Its stages run inside the spans of
     `runtime.profiling.SPANS` (`gjt.step` and its children).
     """
     with profiling.span("gjt.step"):
         if replica is None:
             replica = codes.gps_replica_table(FS, N_CODE, raw_i8.device)
-        with profiling.span("gjt.step.ingest"):
-            x = iq.int8_to_complex(raw_i8)
-        psd, pm, flags = _detect(x)
+        x, pm, flags = _front(raw_i8)
+        psd = _detect(x)
         with profiling.span("gjt.step.acquire"):
             blocks = x[: N_INTG * N_CODE].reshape(N_INTG, N_CODE)
             if method == "pcf":

@@ -26,7 +26,7 @@ from . import fft_plan
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("welch_psd.cu", "pcf.cu", "caf_std.cu")
+SOURCES = ("welch_psd.cu", "pcf.cu", "caf_std.cu", "block_front.cu")
 HEADERS = ("fft_smem.cuh", "fft_reg.cuh", "fft_large.cuh",
            "pcf_correlate.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -44,12 +44,16 @@ FFT_MIN_N, FFT_MAX_N, FFT_MAX_RADIX = 128, 16384, 127
 FFT_LARGE_MAX_N = 131072
 FFT_STD_MAX_N = 262144
 FFT_ROW_MAX_RADIX = 1021
+# The most power chunks kernel F1 takes in one call (a power of two: its
+# last block sorts them in shared memory, 32 KB at the most).
+FRONT_MAX_CHUNKS = 8192
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               f"-DGJT_FFT_MIN_N={FFT_MIN_N}", f"-DGJT_FFT_MAX_N={FFT_MAX_N}",
               f"-DGJT_FFT_MAX_RADIX={FFT_MAX_RADIX}",
               f"-DGJT_FFT_ROW_MAX_RADIX={FFT_ROW_MAX_RADIX}",
               f"-DGJT_FFT_LARGE_MAX_N={FFT_LARGE_MAX_N}",
-              f"-DGJT_FFT_STD_MAX_N={FFT_STD_MAX_N}")
+              f"-DGJT_FFT_STD_MAX_N={FFT_STD_MAX_N}",
+              f"-DGJT_FRONT_MAX_CHUNKS={FRONT_MAX_CHUNKS}")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,6 +69,9 @@ _SIGNATURES = {
     "gjt_caf_std_large": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, _P],
     "gjt_corr_cluster_n1": [_I],
+    "gjt_front_scratch_bytes": [],
+    "gjt_block_front": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I,
+                        ctypes.c_float, ctypes.c_float, _P],
 }
 
 

@@ -161,10 +161,10 @@ class Profiler:
 # The spans the program opens, by `span`, each nested by time in the one
 # that encloses it on the host thread:
 #   gjt.step          entry.detect_acquire_step, the whole call
-#   gjt.step.ingest   its int8 -> complex64 conversion
+#   gjt.step.ingest   entry._front: the int8 -> complex64 conversion,
+#                     chunk power, baseline and flags (kernel F1 on the
+#                     card, ops.cuda_front.block_front)
 #   gjt.step.psd      entry._detect's Welch PSD
-#   gjt.step.power    entry._detect's chunk power, baseline, threshold and
-#                     flags
 #   gjt.step.acquire  the PCF (or std) search and its per-PRN peak
 #   gjt.b1.launch     kernel B1's host side on a CUDA tensor
 #                     (ops.cuda_pcf.pcf_search: checks, outputs, build,
@@ -173,8 +173,8 @@ class Profiler:
 #                     (ops.cuda_psd.welch_psd_fused, over all its rows)
 # Every name starts with "gjt.", so that a trace reader can tell them from
 # the operators; none holds a kernel's name.
-SPANS = ("gjt.step", "gjt.step.ingest", "gjt.step.psd", "gjt.step.power",
-         "gjt.step.acquire", "gjt.b1.launch", "gjt.b2.launch")
+SPANS = ("gjt.step", "gjt.step.ingest", "gjt.step.psd", "gjt.step.acquire",
+         "gjt.b1.launch", "gjt.b2.launch")
 
 _NO_SPAN = contextlib.nullcontext()
 

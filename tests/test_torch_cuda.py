@@ -149,6 +149,112 @@ def test_welch_dispatch_on_cuda(dev):
     assert cuda_psd.LAUNCHES == before + 2
 
 
+# Kernel F1, the monitor step's block front, against its plain version on
+# the card: the main path's 512k samples and entry()'s 128k in chunks of
+# 32768, a partial last chunk, and 8000 chunks of 64 samples ending in a
+# ragged 3 samples (near the most, build.FRONT_MAX_CHUNKS = 8192). x is
+# bitwise; pm rtol 1e-6: F1 rounds
+# each chunk's exact integer sum once, torch's float32 reduction at every
+# add (tests/test_torch_front.py holds torch's within 1e-6 of the exact
+# mean); the baseline and the threshold are torch.quantile's and the
+# plain product's on F1's own pm, bitwise; the flags equal.
+FRONT_CASES = [(1 << 19, 32768), (1 << 17, 32768), ((1 << 19) + 1000, 32768),
+               (8000 * 64 - 5, 64)]
+
+
+def _front_raw(n, seed, dev, offset=0):
+    """(2n,) int8 noise with a strong tone over the second tenth, as a
+    view `offset` bytes into its buffer."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(0.0, 6.0, 2 * n + offset)
+    lo, hi = offset + 2 * (n // 10), offset + 2 * (n // 5)
+    v[lo:hi] += 60.0
+    buf = torch.from_numpy(np.clip(np.round(v), -128, 127).astype(np.int8))
+    return buf.to(dev)[offset:]
+
+
+@pytest.mark.parametrize("n,chunk", FRONT_CASES)
+def test_front_kernel_matches_plain(dev, n, chunk):
+    from gps_jamming_tpu_torch.ops import cuda_front
+    raw = _front_raw(n, n % 1009, dev)
+    before = cuda_front.LAUNCHES
+    x, pm, flags = cuda_front.block_front(raw, chunk, 5.0, 6.0)
+    base, thr = cuda_front.last_threshold(dev)
+    assert cuda_front.last_threshold("cuda") == (base, thr)
+    assert cuda_front.LAUNCHES == before + 1
+    rx, rpm, rflags = cuda_front.block_front_reference(raw, chunk, 5.0, 6.0)
+    assert torch.equal(x, rx)
+    _assert_close(pm, rpm, 1e-6, 0.0)
+    want_base = torch.quantile(pm, 0.05)
+    want_thr = want_base * 10.0 ** 0.6
+    assert base == float(want_base) and thr == float(want_thr)
+    assert torch.equal(flags, pm > want_thr) and torch.equal(flags, rflags)
+    assert bool(flags.any()) and not bool(flags.all())
+    again = cuda_front.block_front(raw, chunk, 5.0, 6.0)
+    assert all(torch.equal(a, b) for a, b in zip((x, pm, flags), again))
+
+
+def test_front_kernel_raises_above_its_chunks(dev):
+    from gps_jamming_tpu_torch.kernels import build
+    from gps_jamming_tpu_torch.ops import cuda_front
+    raw = torch.zeros(2 * (build.FRONT_MAX_CHUNKS * 64 + 1), dtype=torch.int8,
+                      device=dev)
+    before = cuda_front.LAUNCHES
+    with pytest.raises(ValueError, match="chunks"):
+        cuda_front.block_front(raw, 64, 5.0, 6.0)
+    with pytest.raises(ValueError):
+        cuda_front.block_front(raw[:-1], 64, 5.0, 6.0)      # odd byte count
+    with pytest.raises(ValueError):
+        cuda_front.block_front(raw[::2], 64, 5.0, 6.0)      # not contiguous
+    assert cuda_front.LAUNCHES == before
+    # the scratch is left as a call needs it: the next call is right
+    small = _front_raw(1 << 17, 5, dev)
+    got = cuda_front.block_front(small, 32768, 5.0, 6.0)
+    want = cuda_front.block_front_reference(small, 32768, 5.0, 6.0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("n,chunk,offset", [(100_003, 3001, 0),
+                                             ((1 << 19) + 1000, 32768, 2)])
+def test_front_kernel_raises_off_its_layout(dev, n, chunk, offset):
+    """F1 takes chunks of a multiple of 8 samples and 16-byte aligned
+    bytes (the main path's 32768-sample chunks of whole blocks): another
+    chunk or a view off that alignment raises, with no launch."""
+    from gps_jamming_tpu_torch.ops import cuda_front
+    raw = _front_raw(n, n % 1009, dev, offset)
+    before = cuda_front.LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_front.block_front(raw, chunk, 5.0, 6.0)
+    assert cuda_front.LAUNCHES == before
+
+
+@pytest.mark.parametrize("method", ["pcf", "std"])
+def test_monitor_step_front_is_one_launch(dev, monkeypatch, method):
+    """On CUDA tensors the monitor step (both methods) and entry()'s forward
+    take their front from F1, one launch a call, with no torch.quantile
+    and no plain chunk power on the path; the outputs match the CPU's."""
+    from gps_jamming_tpu_torch import entry
+    from gps_jamming_tpu_torch.ops import codes, cuda_front, power
+    raw = _front_raw(1 << 19, 11, dev)
+    replica = codes.gps_replica_table(entry.FS, entry.N_CODE, dev)
+    cpu = entry.detect_acquire_step(raw.cpu(), method=method)
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("plain front on the card")
+
+    monkeypatch.setattr(torch, "quantile", forbidden)
+    monkeypatch.setattr(power, "chunk_power", forbidden)
+    before = cuda_front.LAUNCHES
+    got = entry.detect_acquire_step(raw, replica, method=method)
+    assert cuda_front.LAUNCHES == before + 1
+    fwd, (raw_ex,) = entry.entry(dev)
+    fwd(raw_ex)
+    assert cuda_front.LAUNCHES == before + 2
+    monkeypatch.undo()
+    _assert_close(got[1].cpu(), cpu[1], 1e-6, 0.0)
+    assert torch.equal(got[2].cpu(), cpu[2])
+
+
 @pytest.mark.parametrize("n,nb,nprn", [(2048, 10, 32), (256, 4, 5),
                                        (16384, 4, 3), (2400, 10, 32),
                                        (3200, 10, 32), (10368, 4, 3),
@@ -317,9 +423,13 @@ def test_caf_std_dispatch_on_cuda(dev):
 def test_monitor_step_spans_on_cuda(dev, tmp_path):
     """One monitor step on the card inside `torch_trace`: one
     `gjt.b2.launch` inside `gjt.step.psd` and one `gjt.b1.launch` inside
-    `gjt.step.acquire`, each kernel's device records starting after its
-    launch span opens, and no launch of the step lost (`torch_trace`
-    raises on one; the trace is read again here)."""
+    `gjt.step.acquire`, each kernel's device records launched from within
+    its launch span, and no launch of the step lost (`torch_trace` raises
+    on one; the trace is read again here). A device record is tied to its
+    launch call by the profiler's correlation id, not by its time: in a
+    trace the device clock may lie up to 1.7 ms before the host's (on an
+    H100, in 9 of 60 traces), so a kernel can seem to start before it was
+    launched."""
     import json
 
     from gps_jamming_tpu_torch import entry
@@ -355,8 +465,15 @@ def test_monitor_step_spans_on_cuda(dev, tmp_path):
         k in e["name"] for k in ("pcf_forward_kernel", "reg_forward_kernel",
                                  "pcf_correlate"))]
     assert b2_k and b1_k
-    assert all(e["ts"] >= b2[0] for e in b2_k)
-    assert all(e["ts"] >= b1[0] for e in b1_k)
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+
+    def launched_within(k, span):
+        return span[0] <= launched[k["args"]["correlation"]] <= span[1]
+
+    assert all(launched_within(e, b2) for e in b2_k)
+    assert all(launched_within(e, b1) for e in b1_k)
 
 
 def _c1_blocks(system, dev):

@@ -96,6 +96,7 @@ def test_port_imports_no_jax():
         "gps_jamming_tpu_torch.ops.power",
         "gps_jamming_tpu_torch.ops.spectral",
         "gps_jamming_tpu_torch.ops.cuda_psd",
+        "gps_jamming_tpu_torch.ops.cuda_front",
         "gps_jamming_tpu_torch.ops.corr", "gps_jamming_tpu_torch.ops.caf",
         "gps_jamming_tpu_torch.ops.cuda_pcf",
         "gps_jamming_tpu_torch.ops.cuda_caf",

@@ -9,7 +9,7 @@ CPU.
   `lost_launches` on a host trace and on made-up events.
 - `span` and `SPANS`: outside a profiler one shared no-op context that
   makes no RecordFunction; under a host profiler one monitor step on CPU
-  tensors records `gjt.step` with its four stages inside it, in order,
+  tensors records `gjt.step` with its three stages inside it, in order,
   and no kernel launch span; the names keep clear of the benchmark's own
   spans and of the kernel names its roofline metrics match; the kernel
   wrappers import `runtime.profiling` with no import cycle.
@@ -136,7 +136,7 @@ def test_span_outside_a_profiler_is_one_no_op(monkeypatch):
 
 def test_monitor_step_spans_nest_on_the_cpu():
     """One step of 65 536 samples (two power chunks) under a host profiler:
-    one `gjt.step`, its four stages inside it in the order they run, and no
+    one `gjt.step`, its three stages inside it in the order they run, and no
     launch span, since the CPU runs the kernels' plain versions."""
     rng = np.random.default_rng(3)
     raw = torch.from_numpy(iq.uint8_np_to_int8(
@@ -152,7 +152,7 @@ def test_monitor_step_spans_nest_on_the_cpu():
     (step,) = [sp for sp in spans if sp[2] == "gjt.step"]
     stages = [sp for sp in spans if sp[2] != "gjt.step"]
     assert [sp[2] for sp in stages] == ["gjt.step.ingest", "gjt.step.psd",
-                                        "gjt.step.power", "gjt.step.acquire"]
+                                        "gjt.step.acquire"]
     assert all(step[0] <= s and e <= step[1] for s, e, _ in stages)
     assert all(a[1] <= b[0] for a, b in zip(stages, stages[1:]))
 
