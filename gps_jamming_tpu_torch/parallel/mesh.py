@@ -164,8 +164,25 @@ def multihost_mesh(n_antenna: int | None = None, devices=None) -> Mesh:
 
 # --- placement ---------------------------------------------------------------
 
+# Bytes that `_to` has placed from host memory (a NumPy array or a CPU
+# tensor) on a mesh device, counted whatever the device, the CPU included:
+# the sharded path's uploads. `reset_upload_bytes` and `upload_bytes` read
+# it, as the kernels' LAUNCHES are read.
+UPLOAD_BYTES = 0
+
+
+def reset_upload_bytes() -> None:
+    global UPLOAD_BYTES
+    UPLOAD_BYTES = 0
+
+
+def upload_bytes() -> int:
+    return UPLOAD_BYTES
+
+
 def _to(x, device: torch.device) -> torch.Tensor:
     """A host array or tensor on `device` (complex as complex64)."""
+    global UPLOAD_BYTES
     if not isinstance(x, torch.Tensor):
         x = np.asarray(x)
         if np.iscomplexobj(x):
@@ -173,6 +190,8 @@ def _to(x, device: torch.device) -> torch.Tensor:
         x = torch.from_numpy(np.ascontiguousarray(x))
     elif x.is_complex():
         x = x.to(torch.complex64)
+    if x.device.type == "cpu":
+        UPLOAD_BYTES += x.numel() * x.element_size()
     return x.to(device, non_blocking=True)
 
 

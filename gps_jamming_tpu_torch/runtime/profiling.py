@@ -171,10 +171,23 @@ class Profiler:
 #                     twiddles, the call and its error check)
 #   gjt.b2.launch     kernel B2's host side on a CUDA tensor
 #                     (ops.cuda_psd.welch_psd_fused, over all its rows)
+#   gjt.sharded       runtime.sharded.analyze_capture_sharded, the whole
+#                     call (`detect --devices N`)
+#   gjt.sharded.read  its reads of the capture files (ops.iq.read_iq_file:
+#                     uint8 -> complex64 on the host)
+#   gjt.sharded.psd_power  the shards' upload and the fused Welch PSD and
+#                     chunk power (parallel.fusion.sharded_psd_and_power)
+#   gjt.sharded.acquire    the PCF search of the capture head
+#                     (parallel.fusion.sharded_caf_acquire)
+#   gjt.sharded.tdoa  the onset's slices, their upload and the pair
+#                     cross-correlation's lags
+#   gjt.sharded.collect    the host reads of the results and the JSON dict
 # Every name starts with "gjt.", so that a trace reader can tell them from
 # the operators; none holds a kernel's name.
 SPANS = ("gjt.step", "gjt.step.ingest", "gjt.step.psd", "gjt.step.acquire",
-         "gjt.b1.launch", "gjt.b2.launch")
+         "gjt.b1.launch", "gjt.b2.launch", "gjt.sharded", "gjt.sharded.read",
+         "gjt.sharded.psd_power", "gjt.sharded.acquire", "gjt.sharded.tdoa",
+         "gjt.sharded.collect")
 
 _NO_SPAN = contextlib.nullcontext()
 

@@ -1,6 +1,6 @@
 """Every public name of the JAX package has its counterpart in the port,
-apart from the TPU artifacts listed below, and the last ones ported hold
-to the JAX functions on the CPU.
+apart from the TPU artifacts and the decided departures listed below, and
+the last ones ported hold to the JAX functions on the CPU.
 
 Tolerances: codes, tables, overlays, `uint8_to_int8`, the host replica
 planes and the result tuples' fields equal; `circular_correlation_power`
@@ -59,6 +59,13 @@ TPU_NAMES = {
     "runtime/profiling.py": {"xla_trace"},
 }
 
+# Names the port replaced by a decided departure (ROADMAP §C), each beside
+# what the port has in its place.
+DEPARTED = {
+    "runtime/sharded.py": {
+        "SLICE_LEN": "config.TdoaConfig.correlation_slice_size (C18)"},
+}
+
 
 def _public_names(path: str) -> set[str]:
     tree = ast.parse(open(path).read())
@@ -86,13 +93,19 @@ def test_every_public_name_of_the_jax_package_is_ported():
             port = os.path.join(REPO, "gps_jamming_tpu_torch", rel)
             want = _public_names(os.path.join(root, f))
             got = _public_names(port) if os.path.exists(port) else set()
-            left = want - got - TPU_NAMES.get(rel, set())
+            left = want - got - TPU_NAMES.get(rel, set()) \
+                - set(DEPARTED.get(rel, {}))
             if left:
                 missing[rel] = sorted(left)
     assert not missing, missing
     # the TPU names listed are still the JAX package's (no stale entry)
     for rel, names in TPU_NAMES.items():
         assert names <= _public_names(os.path.join(jax_root, rel)), rel
+    # a departed name is still the JAX package's, and gone from the port
+    for rel, names in DEPARTED.items():
+        assert set(names) <= _public_names(os.path.join(jax_root, rel)), rel
+        assert not set(names) & _public_names(
+            os.path.join(REPO, "gps_jamming_tpu_torch", rel)), rel
     for rel in TPU_MODULES:
         assert os.path.exists(os.path.join(jax_root, rel)), rel
 

@@ -8,13 +8,18 @@ and the port's `analyze_capture_sharded(paths, devices=['cpu'] * 8)`: the
 mesh, the power ranges, the acquired PRNs and their Dopplers and the TDOA
 lags equal; baseline and threshold rtol 1e-5; the acquisition peaks rtol
 2e-4 (float32 FFTs of another factorization); the fused PSD peak within
-1e-3 dB at the same frequency. The port's sharded PCF surface equals its
-single-device `caf_accumulate_pcf` per antenna (rtol 2e-4, atol 1e-3 *
-max). The port's CLI (`detect ... --devices 8 --device cpu`) prints the
-JAX CLI's JSON, and rejects each flag of the serial pipeline with the JAX
-CLI's exit code and message.
+1e-3 dB at the same frequency. The JAX package fixes the TDOA slice at
+its `SLICE_LEN` (4096); the port reads it from
+`cfg.tdoa.correlation_slice_size` (ROADMAP C18), so the port runs at the
+JAX width where the two are compared. The port's sharded PCF surface
+equals its single-device `caf_accumulate_pcf` per antenna (rtol 2e-4,
+atol 1e-3 * max). The port's CLI (`detect ... --devices 8 --device cpu`)
+prints the JAX CLI's JSON, its TDOA lags those of the port's default
+slice, and rejects each flag of the serial pipeline with the JAX CLI's
+exit code and message.
 """
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -36,6 +41,9 @@ from gps_jamming_tpu_torch.runtime import sharded
 torch.set_num_threads(2)
 
 FS = 2.048e6
+# the port's config at the JAX package's TDOA slice
+JAX_WIDTH = dataclasses.replace(CFG, tdoa=dataclasses.replace(
+    CFG.tdoa, correlation_slice_size=jsharded.SLICE_LEN))
 
 
 @pytest.fixture(scope="module")
@@ -53,6 +61,12 @@ def capture_set(tmp_path_factory):
 @pytest.fixture(scope="module")
 def jax_out(capture_set):
     return jsharded.analyze_capture_sharded(capture_set, n_devices=8)
+
+
+@pytest.fixture(scope="module")
+def port_out(capture_set):
+    return sharded.analyze_capture_sharded(capture_set, devices=["cpu"] * 8,
+                                           cfg=JAX_WIDTH)
 
 
 def _same_analysis(got, want):
@@ -73,8 +87,8 @@ def _same_analysis(got, want):
     assert got["tdoa_pairs"] == want["tdoa_pairs"]
 
 
-def test_sharded_detect_matches_jax(capture_set, jax_out):
-    got = sharded.analyze_capture_sharded(capture_set, devices=["cpu"] * 8)
+def test_sharded_detect_matches_jax(port_out, jax_out):
+    got = port_out
     assert got["mesh"] == {"antenna": 3, "time": 2, "devices": 6}
     assert list(got) == list(jax_out)
     _same_analysis(got, jax_out)
@@ -116,7 +130,7 @@ def _cli(mod, argv):
     return rc, out.getvalue(), err.getvalue()
 
 
-def test_sharded_detect_cli_matches_jax(capture_set):
+def test_sharded_detect_cli_matches_jax(capture_set, port_out):
     rc, out, _ = _cli(tcli, ["detect", *capture_set, "--devices", "8",
                              "--device", "cpu"])
     assert rc == 0
@@ -124,7 +138,12 @@ def test_sharded_detect_cli_matches_jax(capture_set):
     assert jrc == 0
     got, want = json.loads(out), json.loads(jout)
     assert list(got) == list(want)
-    _same_analysis(got, want)
+    # the CLI runs the port's default slice, the JAX CLI its SLICE_LEN:
+    # each lag as the port's function gives it at that width
+    assert got["tdoa_pairs"] == sharded.analyze_capture_sharded(
+        capture_set, devices=["cpu"] * 8)["tdoa_pairs"]
+    assert want["tdoa_pairs"] == port_out["tdoa_pairs"]
+    _same_analysis(dict(got, tdoa_pairs=port_out["tdoa_pairs"]), want)
 
 
 @pytest.mark.parametrize("flags", [
