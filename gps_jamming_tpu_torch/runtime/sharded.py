@@ -13,8 +13,9 @@ of capture files (the reference's 1-3 RTL-SDR receivers,
 ui_mainwindow.py:633-651) and the time axis taking the remaining devices:
 each antenna's stream is split into time shards whose PSD, power and CAF
 partials are fused on the mesh, replacing the reference's per-receiver
-HTTP fan-in (sdrout.c:10-57). Each file is read once on the host and each
-shard uploaded once, to its own device. Where there are fewer devices
+HTTP fan-in (sdrout.c:10-57). Each file's bytes are read once on the
+host, and each shard is uploaded once as those bytes, 2 B a sample, to its
+own device, which makes them complex64. Where there are fewer devices
 than files, the antenna rows take them in turn: three files on one card
 are a 3 x 1 mesh of that card, and every output equals three cards'.
 
@@ -32,6 +33,7 @@ import itertools
 import os
 
 import numpy as np
+import torch
 
 from ..config import DEFAULT_CONFIG, FrameworkConfig
 from ..models import detector
@@ -97,14 +99,18 @@ def _analyze(paths, n_devices, cfg, system, sample_rate, max_seconds,
         raise ValueError(f"capture too short for a {n_time}-way time "
                          f"split of {chunk}-sample chunks")
     with profiling.span("gjt.sharded.read"):
-        caps = [iq_ops.read_iq_file(p, convention="centered",
-                                    count=2 * L * n_time) for p in paths]
+        raws = [np.fromfile(p, dtype=np.uint8, count=2 * L * n_time)
+                for p in paths]
 
     # --- sharded PSD + F1 power profiles, then PCF acquisition on the
-    # capture head: every shard's work is queued before any result is read
+    # capture head: every shard's work is queued before any result is read.
+    # The bytes go up as they are (2 B a sample) and each shard becomes
+    # complex64 on its own device, x - 127.5, bitwise `read_iq_file`'s
+    # 'centered' result.
     with profiling.span("gjt.sharded.psd_power"):
-        grid = mesh_lib.place_blocks([c.reshape(n_time, L) for c in caps],
-                                     mesh)
+        grid = [[iq_ops.uint8_to_complex(s) for s in row]
+                for row in mesh_lib.place_blocks(
+                    [r.reshape(n_time, 2 * L) for r in raws], mesh)]
         psd_fused, _, pm = fusion.sharded_psd_and_power(
             grid, mesh, fs, cfg.detector, cfg.spectral)
     surf = None
@@ -154,8 +160,11 @@ def _analyze(paths, n_devices, cfg, system, sample_rate, max_seconds,
             start = ranges0[0][0] // 2 if ranges0 else 0
             width = min(cfg.tdoa.correlation_slice_size, L * n_time)
             start = min(start, L * n_time - width)
-            xc = fusion.sharded_pair_xcorr(
-                np.stack([c[start:start + width] for c in caps]), mesh)
+            # complex64 host slices (the same arithmetic on the CPU), so
+            # every mesh counts their upload alike
+            xc = fusion.sharded_pair_xcorr(iq_ops.uint8_to_complex(
+                torch.from_numpy(np.stack([r[2 * start:2 * (start + width)]
+                                           for r in raws]))), mesh)
             nfft = xc.shape[-1]
             peaks = xc.argmax(dim=-1).cpu().numpy()
             tdoa = []

@@ -49,7 +49,8 @@ overlaps running compute and is read only after its event. The sharded
 path on a mesh of one repeated card launches B1 or B3 once per shard and
 B2 once per time shard, and equals the single-device calls (rtol 2e-4,
 atol 1e-3 * max for the surfaces) and the CPU mesh; on two distinct
-cards, where the machine has them, it equals the repeated card bitwise.
+cards, where the machine has them, it equals the repeated card bitwise;
+three files on one card upload their raw bytes, 2 B a sample.
 """
 import numpy as np
 import pytest
@@ -1276,6 +1277,28 @@ def test_sharded_analysis_on_a_repeated_card_matches_cpu(dev, tmp_path):
             [(r["prn"], r["doppler_hz"]) for r in ca]
         np.testing.assert_allclose([r["peak"] for r in ga],
                                    [r["peak"] for r in ca], rtol=2e-4)
+    assert g["tdoa_pairs"] == c["tdoa_pairs"]
+
+
+def test_sharded_three_files_on_one_card_upload_their_bytes(dev, tmp_path):
+    """`detect --devices 1` over three files, a 3 x 1 mesh of one card:
+    the upload counter reads 2 B per analysed sample (the raw bytes, made
+    complex64 on the card) and 8 per TDOA slice sample; ranges, PRNs,
+    Dopplers and lags equal the `devices=['cpu']` answers."""
+    from gps_jamming_tpu_torch.parallel import mesh as mesh_lib
+    from gps_jamming_tpu_torch.runtime import sharded
+    paths, _ = _jammed_set(tmp_path)
+    L = 1 << 21                      # 64 whole chunks of 32768 a file
+    mesh_lib.reset_upload_bytes()
+    g = sharded.analyze_capture_sharded(paths, n_devices=1, devices=[dev])
+    assert mesh_lib.upload_bytes() == 3 * (2 * L + 8 * 50_000)
+    c = sharded.analyze_capture_sharded(paths, devices=["cpu"])
+    assert g["mesh"] == c["mesh"] == {"antenna": 3, "time": 1, "devices": 3}
+    for ga, ca in zip(g["per_antenna"], c["per_antenna"], strict=True):
+        assert ga["power_ranges_bytes"] == ca["power_ranges_bytes"] != []
+    for ga, ca in zip(g["acquisition"], c["acquisition"], strict=True):
+        assert [(r["prn"], r["doppler_hz"]) for r in ga] == \
+            [(r["prn"], r["doppler_hz"]) for r in ca]
     assert g["tdoa_pairs"] == c["tdoa_pairs"]
 
 

@@ -81,3 +81,19 @@ def test_file_io_matches_jax(tmp_path, convention):
         jiq.write_iq_file(str(tmp_path / "j.bin"), got)
         assert (tmp_path / "t.bin").read_bytes() == \
             (tmp_path / "j.bin").read_bytes()
+
+
+def test_uint8_to_complex_equals_the_centered_file_read(tmp_path):
+    """Every (I, Q) byte pair, as a file: `uint8_to_complex` of its bytes
+    is `read_iq_file(..., 'centered')` bit for bit (x - 127.5 is exact in
+    float32 for every byte), as the sharded path relies on."""
+    i, q = np.meshgrid(np.arange(256, dtype=np.uint8),
+                       np.arange(256, dtype=np.uint8), indexing="ij")
+    raw = np.stack([i.ravel(), q.ravel()], axis=-1).ravel()
+    p = tmp_path / "pairs.bin"
+    raw.tofile(p)
+    want = tiq.read_iq_file(str(p), convention="centered")
+    got = tiq.uint8_to_complex(torch.from_numpy(raw)).numpy()
+    assert got.dtype == want.dtype == np.complex64
+    assert got.shape == want.shape == (65536,)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

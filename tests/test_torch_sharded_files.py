@@ -17,7 +17,10 @@ hand):
   the configured 50 000 finds it;
 - under a profiler a pass opens every `gjt.sharded` span, nested in the
   whole call's; without one, no span is made; the mesh's upload counter
-  reads 8 bytes per analysed sample and per slice sample.
+  reads 2 bytes per analysed sample (the files' raw bytes, made complex64
+  on the device) and 8 per slice sample (complex64 host slices);
+- the pass never builds a capture on the host: with `read_iq_file` made
+  to raise, its answers still equal the reference.
 """
 import contextlib
 import dataclasses
@@ -78,9 +81,8 @@ def _reference(raws, cfg, width=None):
                        width or cfg["tdoa"]["correlation_slice_size"])
 
 
-def test_one_device_three_files_matches_the_reference(files, one_device):
-    _, raws, cfg = files
-    got, R = one_device, _reference(raws, cfg)
+def _assert_matches_the_reference(got, raws, cfg):
+    R = _reference(raws, cfg)
     fs = cfg["sample_rate_hz"]
     assert got["mesh"] == {"antenna": 3, "time": 1, "devices": 3}
     psd = R["psd"]
@@ -103,6 +105,11 @@ def test_one_device_three_files_matches_the_reference(files, one_device):
             for r in got["tdoa_pairs"]]
     assert lags == [(i, j, lag) for i, j, lag, _ in R["pairs"]] == \
         [(0, 1, 2500), (0, 2, 9000), (1, 2, 6500)]
+
+
+def test_one_device_three_files_matches_the_reference(files, one_device):
+    _, raws, cfg = files
+    _assert_matches_the_reference(one_device, raws, cfg)
 
 
 def test_three_devices_give_the_same_outputs(files, one_device):
@@ -155,11 +162,20 @@ def test_no_span_is_made_without_a_profiler(files, monkeypatch):
     sharded.analyze_capture_sharded(files[0], devices=["cpu"])
 
 
-def test_upload_counter_reads_8_bytes_per_sample(files):
+def test_upload_counter_reads_2_bytes_per_sample(files):
     paths, raws, cfg = files
     L = ref.analysed_samples(raws, cfg["detector"]["power_chunk_samples"])
     mesh_lib.reset_upload_bytes()
     sharded.analyze_capture_sharded(paths, devices=["cpu"])
-    assert mesh_lib.upload_bytes() == 3 * 8 * (L + 50_000)
+    assert mesh_lib.upload_bytes() == 3 * (2 * L + 8 * 50_000)
     mesh_lib.reset_upload_bytes()
     assert mesh_lib.upload_bytes() == 0
+
+
+def test_no_capture_is_built_on_the_host(files, monkeypatch):
+    def no_read(*a, **k):
+        raise AssertionError("the sharded path converted a file on the host")
+    monkeypatch.setattr(sharded.iq_ops, "read_iq_file", no_read)
+    paths, raws, cfg = files
+    got = sharded.analyze_capture_sharded(paths, devices=["cpu"])
+    _assert_matches_the_reference(got, raws, cfg)
