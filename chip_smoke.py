@@ -290,8 +290,8 @@ FIXTURES = ("gps", "galileo", "glonass", "sbas", "galileo8k")
 CLI_WITH_COUNTS = """
 import json, sys, time
 from gps_jamming_tpu_torch import cli
+from gps_jamming_tpu_torch.kernels import build
 from gps_jamming_tpu_torch.models.receiver import receiver
-from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf, cuda_psd
 stages = []
 run_receiver = receiver.run_receiver
 def counted(*a, **k):
@@ -301,9 +301,7 @@ def counted(*a, **k):
 receiver.run_receiver = counted
 t0 = time.perf_counter()
 rc = cli.main(sys.argv[1:])
-print(json.dumps({"launches": {"welch_psd": cuda_psd.LAUNCHES,
-                               "pcf": cuda_pcf.LAUNCHES,
-                               "caf_std": cuda_caf.LAUNCHES},
+print(json.dumps({"launches": build.launch_counts(),
                   "stage_seconds": stages,
                   "main_s": time.perf_counter() - t0}), file=sys.stderr)
 sys.exit(rc)
@@ -315,7 +313,7 @@ sys.exit(rc)
 STREAM_CLI_WITH_COUNTS = """
 import json, sys, time
 from gps_jamming_tpu_torch import cli
-from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf, cuda_psd
+from gps_jamming_tpu_torch.kernels import build
 from gps_jamming_tpu_torch.runtime import pipeline
 out = {}
 analyze = pipeline.analyze_capture
@@ -331,8 +329,7 @@ def counted(*a, **k):
 pipeline.analyze_capture = counted
 t0 = time.perf_counter()
 rc = cli.main(sys.argv[1:])
-out.update(launches={"welch_psd": cuda_psd.LAUNCHES, "pcf": cuda_pcf.LAUNCHES,
-                     "caf_std": cuda_caf.LAUNCHES},
+out.update(launches=build.launch_counts(),
            main_s=time.perf_counter() - t0)
 print(json.dumps(out), file=sys.stderr)
 sys.exit(rc)
@@ -354,7 +351,8 @@ OPERATOR_CLI = """
 import contextlib, io, json, os, sys, time
 import numpy as np
 from gps_jamming_tpu_torch import cli
-from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf, cuda_psd, spectral
+from gps_jamming_tpu_torch.kernels import build
+from gps_jamming_tpu_torch.ops import spectral
 from gps_jamming_tpu_torch.runtime import pipeline
 runs, dump = [], sys.argv[2]
 analyze, spectrogram_file = pipeline.analyze_capture, spectral.spectrogram_file
@@ -374,7 +372,7 @@ def saved(*a, **k):
     return sg
 pipeline.analyze_capture, spectral.spectrogram_file = counted, saved
 for argv in json.loads(sys.argv[1]):
-    cuda_psd.LAUNCHES = cuda_pcf.LAUNCHES = cuda_caf.LAUNCHES = 0
+    build.LAUNCHES.clear()
     runs.append({"argv": argv, "analyses": [], "sg": []})
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -382,9 +380,7 @@ for argv in json.loads(sys.argv[1]):
         rc = cli.main(argv)
     runs[-1].update(rc=rc, seconds=time.perf_counter() - t0,
                     out=json.loads(buf.getvalue()),
-                    launches={"welch_psd": cuda_psd.LAUNCHES,
-                              "pcf": cuda_pcf.LAUNCHES,
-                              "caf_std": cuda_caf.LAUNCHES})
+                    launches=build.launch_counts())
 print(json.dumps(runs, default=str))
 """
 # run in a child process by phase 8d: the port's `serve` verb; SIGUSR1
@@ -393,11 +389,10 @@ print(json.dumps(runs, default=str))
 SERVE_WITH_COUNTS = """
 import json, os, signal, sys
 from gps_jamming_tpu_torch import cli
-from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf, cuda_psd
+from gps_jamming_tpu_torch.kernels import build
 def counts(*_):
     with open(sys.argv[1] + ".tmp", "w") as f:
-        json.dump({"welch_psd": cuda_psd.LAUNCHES, "pcf": cuda_pcf.LAUNCHES,
-                   "caf_std": cuda_caf.LAUNCHES}, f)
+        json.dump(build.launch_counts(), f)
     os.replace(sys.argv[1] + ".tmp", sys.argv[1])
 signal.signal(signal.SIGUSR1, counts)
 sys.exit(cli.main(sys.argv[2:]))
@@ -654,35 +649,31 @@ def make_gps_blocks(rng, fs, dev, code_phase) -> torch.Tensor:
 
 
 def reset_launches():
-    from gps_jamming_tpu_torch.ops import (cuda_caf, cuda_front, cuda_pcf,
-                                           cuda_psd)
-    cuda_psd.LAUNCHES = cuda_pcf.LAUNCHES = cuda_caf.LAUNCHES = 0
-    cuda_front.LAUNCHES = 0
+    from gps_jamming_tpu_torch.kernels import build
+    build.LAUNCHES.clear()
 
 
 def read_launches() -> dict:
-    from gps_jamming_tpu_torch.ops import (cuda_caf, cuda_front, cuda_pcf,
-                                           cuda_psd)
-    return {"welch_psd": cuda_psd.LAUNCHES, "pcf": cuda_pcf.LAUNCHES,
-            "caf_std": cuda_caf.LAUNCHES, "front": cuda_front.LAUNCHES}
+    from gps_jamming_tpu_torch.kernels import build
+    return build.launch_counts()
 
 
 def b2_kernels_per_call(call, calls: int) -> str:
-    """Fails unless `calls` calls of B2's wrapper add `calls` to its
-    LAUNCHES and torch.profiler sees exactly one device kernel per call,
-    B2's own."""
+    """Fails unless `calls` calls of B2's wrapper add `calls` to its count
+    in build.LAUNCHES and torch.profiler sees exactly one device kernel per
+    call, B2's own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from gps_jamming_tpu_torch.ops import cuda_psd
+    from gps_jamming_tpu_torch.kernels import build
     call()
     torch.cuda.synchronize()
-    before = cuda_psd.LAUNCHES
+    before = build.LAUNCHES["welch_psd"]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             call()
         torch.cuda.synchronize()
-    launches = cuda_psd.LAUNCHES - before
+    launches = build.LAUNCHES["welch_psd"] - before
     kern = {ev.key: ev.count for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA}
     n_dev = sum(kern.values())
@@ -1673,7 +1664,7 @@ def operator_report(sim: dict, td: str, card: str, have_mpl: bool) -> dict:
               ["info", *sim["chirp"], sim["clean"]],
               ["record", "--dry-run", "--antennas", "3"]]
     runs = operator_cli(argvs, td, "phase 8c")
-    launches = {"welch_psd": 0, "pcf": 0, "caf_std": 0}
+    launches = {"welch_psd": 0, "pcf": 0, "caf_std": 0, "front": 0}
     if have_mpl:
         rp, spr = runs[0], runs[1]
         launches = rp["launches"]
@@ -2064,6 +2055,7 @@ def sharded_extras(a: dict, head: np.ndarray, dev, td: str, card: str):
     plain version on the CPU); three `torch_trace`s around a sharded PCF
     search in this process, each holding all 6 of B1's correlate
     kernels."""
+    from gps_jamming_tpu_torch.kernels import build
     from gps_jamming_tpu_torch.ops import (caf, codes, cuda_pcf, interp,
                                            spectral)
     from gps_jamming_tpu_torch.parallel import fusion
@@ -2105,7 +2097,7 @@ def sharded_extras(a: dict, head: np.ndarray, dev, td: str, card: str):
     held = []
     for k in range(3):
         tdir = os.path.join(td, f"trace{k}")
-        before = cuda_pcf.LAUNCHES
+        before = build.LAUNCHES["pcf"]
         with profiling.torch_trace(tdir):
             fusion.sharded_caf_acquire(head, mesh, rep, None, FS,
                                        method="pcf",
@@ -2114,7 +2106,7 @@ def sharded_extras(a: dict, head: np.ndarray, dev, td: str, card: str):
         path = os.path.join(tdir, "trace.json")
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-        held.append((cuda_pcf.LAUNCHES - before,
+        held.append((build.LAUNCHES["pcf"] - before,
                      sum("pcf_correlate" in str(e.get("name", ""))
                          for e in events),
                      len(events), os.path.getsize(path)))
@@ -2208,7 +2200,8 @@ def sharded_phase(sim: dict, td: str, card: str, dev, kernels: list) -> dict:
     fail_unless(run["out"]["per_antenna"][0]
                 == json.loads(json.dumps(a["out"]["per_antenna"][0])),
                 "phase 9d: antenna 0 differs from 9a's")
-    fail_unless(run["launches"] == {"welch_psd": 1, "pcf": 1, "caf_std": 0},
+    fail_unless(run["launches"] == {"welch_psd": 1, "pcf": 1, "caf_std": 0,
+                                    "front": 0},
                 f"phase 9d: launches {run['launches']}")
     print(f"phase 9d: `detect {os.path.basename(paths[0])} --devices 1` in "
           f"a child: mesh {run['out']['mesh']}, JSON equal to the API's; "
@@ -2287,6 +2280,7 @@ def large_b1(label, blocks, rep, fs, excl, card, reps=3, inner=1) -> dict:
     three modes, at the CPU parity tests' tolerances (surface rtol 2e-4,
     atol 2e-4 * max; stats max and sums rtol 1e-4; the arg-lag equal on
     every row), with CUDA-event times, bound and launches per call."""
+    from gps_jamming_tpu_torch.kernels import build
     from gps_jamming_tpu_torch.ops import cuda_pcf
     n = blocks.shape[-1]
     n_prn = rep.shape[0]
@@ -2294,10 +2288,10 @@ def large_b1(label, blocks, rep, fs, excl, card, reps=3, inner=1) -> dict:
     n_c = cuda_pcf.n_coarse(fs, n, 7000.0)
     args = (y, rep, n_c, 6, 2)
     ref = cuda_pcf.pcf_search_reference(*args)
-    before = cuda_pcf.LAUNCHES
+    before = build.LAUNCHES["pcf"]
     surf = cuda_pcf.pcf_search(*args)
     torch.cuda.synchronize()
-    per_call = cuda_pcf.LAUNCHES - before
+    per_call = build.LAUNCHES["pcf"] - before
     ok, abs_err, rel = close(surf, ref, 2e-4, 2e-4 * float(ref.max()))
     fail_unless(ok and per_call == 1,
                 f"B1 {label}: the surface disagrees with its plain version "
@@ -2351,12 +2345,13 @@ def large_b3(n, fs, blocks, rep, freqs, card, reps=3) -> dict:
     """Kernel B3 at one size of phase 10 against its plain version (rtol
     2e-4, atol 2e-4 * max; the arg-lag equal on every (PRN, bin) row),
     with CUDA-event times, bound and launches per call."""
+    from gps_jamming_tpu_torch.kernels import build
     from gps_jamming_tpu_torch.ops import cuda_caf
     ref = cuda_caf.caf_accumulate_reference(blocks, rep, freqs, fs)
-    before = cuda_caf.LAUNCHES
+    before = build.LAUNCHES["caf_std"]
     got = cuda_caf.caf_accumulate_fused(blocks, rep, freqs, fs)
     torch.cuda.synchronize()
-    per_call = cuda_caf.LAUNCHES - before
+    per_call = build.LAUNCHES["caf_std"] - before
     ok, abs_err, rel = close(got, ref, 2e-4, 2e-4 * float(ref.max()))
     same = got.argmax(dim=-1) == ref.argmax(dim=-1)
     fail_unless(ok and per_call == 1,
@@ -2403,6 +2398,7 @@ def large_kernels(gal_blocks, gal_rep, dev, card) -> dict:
     is one `pcf_correlate_cluster` kernel, no `large_cols_corr`. Returns
     {kernel: {size: entry}}, each entry with its errors, CUDA-event times,
     bound and launches per call."""
+    from gps_jamming_tpu_torch.kernels import build
     from gps_jamming_tpu_torch.ops import codes, cuda_pcf, cuda_psd
     from gps_jamming_tpu_torch.models.receiver import galileo
     from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
@@ -2452,7 +2448,7 @@ def large_kernels(gal_blocks, gal_rep, dev, card) -> dict:
     y = cuda_pcf.pcf_prologue(gal_blocks, GAL8K_FS)
     args = (y, gal_rep, cuda_pcf.n_coarse(GAL8K_FS, n, 7000.0), 6, 2)
     tdir = tempfile.mkdtemp(prefix="trace_b1_")
-    before = cuda_pcf.LAUNCHES
+    before = build.LAUNCHES["pcf"]
     with profiling.torch_trace(tdir):
         cuda_pcf.pcf_search(*args, stats_excl=excl)
         torch.cuda.synchronize()
@@ -2463,9 +2459,9 @@ def large_kernels(gal_blocks, gal_rep, dev, card) -> dict:
     held = {k: sum(k in nm for nm in names)
             for k in ("pcf_correlate_cluster", "large_cols_corr", "RowsCorr")}
     print(f"phase 10 trace of B1 at {n} (stats): {len(names)} device "
-          f"kernels, {held}; launches {cuda_pcf.LAUNCHES - before}; card "
+          f"kernels, {held}; launches {build.LAUNCHES['pcf'] - before}; card "
           f"{card}", flush=True)
-    fail_unless(cuda_pcf.LAUNCHES - before == 1
+    fail_unless(build.LAUNCHES["pcf"] - before == 1
                 and held == {"pcf_correlate_cluster": 1,
                              "large_cols_corr": 0, "RowsCorr": 0},
                 f"phase 10: B1 at {n} did not run its correlate stage as one "
@@ -2477,10 +2473,10 @@ def large_kernels(gal_blocks, gal_rep, dev, card) -> dict:
     for nps in LARGE_NPERSEG:
         for shape in ((n_x,), (2, n_x // 2)):
             xs = x.reshape(shape)
-            before = cuda_psd.LAUNCHES
+            before = build.LAUNCHES["welch_psd"]
             got = cuda_psd.welch_psd_fused(xs, FS, nps)
-            fail_unless(cuda_psd.LAUNCHES - before == (1 if len(shape) == 1
-                                                       else 2),
+            fail_unless(build.LAUNCHES["welch_psd"] - before
+                        == (1 if len(shape) == 1 else 2),
                         f"B2 at {nps} {shape}: not one launch per row")
             ref = cuda_psd.welch_psd_reference(xs, FS, nps)
             ok, abs_err, rel = close(got, ref, 1e-3, 1e-4 * float(ref.max()))
@@ -2657,10 +2653,8 @@ def bench_scaling_launches(rows_out: list):
 
     def run(cmd, **kw):
         cmd = list(cmd)
-        cmd[-1] += (";from gps_jamming_tpu_torch.ops import cuda_caf, "
-                    "cuda_pcf, cuda_psd;print('LAUNCHES '+json.dumps("
-                    "{'welch_psd': cuda_psd.LAUNCHES, 'pcf': "
-                    "cuda_pcf.LAUNCHES, 'caf_std': cuda_caf.LAUNCHES}))")
+        cmd[-1] += (";from gps_jamming_tpu_torch.kernels import build;"
+                    "print('LAUNCHES '+json.dumps(build.launch_counts()))")
         res = real_run(cmd, **kw)
         lines = [ln for ln in res.stdout.splitlines()
                  if ln.startswith("LAUNCHES ")]
@@ -2735,7 +2729,8 @@ def benchmark_phase(dev, card: str, kernels: list) -> dict:
                 f"11c: row {row}")
     shards = row["n_devices"]
     fail_unless(lc == {"welch_psd": 2 * BENCH_SLOPE_CALLS * shards,
-                       "pcf": 0, "caf_std": BENCH_SLOPE_CALLS * shards},
+                       "pcf": 0, "caf_std": BENCH_SLOPE_CALLS * shards,
+                       "front": 0},
                 f"11c: the worker's launches {lc}, expected B2 "
                 f"{2 * BENCH_SLOPE_CALLS} and B3 {BENCH_SLOPE_CALLS} per "
                 "shard")

@@ -33,6 +33,17 @@ def on_device(x, device=None) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(as_device(device))
 
 
+def runs_kernel(t: torch.Tensor, wrapper: str) -> bool:
+    """The route of a kernel's wrapper for `t`: True on the card (the
+    kernel), False on the CPU (the plain version); raises ValueError naming
+    `wrapper` on any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{wrapper}: unsupported device {t.device}")
+    return True
+
+
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
                  shape: tuple | None = None,
                  device: torch.device | None = None) -> None:

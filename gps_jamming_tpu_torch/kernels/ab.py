@@ -7,9 +7,9 @@ OTHER_ROOT is the root of another checkout of the repo (for example the
 parent commit, unpacked by `git archive` into a directory that .gitignore
 lists). Its `gps_jamming_tpu_torch/kernels/build.py` is loaded by file path,
 so it builds its own csrc/ into its own _build/, and both libraries' C
-entry points (`gjt_welch_psd`, `gjt_pcf`, `gjt_caf_std`, each called with
-the signature its own tree declares) get the same seeded inputs at the
-shapes of chip_smoke.py phases 3a-3d: B2 on a 512k-sample block at
+entry points (`gjt_welch_psd`, `gjt_pcf`, `gjt_caf_std`, through today's
+C signatures, which the other tree must share) get the same seeded inputs
+at the shapes of chip_smoke.py phases 3a-3d: B2 on a 512k-sample block at
 nperseg 1024 and 1536; B1 peak-only (32 PRN x 15 coarse x 6 rows x 2
 groups) at 2048, 2400, 2560, 2800 and 3200 lags; B3 (32 PRN x 71 bins x 10
 periods) at 2048, 2400, 2560, 2800, 3200 and 10368 lags, and Galileo E1B's
@@ -19,11 +19,10 @@ shapes of phase 10: B2 on 8 192 512 samples at nperseg 32768 and 131072,
 B1 in its statistics, peak-only and surface modes on Galileo E1B at 8.192
 MS/s (36 PRN x 57 coarse x 6 rows x 2 groups at 32768), B3 at 32768 (36 x
 71 x 10) and at 32000, 65536 and 131072 (8 PRN x 35 bins x 4); and B1 peak
-and B3 at 128 (32 PRN). Each tree's large entry points get the scratch
-its own wrappers allocate (the two-pass correlate stage takes B1's cells
-through scratch; the cluster's entry point takes none). A shape the other
-tree's kernel refuses is timed on this tree alone. Each reading is the
-median over
+and B3 at 128 (32 PRN). B2's and B3's large entry points get the scratch
+chunks of each tree's own wrappers (`large_seg_chunk`, `large_chunks`);
+B1's cluster entry point takes none. A shape the other tree's kernel
+refuses is timed on this tree alone. Each reading is the median over
 `--reps` samples of CUDA-event time over `--inner` back-to-back calls,
 divided by `--inner`; beside it, in the same turns, the device time of
 the calls' kernels per call (`torch.profiler` over `--inner` calls),
@@ -77,38 +76,14 @@ def _cplx(shape, seed, dev):
     return torch.from_numpy(x.astype(np.complex64)).to(dev)
 
 
-def _b2(mod, lib, n: int, dev, stream):
-    """Kernel B2 at nperseg n on B2_SAMPLES samples, through `mod`'s C
-    signature: 13 arguments (the two-launch kernel: a partial row per
-    tile, then a reduce launch) or 10 (one launch into a scratch buffer the
-    library sizes)."""
-    x = _cplx(B2_SAMPLES, n, dev)
+def _welch_inputs(n: int, samples: int, dev):
+    """Kernel B2's seeded signal of `samples` samples at nperseg n, its
+    Hann window, its number of segments and its output row."""
+    x = _cplx(samples, n, dev)
     win = torch.from_numpy((0.5 - 0.5 * np.cos(
         2.0 * np.pi * np.arange(n) / n)).astype(np.float32)).to(dev)
-    n_segs = 1 + (B2_SAMPLES - n) // (n // 2)
-    out = torch.empty(n, dtype=torch.float32, device=dev)
-    scale = 1.0 / n_segs
-    if len(mod._SIGNATURES["gjt_welch_psd"]) == 13:
-        per_tile = -(-n_segs // 256)
-        n_tiles = -(-n_segs // per_tile)
-        tw = mod.twiddles(n, dev)
-        partial = torch.empty((n_tiles, n), dtype=torch.float32, device=dev)
-
-        def fn():
-            return lib.gjt_welch_psd(
-                x.data_ptr(), win.data_ptr(), tw.data_ptr(),
-                partial.data_ptr(), out.data_ptr(), n, n // 2, n_segs,
-                per_tile, n_tiles, 1, scale, stream)
-        return fn, out
-    tab = mod.reg_twiddles(n, dev)
-    scratch = torch.zeros(lib.gjt_welch_scratch_bytes(n), dtype=torch.uint8,
-                          device=dev)
-
-    def fn():
-        return lib.gjt_welch_psd(
-            x.data_ptr(), win.data_ptr(), tab.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), n, n_segs, 1, scale, stream)
-    return fn, out
+    return (x, win, 1 + (samples - n) // (n // 2),
+            torch.empty(n, dtype=torch.float32, device=dev))
 
 
 def _large(mod, lib, what: str, n: int, dev, stream):
@@ -116,23 +91,16 @@ def _large(mod, lib, what: str, n: int, dev, stream):
     library, with the scratch chunks of that tree's own wrappers."""
     pkg = mod.__name__.rsplit(".kernels", 1)[0]
     cuda_caf = importlib.import_module(f"{pkg}.ops.cuda_caf")
-    cuda_pcf = importlib.import_module(f"{pkg}.ops.cuda_pcf")
     cuda_psd = importlib.import_module(f"{pkg}.ops.cuda_psd")
-    if "gjt_pcf_large" not in mod._SIGNATURES:
-        raise RuntimeError(f"{what} n={n}: no four-step entry points")
     tw2 = mod.large_row_twiddles(n, dev)
     twn = mod.reg_twiddles(n, dev)
     if what == "B2":
-        x = _cplx(B2_LARGE_SAMPLES, n, dev)
-        win = torch.from_numpy((0.5 - 0.5 * np.cos(
-            2.0 * np.pi * np.arange(n) / n)).astype(np.float32)).to(dev)
-        n_segs = 1 + (B2_LARGE_SAMPLES - n) // (n // 2)
+        x, win, n_segs, out = _welch_inputs(n, B2_LARGE_SAMPLES, dev)
         chunk = cuda_psd.large_seg_chunk(n, n_segs)
         A = torch.empty((chunk, n), dtype=torch.complex64, device=dev)
         pw = torch.empty((chunk, n), dtype=torch.float32, device=dev)
         half = torch.empty(n_segs + 1, dtype=torch.complex64, device=dev)
         acc = torch.empty(n, dtype=torch.float32, device=dev)
-        out = torch.empty(n, dtype=torch.float32, device=dev)
 
         def fn():
             return lib.gjt_welch_psd_large(
@@ -150,25 +118,12 @@ def _large(mod, lib, what: str, n: int, dev, stream):
         out = torch.empty((5, n_prn, n_c * rows) if stats
                           else (n_prn, n_c * rows, n), dtype=torch.float32,
                           device=dev)
-        ptrs = (tw2.data_ptr(), twn.data_ptr(), out.data_ptr(), rows, groups,
-                n_c, n_prn, n, stats, excl)
-        if len(mod._SIGNATURES["gjt_pcf_large"]) == 14:
-            # the cluster's entry point: no scratch for the correlate stage
-            def fn():
-                return lib.gjt_pcf_large(y.data_ptr(), Y.data_ptr(),
-                                         rep.data_ptr(), *ptrs, stream)
-            return fn, out
-        # the two-pass correlate stage: its scratch of cells, chunked as
-        # that tree's wrapper chunks it
-        cells = n_prn * n_c * rows
-        chunk = cuda_pcf.large_cells_chunk(n, groups, cells, Y.numel() * 8)
-        Bs = torch.empty((chunk * groups, n), dtype=torch.complex64,
-                         device=dev)
 
         def fn():
-            return lib.gjt_pcf_large(y.data_ptr(), Y.data_ptr(),
-                                     Bs.data_ptr(), rep.data_ptr(), *ptrs,
-                                     chunk, stream)
+            return lib.gjt_pcf_large(
+                y.data_ptr(), Y.data_ptr(), rep.data_ptr(), tw2.data_ptr(),
+                twn.data_ptr(), out.data_ptr(), rows, groups, n_c, n_prn, n,
+                stats, excl, stream)
         return fn, out
     n_f, nb, n_prn = (71, 10, 36) if n == 32768 else (35, 4, 8)
     x = _cplx((nb, n), n + 2, dev)
@@ -194,20 +149,20 @@ def _call(mod, what: str, n: int, dev):
     `mod`, with its own twiddle table; inputs are seeded, so both
     libraries see the same ones. Raises if the kernel refuses n."""
     lib = mod.load()
-    if n > 16384:
-        fn, out = _large(mod, lib, what, n, dev,
-                         torch.cuda.current_stream().cuda_stream)
-        err = fn()
-        torch.cuda.synchronize()
-        if err:
-            raise RuntimeError(f"{what} n={n}: {torch.cuda.CudaError(err)}")
-        return fn, out
-    # the parent of the register FFT has one (half) table for every n
-    tw = (mod.row_twiddles if hasattr(mod, "row_twiddles")
-          else mod.twiddles)(n, dev)
     stream = torch.cuda.current_stream().cuda_stream
-    if what == "B2":
-        fn, out = _b2(mod, lib, n, dev, stream)
+    if n > 16384:
+        fn, out = _large(mod, lib, what, n, dev, stream)
+    elif what == "B2":
+        x, win, n_segs, out = _welch_inputs(n, B2_SAMPLES, dev)
+        tab = mod.reg_twiddles(n, dev)
+        scratch = torch.zeros(lib.gjt_welch_scratch_bytes(n),
+                              dtype=torch.uint8, device=dev)
+
+        def fn():
+            return lib.gjt_welch_psd(
+                x.data_ptr(), win.data_ptr(), tab.data_ptr(),
+                scratch.data_ptr(), out.data_ptr(), n, n_segs, 1,
+                1.0 / n_segs, stream)
     elif what == "B1 peak":
         n_c, rows, groups, n_prn = 15, 6, 2, 32
         y = _cplx((rows * groups, n), n, dev)
@@ -215,6 +170,7 @@ def _call(mod, what: str, n: int, dev):
         Y = torch.empty_like(y)
         out = torch.empty((5, n_prn, n_c * rows), dtype=torch.float32,
                           device=dev)
+        tw = mod.row_twiddles(n, dev)
 
         def fn():
             return lib.gjt_pcf(y.data_ptr(), Y.data_ptr(), rep.data_ptr(),
@@ -227,6 +183,7 @@ def _call(mod, what: str, n: int, dev):
         rep = _cplx((n_prn, n), n + 4, dev)
         Y = torch.empty((n_f * nb, n), dtype=torch.complex64, device=dev)
         out = torch.empty((n_prn, n_f, n), dtype=torch.float32, device=dev)
+        tw = mod.row_twiddles(n, dev)
 
         def fn():
             return lib.gjt_caf_std(x.data_ptr(), osc.data_ptr(), Y.data_ptr(),

@@ -7,9 +7,13 @@ The library lands in `gps_jamming_tpu_torch/_build/` under a name that
 carries a hash of the sources and flags, so an edit rebuilds and an
 unchanged tree reuses the file. Nothing is built when the package is
 imported.
+
+Every launching entry point is called through `launch`, which counts the
+launch in `LAUNCHES`.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -18,6 +22,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -73,6 +78,28 @@ _SIGNATURES = {
     "gjt_block_front": [_P, _P, _P, _P, _P, ctypes.c_longlong, _I,
                         ctypes.c_float, ctypes.c_float, _P],
 }
+# The launching entry points, each with the kernel it counts under in
+# LAUNCHES (the names chip_smoke.py prints).
+KERNEL_OF = {
+    "gjt_welch_psd": "welch_psd", "gjt_welch_psd_large": "welch_psd",
+    "gjt_pcf": "pcf", "gjt_pcf_large": "pcf",
+    "gjt_caf_std": "caf_std", "gjt_caf_std_large": "caf_std",
+    "gjt_block_front": "front",
+}
+# The launching entry points that take a `Scratch` argument.
+TAKES_SCRATCH = frozenset({"gjt_welch_psd", "gjt_block_front"})
+# Launches made through `launch`, per kernel: one per wrapper call (B2:
+# one per row).
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+class Scratch(NamedTuple):
+    """An argument of `launch`: zeroed uint8 scratch of `sizer(*args)`
+    bytes, `sizer` the C entry point that sizes a kernel's scratch. The
+    kernels leave its tickets at zero after every call, so calls on one
+    stream may reuse it; another stream gets its own."""
+    sizer: str
+    args: tuple = ()
 
 
 def find_nvcc() -> str | None:
@@ -167,6 +194,42 @@ def check(err: int, name: str) -> None:
     """Raise if a C entry point returned a non-zero cudaError_t."""
     if err != 0:
         raise RuntimeError(f"{name} failed: {torch.cuda.CudaError(err)}")
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the launching C entry point `entry` with `args` and `device`'s
+    current stream as its last argument, on `device`; raise RuntimeError
+    naming `entry` if it fails, else count one launch of its kernel. A
+    `Scratch` argument of an entry in TAKES_SCRATCH becomes the pointer to
+    that scratch on this device and stream."""
+    kernel = KERNEL_OF[entry]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if entry in TAKES_SCRATCH:
+            args = [_scratch(a, device, stream).data_ptr()
+                    if type(a) is Scratch else a for a in args]
+        err = getattr(load(), entry)(*args, stream)
+    check(err, entry)
+    LAUNCHES[kernel] += 1
+
+
+def launch_counts() -> dict[str, int]:
+    """LAUNCHES with every kernel's key, 0 where it made none."""
+    return {k: LAUNCHES[k] for k in KERNEL_OF.values()}
+
+
+@functools.lru_cache(maxsize=32)
+def _scratch(spec: Scratch, device: torch.device,
+             stream: int) -> torch.Tensor:
+    return torch.zeros(getattr(load(), spec.sizer)(*spec.args),
+                       dtype=torch.uint8, device=device)
+
+
+def scratch(spec: Scratch, device: torch.device) -> torch.Tensor:
+    """The scratch that `launch` passes for `spec` on `device`'s current
+    stream."""
+    with torch.cuda.device(device):
+        return _scratch(spec, device, torch.cuda.current_stream().cuda_stream)
 
 
 @functools.lru_cache(maxsize=16)

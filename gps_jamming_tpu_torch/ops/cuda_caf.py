@@ -23,12 +23,8 @@ import functools
 import numpy as np
 import torch
 
-from ..device import check_tensor
+from ..device import check_tensor, runs_kernel
 from ..kernels import build, fft_plan, gates
-
-# Searches launched by `caf_accumulate_fused` (one per call on a CUDA
-# tensor; each runs the mix-forward and the correlate kernel).
-LAUNCHES = 0
 
 # The sizes the kernel takes: kernels/gates.py.
 supported = gates.std_supported
@@ -95,12 +91,8 @@ def caf_accumulate_fused(blocks: torch.Tensor, replica: torch.Tensor, freqs,
     blocks (nb, n) and replica (P, n) complex64 on one device; freqs a
     concrete (F,) array of Doppler bins [Hz]. Returns (P, F, n) float32.
     """
-    global LAUNCHES
-    if blocks.device.type == "cpu":
+    if not runs_kernel(blocks, "caf_accumulate_fused"):
         return caf_accumulate_reference(blocks, replica, freqs, sample_rate)
-    if blocks.device.type != "cuda":
-        raise ValueError(f"caf_accumulate_fused: unsupported device "
-                         f"{blocks.device}")
     nb, n = blocks.shape
     if not supported(n):
         raise ValueError(f"kernel B3 (std CAF): {unsupported_reason(n)}")
@@ -111,7 +103,6 @@ def caf_accumulate_fused(blocks: torch.Tensor, replica: torch.Tensor, freqs,
     n_freq, n_prn = osc.shape[0], replica.shape[0]
     out = torch.empty((n_prn, n_freq, n), dtype=torch.float32,
                       device=blocks.device)
-    lib = build.load()
     if n > build.FFT_MAX_N:
         bins, cells = large_chunks(n, nb, n_freq, n_prn)
         Y = torch.empty((bins * nb, n), dtype=torch.complex64,
@@ -120,24 +111,16 @@ def caf_accumulate_fused(blocks: torch.Tensor, replica: torch.Tensor, freqs,
                          device=blocks.device) if cells else None
         tw2 = build.large_row_twiddles(n, blocks.device)
         twn = build.reg_twiddles(n, blocks.device)
-        with torch.cuda.device(blocks.device):
-            err = lib.gjt_caf_std_large(
-                blocks.data_ptr(), osc.data_ptr(), Y.data_ptr(),
-                Bs.data_ptr() if cells else None, replica.data_ptr(),
-                tw2.data_ptr(),
-                twn.data_ptr(), out.data_ptr(), n_freq, nb, n_prn, n, bins,
-                cells, torch.cuda.current_stream().cuda_stream)
-        build.check(err, "gjt_caf_std_large")
-        LAUNCHES += 1
+        build.launch("gjt_caf_std_large", blocks.device, blocks.data_ptr(),
+                     osc.data_ptr(), Y.data_ptr(),
+                     Bs.data_ptr() if cells else None, replica.data_ptr(),
+                     tw2.data_ptr(), twn.data_ptr(), out.data_ptr(), n_freq,
+                     nb, n_prn, n, bins, cells)
         return out
     Y = torch.empty((n_freq * nb, n), dtype=torch.complex64,
                     device=blocks.device)
     tw = build.row_twiddles(n, blocks.device)
-    with torch.cuda.device(blocks.device):
-        err = lib.gjt_caf_std(
-            blocks.data_ptr(), osc.data_ptr(), Y.data_ptr(),
-            replica.data_ptr(), tw.data_ptr(), out.data_ptr(), n_freq, nb,
-            n_prn, n, torch.cuda.current_stream().cuda_stream)
-    build.check(err, "gjt_caf_std")
-    LAUNCHES += 1
+    build.launch("gjt_caf_std", blocks.device, blocks.data_ptr(),
+                 osc.data_ptr(), Y.data_ptr(), replica.data_ptr(),
+                 tw.data_ptr(), out.data_ptr(), n_freq, nb, n_prn, n)
     return out

@@ -13,18 +13,17 @@ launches the kernel or raises.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
+from ..device import runs_kernel
 from ..kernels import build
 from . import iq, power
 
-# Kernel launches made by `block_front` (one per call on a CUDA tensor).
-LAUNCHES = 0
-
 # The most chunks a call may hold on the card.
 MAX_CHUNKS = build.FRONT_MAX_CHUNKS
+# The kernel's scratch: its ticket and chunk sums, which every call leaves
+# at zero, and the last call's baseline and threshold.
+SCRATCH = build.Scratch("gjt_front_scratch_bytes")
 
 
 def block_front_reference(raw_i8: torch.Tensor, chunk: int,
@@ -36,16 +35,6 @@ def block_front_reference(raw_i8: torch.Tensor, chunk: int,
     base = power.power_baseline(pm, percentile)
     thr = power.power_threshold_linear(base, rise_db)
     return x, pm, pm > thr
-
-
-@functools.lru_cache(maxsize=16)
-def _scratch(device: torch.device, stream: int) -> torch.Tensor:
-    """The kernel's scratch, kept per (device, stream): its ticket and
-    chunk sums, which every call leaves at zero (so calls on one stream may
-    reuse them; another stream gets its own), and the last call's baseline
-    and threshold."""
-    return torch.zeros(build.load().gjt_front_scratch_bytes(),
-                       dtype=torch.uint8, device=device)
 
 
 def block_front(raw_i8: torch.Tensor, chunk: int, percentile: float,
@@ -61,11 +50,8 @@ def block_front(raw_i8: torch.Tensor, chunk: int, percentile: float,
     correctly rounded mean of each chunk (exact integer sums), where the
     plain version's float32 reduction rounds at each add; the baseline is
     `torch.quantile`'s on that pm."""
-    global LAUNCHES
-    if raw_i8.device.type == "cpu":
+    if not runs_kernel(raw_i8, "block_front"):
         return block_front_reference(raw_i8, chunk, percentile, rise_db)
-    if raw_i8.device.type != "cuda":
-        raise ValueError(f"block_front: unsupported device {raw_i8.device}")
     if raw_i8.dtype != torch.int8 or raw_i8.dim() != 1 \
             or not raw_i8.is_contiguous():
         raise ValueError("block_front: expected contiguous (2n,) int8, got "
@@ -85,14 +71,9 @@ def block_front(raw_i8: torch.Tensor, chunk: int, percentile: float,
     x = torch.empty(n, dtype=torch.complex64, device=dev)
     pm = torch.empty(k, dtype=torch.float32, device=dev)
     flags = torch.empty(k, dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = build.load().gjt_block_front(
-            raw_i8.data_ptr(), x.data_ptr(), pm.data_ptr(), flags.data_ptr(),
-            _scratch(dev, stream).data_ptr(), n, chunk, percentile / 100.0,
-            10.0 ** (rise_db / 10.0), stream)
-    build.check(err, "gjt_block_front")
-    LAUNCHES += 1
+    build.launch("gjt_block_front", dev, raw_i8.data_ptr(), x.data_ptr(),
+                 pm.data_ptr(), flags.data_ptr(), SCRATCH, n, chunk,
+                 percentile / 100.0, 10.0 ** (rise_db / 10.0))
     return x, pm, flags
 
 
@@ -104,7 +85,6 @@ def last_threshold(device) -> tuple[float, float]:
     device = torch.device(device)
     if device.index is None:
         device = torch.device(device.type, torch.cuda.current_device())
-    with torch.cuda.device(device):
-        sc = _scratch(device, torch.cuda.current_stream().cuda_stream)
+    sc = build.scratch(SCRATCH, device)
     base, thr = sc[4:12].view(torch.float32).tolist()
     return base, thr

@@ -22,13 +22,9 @@ import functools
 import numpy as np
 import torch
 
-from ..device import check_tensor
+from ..device import check_tensor, runs_kernel
 from ..kernels import build, gates
 from ..runtime import profiling
-
-# Searches launched by `pcf_search` (one per call on a CUDA tensor; each
-# runs the forward and the correlate kernel).
-LAUNCHES = 0
 
 # The sizes the kernel takes: kernels/gates.py.
 supported = gates.pcf_supported
@@ -116,7 +112,6 @@ def pcf_search(y: torch.Tensor, replica: torch.Tensor, n_c: int,
     """The PCF search of `pcf_search_reference`, as kernel B1 on CUDA,
     whose host side, from the checks to the launch's error check, runs in
     the `gjt.b1.launch` span (`runtime.profiling.span`)."""
-    global LAUNCHES
     n = y.shape[-1]
     if n_c % 2 == 0 or n_c // 2 >= n:
         raise ValueError(f"pcf_search: n_c {n_c} must be odd, with "
@@ -124,11 +119,9 @@ def pcf_search(y: torch.Tensor, replica: torch.Tensor, n_c: int,
     if stats_excl is not None and not -1 <= stats_excl < n // 2:
         raise ValueError(f"pcf_search: stats_excl {stats_excl} outside "
                          f"[-1, {n // 2})")
-    if y.device.type == "cpu":
+    if not runs_kernel(y, "pcf_search"):
         return pcf_search_reference(y, replica, n_c, n_rows, n_groups,
                                     stats_excl)
-    if y.device.type != "cuda":
-        raise ValueError(f"pcf_search: unsupported device {y.device}")
     with profiling.span("gjt.b1.launch"):
         if not supported(n):
             raise ValueError(f"pcf_search: {unsupported_reason(n)}")
@@ -142,30 +135,19 @@ def pcf_search(y: torch.Tensor, replica: torch.Tensor, n_c: int,
         else:
             out = torch.empty((5, n_prn, n_c * n_rows), dtype=torch.float32,
                               device=y.device)
-        lib = build.load()
+        modes = (n_rows, n_groups, n_c, n_prn, n, int(stats_excl is not None),
+                 0 if stats_excl is None else stats_excl)
         if n > build.FFT_MAX_N:
             tw2 = build.large_row_twiddles(n, y.device)
             twn = build.reg_twiddles(n, y.device)
-            with torch.cuda.device(y.device):
-                err = lib.gjt_pcf_large(
-                    y.data_ptr(), Y.data_ptr(), replica.data_ptr(),
-                    tw2.data_ptr(), twn.data_ptr(), out.data_ptr(), n_rows,
-                    n_groups, n_c, n_prn, n, int(stats_excl is not None),
-                    0 if stats_excl is None else stats_excl,
-                    torch.cuda.current_stream().cuda_stream)
-            build.check(err, "gjt_pcf_large")
-            LAUNCHES += 1
-            return out if stats_excl is None else tuple(out.unbind(0))
-        tw = build.row_twiddles(n, y.device)
-        with torch.cuda.device(y.device):
-            err = lib.gjt_pcf(
-                y.data_ptr(), Y.data_ptr(), replica.data_ptr(), tw.data_ptr(),
-                out.data_ptr(), n_rows, n_groups, n_c, n_prn, n,
-                int(stats_excl is not None),
-                0 if stats_excl is None else stats_excl,
-                torch.cuda.current_stream().cuda_stream)
-        build.check(err, "gjt_pcf")
-        LAUNCHES += 1
+            build.launch("gjt_pcf_large", y.device, y.data_ptr(),
+                         Y.data_ptr(), replica.data_ptr(), tw2.data_ptr(),
+                         twn.data_ptr(), out.data_ptr(), *modes)
+        else:
+            tw = build.row_twiddles(n, y.device)
+            build.launch("gjt_pcf", y.device, y.data_ptr(), Y.data_ptr(),
+                         replica.data_ptr(), tw.data_ptr(), out.data_ptr(),
+                         *modes)
         return out if stats_excl is None else tuple(out.unbind(0))
 
 

@@ -20,13 +20,10 @@ import functools
 import numpy as np
 import torch
 
-from ..device import check_tensor
+from ..device import check_tensor, runs_kernel
 from ..kernels import build, gates
 from ..kernels.gates import MIXED_NPERSEG
 from ..runtime import profiling
-
-# Kernel launches made by `welch_psd_fused` (one per row on a CUDA tensor).
-LAUNCHES = 0
 
 # The sizes the kernel takes: kernels/gates.py.
 supported = gates.psd_supported
@@ -50,18 +47,6 @@ def _window(nperseg: int, device: torch.device) -> tuple[torch.Tensor, float]:
             float(np.sum(w.astype(np.float64) ** 2)))
 
 
-@functools.lru_cache(maxsize=16)
-def _scratch(nperseg: int, device: torch.device, stream: int) -> torch.Tensor:
-    """The kernel's scratch, kept per (nperseg, device, stream), sized by
-    the kernel (`gjt_welch_scratch_bytes`): its slice tickets, which it
-    leaves at zero after every call (so calls on one stream may reuse
-    them; another stream gets its own), and the clusters' partial rows.
-    The number of tiles is a constant of the kernel, so the reduction
-    order, and with it the result, does not depend on the card."""
-    n_bytes = build.load().gjt_welch_scratch_bytes(nperseg)
-    return torch.zeros(n_bytes, dtype=torch.uint8, device=device)
-
-
 def welch_psd_fused(x: torch.Tensor, sample_rate: float, nperseg: int = 1024,
                     detrend: bool = True) -> torch.Tensor:
     """Welch PSD of a complex64 signal (n,) -> (nperseg,) float32, or of
@@ -72,11 +57,8 @@ def welch_psd_fused(x: torch.Tensor, sample_rate: float, nperseg: int = 1024,
     launch leaves at zero, and launches on one stream run in order. The
     card's host side, from the checks to the last launch, runs in the
     `gjt.b2.launch` span (`runtime.profiling.span`)."""
-    global LAUNCHES
-    if x.device.type == "cpu":
+    if not runs_kernel(x, "welch_psd_fused"):
         return welch_psd_reference(x, sample_rate, nperseg, detrend)
-    if x.device.type != "cuda":
-        raise ValueError(f"welch_psd_fused: unsupported device {x.device}")
     with profiling.span("gjt.b2.launch"):
         if not supported(nperseg):
             raise ValueError(f"welch_psd_fused: nperseg {nperseg} is "
@@ -98,22 +80,21 @@ def welch_psd_fused(x: torch.Tensor, sample_rate: float, nperseg: int = 1024,
         out = torch.empty(x.shape[:-1] + (nperseg,), dtype=torch.float32,
                           device=x.device)
         scale = 1.0 / (sample_rate * wsum2) / n_segs
-        lib = build.load()
         x_row, out_row = n * x.element_size(), nperseg * out.element_size()
         if nperseg > build.FFT_MAX_N:
-            _welch_large(lib, x, win, tab, out, rows, nperseg, n_segs,
-                         detrend, scale, x_row, out_row)
+            _welch_large(x, win, tab, out, rows, nperseg, n_segs, detrend,
+                         scale, x_row, out_row)
             return out
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            scratch = _scratch(nperseg, x.device, stream)
-            for r in range(rows):
-                err = lib.gjt_welch_psd(
-                    x.data_ptr() + r * x_row, win.data_ptr(), tab.data_ptr(),
-                    scratch.data_ptr(), out.data_ptr() + r * out_row, nperseg,
-                    n_segs, int(detrend), scale, stream)
-                build.check(err, "gjt_welch_psd")
-                LAUNCHES += 1
+        # the scratch, sized by the kernel: the slice tickets and the
+        # clusters' partial rows. The number of tiles is a constant of the
+        # kernel, so the reduction order, and with it the result, does not
+        # depend on the card.
+        scratch = build.Scratch("gjt_welch_scratch_bytes", (nperseg,))
+        for r in range(rows):
+            build.launch("gjt_welch_psd", x.device, x.data_ptr() + r * x_row,
+                         win.data_ptr(), tab.data_ptr(), scratch,
+                         out.data_ptr() + r * out_row, nperseg, n_segs,
+                         int(detrend), scale)
         return out
 
 
@@ -125,11 +106,10 @@ def large_seg_chunk(nperseg: int, n_segs: int) -> int:
                       gates.LARGE_SCRATCH_BYTES // (12 * nperseg)))
 
 
-def _welch_large(lib, x, win, tab, out, rows, nperseg, n_segs, detrend,
-                 scale, x_row, out_row) -> None:
+def _welch_large(x, win, tab, out, rows, nperseg, n_segs, detrend, scale,
+                 x_row, out_row) -> None:
     """The rows of `welch_psd_fused` above 16384 points, one launch of
     `gjt_welch_psd_large` per row; the rows share one set of scratch."""
-    global LAUNCHES
     chunk = large_seg_chunk(nperseg, n_segs)
     dev = x.device
     A = torch.empty((chunk, nperseg), dtype=torch.complex64, device=dev)
@@ -137,14 +117,9 @@ def _welch_large(lib, x, win, tab, out, rows, nperseg, n_segs, detrend,
     half = torch.empty(n_segs + 1, dtype=torch.complex64, device=dev)
     acc = torch.empty(nperseg, dtype=torch.float32, device=dev)
     tw2 = build.large_row_twiddles(nperseg, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        for r in range(rows):
-            err = lib.gjt_welch_psd_large(
-                x.data_ptr() + r * x_row, win.data_ptr(), tw2.data_ptr(),
-                tab.data_ptr(), A.data_ptr(), pw.data_ptr(),
-                half.data_ptr(), acc.data_ptr(),
-                out.data_ptr() + r * out_row, nperseg, n_segs, chunk,
-                int(detrend), scale, stream)
-            build.check(err, "gjt_welch_psd_large")
-            LAUNCHES += 1
+    for r in range(rows):
+        build.launch("gjt_welch_psd_large", dev, x.data_ptr() + r * x_row,
+                     win.data_ptr(), tw2.data_ptr(), tab.data_ptr(),
+                     A.data_ptr(), pw.data_ptr(), half.data_ptr(),
+                     acc.data_ptr(), out.data_ptr() + r * out_row, nperseg,
+                     n_segs, chunk, int(detrend), scale)

@@ -167,7 +167,7 @@ def multihost_mesh(n_antenna: int | None = None, devices=None) -> Mesh:
 # Bytes that `_to` has placed from host memory (a NumPy array or a CPU
 # tensor) on a mesh device, counted whatever the device, the CPU included:
 # the sharded path's uploads. `reset_upload_bytes` and `upload_bytes` read
-# it, as the kernels' LAUNCHES are read.
+# it, as `kernels.build.LAUNCHES` counts the kernels' launches.
 UPLOAD_BYTES = 0
 
 

@@ -18,6 +18,7 @@ from gps_jamming_tpu.ops import caf as jcaf
 from gps_jamming_tpu.ops import corr as jcorr
 from gps_jamming_tpu.ops import cplx, pallas_caf
 from gps_jamming_tpu_torch import convert
+from gps_jamming_tpu_torch.kernels import build
 from gps_jamming_tpu_torch.ops import caf as tcaf
 from gps_jamming_tpu_torch.ops import corr as tcorr
 from gps_jamming_tpu_torch.ops import cuda_pcf
@@ -77,9 +78,9 @@ def test_kernel_plain_surface_matches_pallas_interpret():
     want = np.asarray(pallas_caf.caf_accumulate_pcf_fused(
         jb, jrep, FS, precision="f32", interpret=True))
     xt, rep = torch.from_numpy(x), convert.replica_from_jax(planes, "cpu")
-    before = cuda_pcf.LAUNCHES
+    before = build.LAUNCHES["pcf"]
     got = cuda_pcf.caf_accumulate_pcf_fused(xt, rep, FS)
-    assert cuda_pcf.LAUNCHES == before          # no kernel on the CPU
+    assert build.LAUNCHES["pcf"] == before          # no kernel on the CPU
     assert tuple(got.shape) == want.shape == (8, 90, 2048)
     _surf_close(got.numpy(), want)
     _surf_close(got.numpy(), np.asarray(jcaf.caf_accumulate_pcf(

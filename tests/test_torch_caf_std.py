@@ -17,6 +17,7 @@ import torch
 from gps_jamming_tpu.ops import caf as jcaf
 from gps_jamming_tpu.ops import cplx, pallas_caf
 from gps_jamming_tpu_torch import convert
+from gps_jamming_tpu_torch.kernels import build
 from gps_jamming_tpu_torch.ops import caf as tcaf
 from gps_jamming_tpu_torch.ops import cuda_caf
 
@@ -61,11 +62,11 @@ def test_std_search_matches_jax(kind):
     by the freq tile of 4), 3 PRNs (v3 pads them to 64 lanes)."""
     x, planes, freqs = _case(256, 3, 3, 5, seed=31)
     want = _jax_std(kind, x, planes, freqs)
-    before = cuda_caf.LAUNCHES
+    before = build.LAUNCHES["caf_std"]
     got = tcaf.caf_accumulate(torch.from_numpy(x),
                               convert.replica_from_jax(planes, "cpu"),
                               freqs, FS)
-    assert cuda_caf.LAUNCHES == before          # no kernel on the CPU
+    assert build.LAUNCHES["caf_std"] == before          # no kernel on the CPU
     assert got.dtype == torch.float32
     assert tuple(got.shape) == want.shape == (3, 5, 256)
     assert _rel_err(got.numpy(), want) < 1e-4

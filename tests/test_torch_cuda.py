@@ -56,6 +56,7 @@ import numpy as np
 import pytest
 import torch
 
+from gps_jamming_tpu_torch.kernels import build
 from gps_jamming_tpu_torch.ops import cuda_caf, cuda_pcf, cuda_psd, spectral
 
 FS = 2.048e6
@@ -109,10 +110,10 @@ WELCH_CASES = (
 @pytest.mark.parametrize("detrend", [True, False])
 def test_welch_kernel_matches_plain(dev, nperseg, n, dc, detrend):
     x = _cplx(n, seed=n, dev=dev) + dc
-    before = cuda_psd.LAUNCHES
+    before = build.LAUNCHES["welch_psd"]
     got = cuda_psd.welch_psd_fused(x, FS, nperseg, detrend)
     torch.cuda.synchronize()
-    assert cuda_psd.LAUNCHES == before + 1
+    assert build.LAUNCHES["welch_psd"] == before + 1
     ref = cuda_psd.welch_psd_reference(x, FS, nperseg, detrend)
     scale = ref if detrend else ref[2:-1]
     _assert_close(got, ref, 1e-3, 1e-4 * float(scale.max()))
@@ -135,19 +136,19 @@ def test_welch_dispatch_on_cuda(dev):
     (a power of two or a mixed-radix nperseg), and the kernel wrapper
     raises (never falls back) where it does not."""
     x = _cplx(1 << 15, seed=1, dev=dev)
-    before = cuda_psd.LAUNCHES
+    before = build.LAUNCHES["welch_psd"]
     spectral.welch_psd(x, FS, 1024)
-    assert cuda_psd.LAUNCHES == before + 1
+    assert build.LAUNCHES["welch_psd"] == before + 1
     spectral.welch_psd(x, FS, 1536)
-    assert cuda_psd.LAUNCHES == before + 2
+    assert build.LAUNCHES["welch_psd"] == before + 2
     spectral.welch_psd(x, FS, 1024, overlap_frac=0.25)   # plain path
-    assert cuda_psd.LAUNCHES == before + 2
+    assert build.LAUNCHES["welch_psd"] == before + 2
     for bad in (1000, 36864, 2400):
         with pytest.raises(ValueError):
             cuda_psd.welch_psd_fused(_cplx(1 << 16, seed=2, dev=dev), FS, bad)
     with pytest.raises(ValueError):
         cuda_psd.welch_psd_fused(x[::2], FS, 1024)        # not contiguous
-    assert cuda_psd.LAUNCHES == before + 2
+    assert build.LAUNCHES["welch_psd"] == before + 2
 
 
 # Kernel F1, the monitor step's block front, against its plain version on
@@ -178,11 +179,11 @@ def _front_raw(n, seed, dev, offset=0):
 def test_front_kernel_matches_plain(dev, n, chunk):
     from gps_jamming_tpu_torch.ops import cuda_front
     raw = _front_raw(n, n % 1009, dev)
-    before = cuda_front.LAUNCHES
+    before = build.LAUNCHES["front"]
     x, pm, flags = cuda_front.block_front(raw, chunk, 5.0, 6.0)
     base, thr = cuda_front.last_threshold(dev)
     assert cuda_front.last_threshold("cuda") == (base, thr)
-    assert cuda_front.LAUNCHES == before + 1
+    assert build.LAUNCHES["front"] == before + 1
     rx, rpm, rflags = cuda_front.block_front_reference(raw, chunk, 5.0, 6.0)
     assert torch.equal(x, rx)
     _assert_close(pm, rpm, 1e-6, 0.0)
@@ -196,18 +197,17 @@ def test_front_kernel_matches_plain(dev, n, chunk):
 
 
 def test_front_kernel_raises_above_its_chunks(dev):
-    from gps_jamming_tpu_torch.kernels import build
     from gps_jamming_tpu_torch.ops import cuda_front
     raw = torch.zeros(2 * (build.FRONT_MAX_CHUNKS * 64 + 1), dtype=torch.int8,
                       device=dev)
-    before = cuda_front.LAUNCHES
+    before = build.LAUNCHES["front"]
     with pytest.raises(ValueError, match="chunks"):
         cuda_front.block_front(raw, 64, 5.0, 6.0)
     with pytest.raises(ValueError):
         cuda_front.block_front(raw[:-1], 64, 5.0, 6.0)      # odd byte count
     with pytest.raises(ValueError):
         cuda_front.block_front(raw[::2], 64, 5.0, 6.0)      # not contiguous
-    assert cuda_front.LAUNCHES == before
+    assert build.LAUNCHES["front"] == before
     # the scratch is left as a call needs it: the next call is right
     small = _front_raw(1 << 17, 5, dev)
     got = cuda_front.block_front(small, 32768, 5.0, 6.0)
@@ -223,10 +223,10 @@ def test_front_kernel_raises_off_its_layout(dev, n, chunk, offset):
     chunk or a view off that alignment raises, with no launch."""
     from gps_jamming_tpu_torch.ops import cuda_front
     raw = _front_raw(n, n % 1009, dev, offset)
-    before = cuda_front.LAUNCHES
+    before = build.LAUNCHES["front"]
     with pytest.raises(ValueError, match="16-byte"):
         cuda_front.block_front(raw, chunk, 5.0, 6.0)
-    assert cuda_front.LAUNCHES == before
+    assert build.LAUNCHES["front"] == before
 
 
 @pytest.mark.parametrize("method", ["pcf", "std"])
@@ -245,12 +245,12 @@ def test_monitor_step_front_is_one_launch(dev, monkeypatch, method):
 
     monkeypatch.setattr(torch, "quantile", forbidden)
     monkeypatch.setattr(power, "chunk_power", forbidden)
-    before = cuda_front.LAUNCHES
+    before = build.LAUNCHES["front"]
     got = entry.detect_acquire_step(raw, replica, method=method)
-    assert cuda_front.LAUNCHES == before + 1
+    assert build.LAUNCHES["front"] == before + 1
     fwd, (raw_ex,) = entry.entry(dev)
     fwd(raw_ex)
-    assert cuda_front.LAUNCHES == before + 2
+    assert build.LAUNCHES["front"] == before + 2
     monkeypatch.undo()
     _assert_close(got[1].cpu(), cpu[1], 1e-6, 0.0)
     assert torch.equal(got[2].cpu(), cpu[2])
@@ -274,10 +274,10 @@ def test_pcf_kernel_matches_plain(dev, n, nb, nprn):
     n_c = cuda_pcf.n_coarse(FS, n, 7000.0)
     args = (y, rep, n_c, 6, 2)
     ref = cuda_pcf.pcf_search_reference(*args)
-    before = cuda_pcf.LAUNCHES
+    before = build.LAUNCHES["pcf"]
     surf = cuda_pcf.pcf_search(*args)
     torch.cuda.synchronize()
-    assert cuda_pcf.LAUNCHES == before + 1
+    assert build.LAUNCHES["pcf"] == before + 1
     _assert_close(surf, ref, 1e-3, 1e-4 * float(ref.max()))
     top2 = ref.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1]) > 1e-4 * top2[..., 0]
@@ -324,20 +324,20 @@ def test_pcf_dispatch_on_cuda(dev):
     from gps_jamming_tpu_torch.ops import caf
     blocks = _cplx((10, 2048), seed=3, dev=dev)
     rep = _cplx((4, 2048), seed=4, dev=dev)
-    before = cuda_pcf.LAUNCHES
+    before = build.LAUNCHES["pcf"]
     surf = caf.caf_accumulate_pcf(blocks, rep, FS)
-    assert cuda_pcf.LAUNCHES == before + 1
+    assert build.LAUNCHES["pcf"] == before + 1
     plain = caf.caf_accumulate_pcf(blocks.cpu(), rep.cpu(), FS)
     _assert_close(surf.cpu(), plain, 1e-3, 1e-4 * float(plain.max()))
     b62, r62 = _cplx((10, 2062), seed=5, dev=dev), _cplx((4, 2062), seed=6,
                                                          dev=dev)
     surf = caf.caf_accumulate_pcf(b62, r62, 2.062e6)
-    assert surf.is_cuda and cuda_pcf.LAUNCHES == before + 1
+    assert surf.is_cuda and build.LAUNCHES["pcf"] == before + 1
     plain = caf.caf_accumulate_pcf(b62.cpu(), r62.cpu(), 2.062e6)
     _assert_close(surf.cpu(), plain, 1e-3, 1e-4 * float(plain.max()))
     with pytest.raises(ValueError, match="prime factor"):
         cuda_pcf.caf_accumulate_pcf_fused(b62, r62, 2.062e6)
-    assert cuda_pcf.LAUNCHES == before + 1
+    assert build.LAUNCHES["pcf"] == before + 1
 
 
 @pytest.mark.parametrize("n,nb,nprn,nf,fs", [
@@ -367,10 +367,10 @@ def test_caf_std_kernel_matches_plain(dev, n, nb, nprn, nf, fs):
     rep = _cplx((nprn, n), seed=n + 3, dev=dev)
     freqs = caf.doppler_bins(7000.0, 200.0)[:nf]
     ref = cuda_caf.caf_accumulate_reference(blocks, rep, freqs, fs)
-    before = cuda_caf.LAUNCHES
+    before = build.LAUNCHES["caf_std"]
     got = cuda_caf.caf_accumulate_fused(blocks, rep, freqs, fs)
     torch.cuda.synchronize()
-    assert cuda_caf.LAUNCHES == before + 1
+    assert build.LAUNCHES["caf_std"] == before + 1
     assert got.shape == ref.shape == (nprn, nf, n)
     _assert_close(got, ref, 1e-3, 1e-4 * float(ref.max()))
     top2 = ref.topk(2, dim=-1)
@@ -393,32 +393,32 @@ def test_caf_std_dispatch_on_cuda(dev):
     blocks = _cplx((10, 2048), seed=7, dev=dev)
     rep = _cplx((4, 2048), seed=8, dev=dev)
     freqs = caf.doppler_bins(7000.0, 200.0)
-    before = cuda_caf.LAUNCHES
+    before = build.LAUNCHES["caf_std"]
     surf = caf.caf_accumulate(blocks, rep, freqs, FS)
-    assert cuda_caf.LAUNCHES == before + 1
+    assert build.LAUNCHES["caf_std"] == before + 1
     plain = caf.caf_accumulate(blocks.cpu(), rep.cpu(), freqs, FS)
     _assert_close(surf.cpu(), plain, 1e-3, 1e-4 * float(plain.max()))
     acq.acquire_all(blocks, rep, FS, AcquisitionConfig(), method="std")
-    assert cuda_caf.LAUNCHES == before + 2
+    assert build.LAUNCHES["caf_std"] == before + 2
     raw = torch.randint(-128, 128, (2 * 65536,), dtype=torch.int8,
                         device=dev)
     entry.detect_acquire_step(raw, method="std")
-    assert cuda_caf.LAUNCHES == before + 3
+    assert build.LAUNCHES["caf_std"] == before + 3
     b32, r32 = (_cplx((10, 3200), seed=9, dev=dev),
                 _cplx((4, 3200), seed=10, dev=dev))
     surf = caf.caf_accumulate(b32, r32, freqs, 3.2e6)
-    assert cuda_caf.LAUNCHES == before + 4
+    assert build.LAUNCHES["caf_std"] == before + 4
     plain = caf.caf_accumulate(b32.cpu(), r32.cpu(), freqs, 3.2e6)
     _assert_close(surf.cpu(), plain, 1e-3, 1e-4 * float(plain.max()))
     b62, r62 = _cplx((10, 2062), seed=9, dev=dev), _cplx((4, 2062), seed=10,
                                                          dev=dev)
     surf = caf.caf_accumulate(b62, r62, freqs, 2.062e6)
-    assert surf.is_cuda and cuda_caf.LAUNCHES == before + 4
+    assert surf.is_cuda and build.LAUNCHES["caf_std"] == before + 4
     plain = caf.caf_accumulate(b62.cpu(), r62.cpu(), freqs, 2.062e6)
     _assert_close(surf.cpu(), plain, 1e-3, 1e-4 * float(plain.max()))
     with pytest.raises(ValueError, match="B3"):
         cuda_caf.caf_accumulate_fused(b62, r62, freqs, 2.062e6)
-    assert cuda_caf.LAUNCHES == before + 4
+    assert build.LAUNCHES["caf_std"] == before + 4
 
 
 def test_monitor_step_spans_on_cuda(dev, tmp_path):
@@ -523,10 +523,10 @@ def test_acquire_all_where_the_kernels_do_not_apply(dev, system, method):
     blocks, rep, fs, cfg, kw = _c1_blocks(system, dev)
     assert not cuda_pcf.supported(blocks.shape[-1])
     assert caf.plain_on_card(blocks, rep.shape[0], pcf=True)
-    before = (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES)
+    before = (build.LAUNCHES["pcf"], build.LAUNCHES["caf_std"])
     got = acq.acquire_all(blocks, rep, fs, cfg, method=method, **kw)
     torch.cuda.synchronize()
-    assert (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES) == before
+    assert (build.LAUNCHES["pcf"], build.LAUNCHES["caf_std"]) == before
     want = acq.acquire_all(blocks.cpu(), rep.cpu(), fs, cfg, method=method,
                            **kw)
     for f in ("acquired", "code_phase", "doppler_hz"):
@@ -554,10 +554,10 @@ def test_acquire_all_raises_where_only_a_tpu_kernel_applies(dev, method):
     if method == "pcf":
         blocks, rep, fs, cfg, kw = _c1_blocks("gps_128", dev)
         assert caf.tpu_kernel_takes(128, rep.shape[0], pcf=True)
-        before = (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES)
+        before = (build.LAUNCHES["pcf"], build.LAUNCHES["caf_std"])
         got = acq.acquire_all(blocks, rep, fs, cfg, method=method, **kw)
         torch.cuda.synchronize()
-        assert (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES) == (before[0] + 1,
+        assert (build.LAUNCHES["pcf"], build.LAUNCHES["caf_std"]) == (before[0] + 1,
                                                           before[1])
         want = acq.acquire_all(blocks.cpu(), rep.cpu(), fs, cfg,
                                method=method, **kw)
@@ -576,10 +576,10 @@ def test_acquire_all_raises_where_only_a_tpu_kernel_applies(dev, method):
               code_len_chips=float(galileo.BOC_LEN))
     assert caf.tpu_kernel_takes(n, rep.shape[0], pcf=False)
     assert not caf.plain_on_card(blocks, rep.shape[0], pcf=False)
-    before = (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES)
+    before = (build.LAUNCHES["pcf"], build.LAUNCHES["caf_std"])
     with pytest.raises(ValueError, match="above 262144"):
         acq.acquire_all(blocks, rep, fs, cfg, method=method, **kw)
-    assert (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES) == before
+    assert (build.LAUNCHES["pcf"], build.LAUNCHES["caf_std"]) == before
 
 
 def test_cluster_plan_matches_its_twin(dev):
@@ -590,7 +590,7 @@ def test_cluster_plan_matches_its_twin(dev):
     launch it (one `pcf_correlate_cluster` device kernel, no
     `large_cols_corr`, in torch.profiler's trace)."""
     from torch.profiler import ProfilerActivity, profile
-    from gps_jamming_tpu_torch.kernels import build, fft_plan
+    from gps_jamming_tpu_torch.kernels import fft_plan
     lib = build.load()
     for n in range(16384 + 128, build.FFT_STD_MAX_N + 1, 128):
         if not cuda_caf.supported(n):
@@ -641,11 +641,11 @@ def test_acquire_all_above_16384_launches_the_kernels(dev, method):
          + np.sqrt(2 * 10 ** (-18 / 10)) * code[chip % code.size]
          * np.exp(2j * np.pi * hz * i / fs))
     blocks = torch.from_numpy(x.astype(np.complex64).reshape(10, n)).to(dev)
-    before = (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES)
+    before = (build.LAUNCHES["pcf"], build.LAUNCHES["caf_std"])
     got = acq.acquire_all(blocks, rep, fs, cfg, method=method, **kw)
     torch.cuda.synchronize()
     want = (before[0] + (method == "pcf"), before[1] + (method == "std"))
-    assert (cuda_pcf.LAUNCHES, cuda_caf.LAUNCHES) == want
+    assert (build.LAUNCHES["pcf"], build.LAUNCHES["caf_std"]) == want
     ref = acq.acquire_all(blocks.cpu(), rep.cpu(), fs, cfg, method=method,
                           **kw)
     for f in ("acquired", "code_phase", "doppler_hz"):
@@ -668,10 +668,10 @@ def test_welch_at_65536_never_calls_torch_fft(dev, monkeypatch):
 
     for name in ("fft", "ifft", "rfft", "fftn"):
         monkeypatch.setattr(torch.fft, name, refuse)
-    before = cuda_psd.LAUNCHES
+    before = build.LAUNCHES["welch_psd"]
     got = spectral.welch_psd(x, FS, 65536)
     torch.cuda.synchronize()
-    assert cuda_psd.LAUNCHES == before + 1
+    assert build.LAUNCHES["welch_psd"] == before + 1
     _assert_close(got, ref, 1e-3, 1e-4 * float(ref.max()))
 
 
@@ -799,9 +799,9 @@ def test_analyze_capture_on_cuda_matches_cpu(dev, tmp_path):
     and records equal, RSSI distances rtol 1e-4."""
     from gps_jamming_tpu_torch.runtime import pipeline
     paths, ants = _jammed_set(tmp_path)
-    before = cuda_pcf.LAUNCHES
+    before = build.LAUNCHES["pcf"]
     g = pipeline.analyze_capture(paths, ants, streaming=False)
-    assert cuda_pcf.LAUNCHES == before + 1
+    assert build.LAUNCHES["pcf"] == before + 1
     c = pipeline.analyze_capture(paths, ants, streaming=False, device="cpu")
     assert g.power_ranges == c.power_ranges and len(g.events) == 1
     assert g.events == c.events
@@ -924,10 +924,10 @@ def test_streaming_receiver_on_cuda_matches_cpu(dev, jammed_gps_bin):
     reset and a re-acquisition among them), and on the clean epochs after
     the pull-in carr_freq within 0.05 Hz and code_rem within 1e-3 chips
     (chip_smoke.py phase 5b's limits)."""
-    before = cuda_pcf.LAUNCHES
+    before = build.LAUNCHES["pcf"]
     rx_g = _stream_rx()
     g = rx_g.process_file(jammed_gps_bin)
-    assert cuda_pcf.LAUNCHES - before == rx_g.last_profile["n_acquire_calls"]
+    assert build.LAUNCHES["pcf"] - before == rx_g.last_profile["n_acquire_calls"]
     rx_c = _stream_rx("cpu")
     c = rx_c.process_file(jammed_gps_bin)
     assert set(g.tracked_spans) == set(c.tracked_spans)
@@ -1013,10 +1013,10 @@ def test_welch_kernel_over_rows_matches_plain(dev, rows, n, nperseg):
     version of that row (the tolerance of test_welch_kernel_matches_plain),
     and bit-equal to the 1-D call on the row."""
     x = _cplx((rows, n), seed=rows + n, dev=dev)
-    before = cuda_psd.LAUNCHES
+    before = build.LAUNCHES["welch_psd"]
     got = cuda_psd.welch_psd_fused(x, FS, nperseg)
     torch.cuda.synchronize()
-    assert cuda_psd.LAUNCHES == before + rows
+    assert build.LAUNCHES["welch_psd"] == before + rows
     assert got.shape == (rows, nperseg)
     for r in range(rows):
         ref = spectral.welch_psd_plain(x[r], FS, nperseg)
@@ -1033,11 +1033,11 @@ def test_spectrogram_runs_b2_per_chunk_on_cuda(dev, tmp_path):
     B2 does not take (36864 = 9 * 4096, which the TPU kernel does not take
     either) stays plain."""
     x = _cplx((2, 3, 1 << 15), seed=4, dev=dev)
-    before = cuda_psd.LAUNCHES
+    before = build.LAUNCHES["welch_psd"]
     got = spectral.welch_psd(x, FS, 1024)
-    assert cuda_psd.LAUNCHES == before + 6 and got.shape == (2, 3, 1024)
+    assert build.LAUNCHES["welch_psd"] == before + 6 and got.shape == (2, 3, 1024)
     spectral.welch_psd(_cplx((2, 1 << 17), seed=5, dev=dev), FS, 36864)
-    assert cuda_psd.LAUNCHES == before + 6
+    assert build.LAUNCHES["welch_psd"] == before + 6
     from gps_jamming_tpu_torch.ops import iq
     rng = np.random.default_rng(3)
     n = 20 * 32768 + 99
@@ -1047,10 +1047,10 @@ def test_spectrogram_runs_b2_per_chunk_on_cuda(dev, tmp_path):
     cpu = spectral.spectrogram_file(str(tmp_path / "c.bin"), FS, 32768,
                                     1024, device="cpu")
     for b in (1, 3, 16):
-        before = cuda_psd.LAUNCHES
+        before = build.LAUNCHES["welch_psd"]
         got = spectral.spectrogram_file(str(tmp_path / "c.bin"), FS, 32768,
                                         1024, batch_chunks=b)
-        assert cuda_psd.LAUNCHES == before + 20
+        assert build.LAUNCHES["welch_psd"] == before + 20
         np.testing.assert_allclose(got, cpu, atol=1e-3, rtol=0)
 
 
@@ -1152,13 +1152,13 @@ def test_dashboard_start_stop_start_on_cuda(dev, tmp_path):
             return json.loads(r.read())
 
     def run_to_end():
-        before = cuda_pcf.LAUNCHES
+        before = build.LAUNCHES["pcf"]
         assert post({"action": "start", "files": paths,
                      "positions": [list(a) for a in ants]}) == 200
         ctl.join(600)
         st = get()
         assert st["status"] == "analysis complete", st["status"]
-        assert cuda_pcf.LAUNCHES == before       # 1 s: no whole segment
+        assert build.LAUNCHES["pcf"] == before       # 1 s: no whole segment
         return st
 
     def workers():
@@ -1199,7 +1199,7 @@ def _sharded_case(n_ant, n_time, block, seed):
 @pytest.mark.parametrize("method", ["pcf", "std"])
 def test_sharded_acquisition_on_a_repeated_card(dev, method):
     """A 2 x 4 mesh of one card: one search per shard (B1 for 'pcf', B3
-    for 'std'), so LAUNCHES rises by 8; each antenna's surface equals the
+    for 'std'), so its count in build.LAUNCHES rises by 8; each antenna's surface equals the
     single-device search of its 16 periods (rtol 2e-4, atol 1e-3 * max),
     and a second run gives the same bits."""
     from gps_jamming_tpu_torch.ops import caf, codes
@@ -1210,12 +1210,12 @@ def test_sharded_acquisition_on_a_repeated_card(dev, method):
     planes = codes.gps_replica_table_host(FS, n_code)
     freqs = caf.doppler_bins(7000.0, 500.0)
     m = mesh_lib.make_mesh(2, 4, devices=[dev] * 8)
-    counter = cuda_pcf if method == "pcf" else cuda_caf
-    before = counter.LAUNCHES
+    kernel = "pcf" if method == "pcf" else "caf_std"
+    before = build.LAUNCHES[kernel]
     surf = fusion.sharded_caf_acquire(blocks, m, planes, freqs, FS,
                                       method=method, group_blocks=gb)
     torch.cuda.synchronize()
-    assert counter.LAUNCHES == before + 8
+    assert build.LAUNCHES[kernel] == before + 8
     assert surf.device == dev
     rep = codes.replica_tensor(planes, dev)
     for a in range(2):
@@ -1240,14 +1240,14 @@ def test_sharded_psd_on_a_repeated_card(dev):
     from gps_jamming_tpu_torch.parallel import mesh as mesh_lib
     streams, blocks = _sharded_case(2, 4, 1 << 17, seed=32)
     m = mesh_lib.make_mesh(2, 4, devices=[dev] * 8)
-    before = cuda_psd.LAUNCHES
+    before = build.LAUNCHES["welch_psd"]
     fused, per_ant, pm = fusion.sharded_psd_and_power(
         blocks, m, FS, DetectorConfig(), SpectralConfig())
     torch.cuda.synchronize()
-    assert cuda_psd.LAUNCHES == before + 8
+    assert build.LAUNCHES["welch_psd"] == before + 8
     x = torch.from_numpy(streams).to(dev)
     want = torch.stack([spectral.welch_psd(r, FS, 1024) for r in x])
-    assert cuda_psd.LAUNCHES == before + 10
+    assert build.LAUNCHES["welch_psd"] == before + 10
     _assert_close(per_ant, want, 2e-4, 0.0)
     _assert_close(fused, want.mean(dim=0), 2e-4, 0.0)
     _assert_close(pm, power.chunk_power(x, 32768), 1e-5, 0.0)
@@ -1260,9 +1260,9 @@ def test_sharded_analysis_on_a_repeated_card_matches_cpu(dev, tmp_path):
     2e-4, the fused peak within 1e-3 dB."""
     from gps_jamming_tpu_torch.runtime import sharded
     paths, _ = _jammed_set(tmp_path)
-    before = (cuda_psd.LAUNCHES, cuda_pcf.LAUNCHES)
+    before = (build.LAUNCHES["welch_psd"], build.LAUNCHES["pcf"])
     g = sharded.analyze_capture_sharded(paths, devices=[dev] * 6)
-    assert (cuda_psd.LAUNCHES - before[0], cuda_pcf.LAUNCHES - before[1]) \
+    assert (build.LAUNCHES["welch_psd"] - before[0], build.LAUNCHES["pcf"] - before[1]) \
         == (6, 6)
     c = sharded.analyze_capture_sharded(paths, devices=["cpu"] * 6)
     assert g["mesh"] == c["mesh"] == {"antenna": 3, "time": 2, "devices": 6}

@@ -5,6 +5,7 @@ Slice tolerances (one 1<<16-sample raw block through both forwards): psd
 rtol 1e-4, atol 1e-4 * max; pm rtol 1e-6; flags equal; surf rtol 2e-4,
 atol 2e-4 * max; the std chain's per-PRN peak rtol 2e-4.
 """
+import contextlib
 import os
 import shutil
 import subprocess
@@ -137,6 +138,90 @@ def test_kernel_loader_raises_without_nvcc():
     with pytest.raises(RuntimeError, match="nvcc"):
         build.load()
     assert len(build.source_hash()) == 16
+
+
+@pytest.mark.parametrize("rc", [0, 700])
+def test_launch_passes_the_stream_and_counts(monkeypatch, rc):
+    """`build.launch` through a fake library: the device's current stream
+    goes last; a zero return counts one launch under the entry's kernel,
+    a non-zero one raises RuntimeError naming the entry and counts
+    nothing."""
+    calls, entered = [], []
+
+    class FakeLib:
+        def gjt_pcf_large(self, *args):
+            calls.append(args)
+            return rc
+
+    class FakeStream:
+        cuda_stream = 0xBEEF
+
+    class FakeDevice:
+        def __init__(self, device):
+            self.device = device
+
+        def __enter__(self):
+            entered.append(self.device)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(build, "load", FakeLib)
+    monkeypatch.setattr(torch.cuda, "device", FakeDevice)
+    monkeypatch.setattr(torch.cuda, "current_stream", FakeStream)
+    monkeypatch.setattr(torch.cuda, "CudaError", lambda err: f"error {err}")
+    monkeypatch.setattr(build, "LAUNCHES", build.LAUNCHES.copy())
+    dev = torch.device("cuda", 1)
+    before = build.launch_counts()
+    if rc:
+        with pytest.raises(RuntimeError, match="gjt_pcf_large failed"):
+            build.launch("gjt_pcf_large", dev, 11, 22, 33)
+    else:
+        build.launch("gjt_pcf_large", dev, 11, 22, 33)
+    assert calls == [(11, 22, 33, 0xBEEF)] and entered == [dev]
+    want = dict(before, pcf=before["pcf"] + (rc == 0))
+    assert build.launch_counts() == want
+
+
+def test_launch_passes_scratch_per_stream(monkeypatch):
+    """A `build.Scratch` argument reaches the C entry point as the pointer
+    to zeroed scratch of the size its sizer gives, the same buffer again
+    on one stream and another buffer on another stream."""
+    got, streams = [], [0xA1]
+
+    class FakeLib:
+        def gjt_front_scratch_bytes(self):
+            return 24
+
+        def gjt_block_front(self, *args):
+            got.append(args)
+            return 0
+
+    class FakeStream:
+        @property
+        def cuda_stream(self):
+            return streams[-1]
+
+    monkeypatch.setattr(build, "load", FakeLib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", FakeStream)
+    monkeypatch.setattr(build, "LAUNCHES", build.LAUNCHES.copy())
+    build._scratch.cache_clear()
+    cpu = torch.device("cpu")
+    spec = build.Scratch("gjt_front_scratch_bytes")
+    for stream in (0xA1, 0xA1, 0xB2):
+        streams.append(stream)
+        build.launch("gjt_block_front", cpu, 1, 2, spec, 3)
+    sc_b = build.scratch(spec, cpu)                 # the current stream
+    streams.append(0xA1)
+    sc_a = build.scratch(spec, cpu)
+    assert sc_a.shape == (24,) and sc_a.dtype == torch.uint8
+    assert not sc_a.any()
+    assert [a[2] for a in got] == [sc_a.data_ptr()] * 2 + [sc_b.data_ptr()]
+    assert sc_b.data_ptr() != sc_a.data_ptr()
+    assert [a[-1] for a in got] == [0xA1, 0xA1, 0xB2]
+    build._scratch.cache_clear()
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -27,6 +27,7 @@ from gps_jamming_tpu.config import DEFAULT_CONFIG as JCFG
 from gps_jamming_tpu.ops import iq as jiq
 from gps_jamming_tpu.ops import power as jpower
 from gps_jamming_tpu_torch import entry
+from gps_jamming_tpu_torch.kernels import build
 from gps_jamming_tpu_torch.ops import cuda_front, iq, power
 
 torch.set_num_threads(2)
@@ -73,9 +74,9 @@ CASES = [(1 << 19, None), (1 << 17, None), (CHUNK, None), (20000, None),
 @pytest.mark.parametrize("n,jam", CASES)
 def test_plain_front_is_the_composition(n, jam):
     raw = _raw(n, seed=n % 997, jam=jam)
-    before = cuda_front.LAUNCHES
+    before = build.LAUNCHES["front"]
     got = cuda_front.block_front(raw, CHUNK, 5.0, 6.0)
-    assert cuda_front.LAUNCHES == before            # no kernel on the CPU
+    assert build.LAUNCHES["front"] == before            # no kernel on the CPU
     k = -(-n // CHUNK)
     assert got[0].dtype == torch.complex64 and got[0].shape == (n,)
     assert got[1].dtype == torch.float32 and got[1].shape == (k,)
@@ -87,9 +88,9 @@ def test_plain_front_is_the_composition(n, jam):
 
 def test_entry_front_runs_the_configured_front():
     raw = _raw(1 << 17, seed=4, jam=(CHUNK, 2 * CHUNK))
-    before = cuda_front.LAUNCHES
+    before = build.LAUNCHES["front"]
     got = entry._front(raw)
-    assert cuda_front.LAUNCHES == before
+    assert build.LAUNCHES["front"] == before
     assert entry.CHUNK == CHUNK
     assert bool(got[2].any()) and not bool(got[2].all())
     _assert_front(got, _jax_front(raw, JCFG.detector.baseline_percentile,

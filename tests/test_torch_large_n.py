@@ -137,11 +137,11 @@ def test_pcf_surface_at_32768_matches_jax():
     xla = np.asarray(jcaf.caf_accumulate_pcf(
         _jb(x), cplx.CArray(jnp.asarray(planes[0]), jnp.asarray(planes[1])),
         fs, max_doppler_hz=1000.0))
-    before = cuda_pcf.LAUNCHES
+    before = build.LAUNCHES["pcf"]
     got = cuda_pcf.caf_accumulate_pcf_fused(
         torch.from_numpy(x), convert.replica_from_jax(planes, "cpu"), fs,
         max_doppler_hz=1000.0).numpy()
-    assert cuda_pcf.LAUNCHES == before          # no kernel on the CPU
+    assert build.LAUNCHES["pcf"] == before          # no kernel on the CPU
     assert got.shape == want.shape == (2, 54, n)
     _surf_close(got, want)
     _surf_close(got, xla)
@@ -184,11 +184,11 @@ def test_std_search_above_16384_matches_jax(n, kinds):
         (2, n)).astype(np.float32) for s in (11, 12))
     freqs = jcaf.doppler_bins(500.0, 250.0)
     assert (jcaf.fused_dispatch(n, 2) or "") in kinds
-    before = cuda_caf.LAUNCHES
+    before = build.LAUNCHES["caf_std"]
     got = tcaf.caf_accumulate(torch.from_numpy(x),
                               convert.replica_from_jax(planes, "cpu"), freqs,
                               fs).numpy()
-    assert cuda_caf.LAUNCHES == before
+    assert build.LAUNCHES["caf_std"] == before
     assert got.shape == (2, 5, n)
     fns = {"v1": pallas_caf.caf_accumulate_fused,
            "v2": pallas_caf.caf_accumulate_fused_v2,
@@ -214,10 +214,10 @@ def test_welch_above_16384_matches_jax(nperseg):
         np.complex64)
     want = np.asarray(pallas_psd.welch_psd_fused(
         cplx.asarray(jnp.asarray(x)), 2.048e6, nperseg, interpret=True))
-    before = cuda_psd.LAUNCHES
+    before = build.LAUNCHES["welch_psd"]
     got = cuda_psd.welch_psd_fused(torch.from_numpy(x), 2.048e6,
                                    nperseg).numpy()
-    assert cuda_psd.LAUNCHES == before
+    assert build.LAUNCHES["welch_psd"] == before
     assert got.shape == want.shape == (nperseg,)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6 * want.max())
 
@@ -237,11 +237,11 @@ def test_pcf_at_128_matches_jax(excl):
     want = pallas_caf.caf_accumulate_pcf_fused(
         _jb(x), cplx.CArray(*planes), fs, precision="f32", interpret=True,
         stats_excl=excl)
-    before = cuda_pcf.LAUNCHES
+    before = build.LAUNCHES["pcf"]
     got = cuda_pcf.caf_accumulate_pcf_fused(
         torch.from_numpy(x), convert.replica_from_jax(planes, "cpu"), fs,
         stats_excl=excl)
-    assert cuda_pcf.LAUNCHES == before
+    assert build.LAUNCHES["pcf"] == before
     if excl is None:
         want = np.asarray(want)
         assert got.shape == want.shape == (2, 90, n)
@@ -278,11 +278,11 @@ def test_std_search_at_the_sizes_taken_last_matches_jax(n, kind):
         (2, n)).astype(np.float32) for s in (11, 12))
     freqs = jcaf.doppler_bins(500.0, 250.0)
     assert jcaf.fused_dispatch(n, 2) == kind and cuda_caf.supported(n)
-    before = cuda_caf.LAUNCHES
+    before = build.LAUNCHES["caf_std"]
     got = tcaf.caf_accumulate(torch.from_numpy(x),
                               convert.replica_from_jax(planes, "cpu"), freqs,
                               fs).numpy()
-    assert cuda_caf.LAUNCHES == before
+    assert build.LAUNCHES["caf_std"] == before
     assert got.shape == (2, 5, n)
     fn = {"v1": pallas_caf.caf_accumulate_fused,
           "v3": pallas_caf.caf_accumulate_fused_v3}[kind]

@@ -12,6 +12,7 @@ import torch
 
 from gps_jamming_tpu.ops import cplx, pallas_psd
 from gps_jamming_tpu.ops import spectral as jspec
+from gps_jamming_tpu_torch.kernels import build
 from gps_jamming_tpu_torch.ops import cuda_psd
 from gps_jamming_tpu_torch.ops import spectral as tspec
 
@@ -47,9 +48,9 @@ def test_kernel_plain_matches_pallas_interpret(n):
     x = _signal(n, seed=n + 1)
     want = np.asarray(pallas_psd.welch_psd_fused(
         cplx.asarray(jnp.asarray(x)), FS, 1024, interpret=True))
-    before = cuda_psd.LAUNCHES
+    before = build.LAUNCHES["welch_psd"]
     got = cuda_psd.welch_psd_fused(torch.from_numpy(x), FS, 1024).numpy()
-    assert cuda_psd.LAUNCHES == before          # no kernel on the CPU
+    assert build.LAUNCHES["welch_psd"] == before          # no kernel on the CPU
     _close(got, want)
 
 
