@@ -124,6 +124,28 @@ def read_iq_file(path: str, *, convention: str = "centered",
     return (f[0::2] + 1j * f[1::2]).astype(np.complex64)
 
 
+def read_raw(path: str, nbytes: int, *, pin: bool = False) -> torch.Tensor:
+    """The first `nbytes` bytes of a .bin capture as a host uint8 tensor,
+    read straight into it (`readinto` until it is full), with no array of
+    the capture's size in between; EOFError where the file is shorter.
+
+    With `pin` the tensor is page-locked and comes from PyTorch's caching
+    host allocator: a later call of the same size gets the freed block
+    back, already mapped and locked, once every copy queued from it has
+    run, and `.to(card, non_blocking=True)` from it, or from a view of
+    it, is an async DMA."""
+    out = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+    view = memoryview(out.numpy())
+    got = 0
+    with open(path, "rb", buffering=0) as f:
+        while got < nbytes:
+            k = f.readinto(view[got:])
+            if not k:
+                raise EOFError(f"{path}: {got} of {nbytes} bytes")
+            got += k
+    return out
+
+
 def to_uint8_bytes(iq_float: torch.Tensor) -> torch.Tensor:
     """Centered complex I/Q -> interleaved RTL-SDR uint8 bytes on the
     tensor's device: clip to [-128, 127], truncate to int16, +128 (the

@@ -173,8 +173,9 @@ class Profiler:
 #                     (ops.cuda_psd.welch_psd_fused, over all its rows)
 #   gjt.sharded       runtime.sharded.analyze_capture_sharded, the whole
 #                     call (`detect --devices N`)
-#   gjt.sharded.read  its reads of the capture files (ops.iq.read_iq_file:
-#                     uint8 -> complex64 on the host)
+#   gjt.sharded.read  its reads of the capture files' raw bytes into host
+#                     uint8 buffers, page-locked where the mesh holds a
+#                     card (ops.iq.read_raw)
 #   gjt.sharded.psd_power  the shards' upload and the fused Welch PSD and
 #                     chunk power (parallel.fusion.sharded_psd_and_power)
 #   gjt.sharded.acquire    the PCF search of the capture head

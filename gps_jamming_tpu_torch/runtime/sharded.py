@@ -14,10 +14,11 @@ ui_mainwindow.py:633-651) and the time axis taking the remaining devices:
 each antenna's stream is split into time shards whose PSD, power and CAF
 partials are fused on the mesh, replacing the reference's per-receiver
 HTTP fan-in (sdrout.c:10-57). Each file's bytes are read once on the
-host, and each shard is uploaded once as those bytes, 2 B a sample, to its
-own device, which makes them complex64. Where there are fewer devices
-than files, the antenna rows take them in turn: three files on one card
-are a 3 x 1 mesh of that card, and every output equals three cards'.
+host, into page-locked memory where the mesh holds a card, and each shard
+is uploaded once as those bytes, 2 B a sample, to its own device, which
+makes them complex64. Where there are fewer devices than files, the
+antenna rows take them in turn: three files on one card are a 3 x 1 mesh
+of that card, and every output equals three cards'.
 
 The TDOA slice is `cfg.tdoa.correlation_slice_size` samples per antenna
 (the upstream's 50 000, triangulateTDOA.py:18-29), where the JAX package
@@ -98,9 +99,11 @@ def _analyze(paths, n_devices, cfg, system, sample_rate, max_seconds,
     if L == 0:
         raise ValueError(f"capture too short for a {n_time}-way time "
                          f"split of {chunk}-sample chunks")
+    # page-locked where a shard goes to a card, so that its upload is an
+    # async DMA from the buffer (`iq.read_raw`)
+    pin = any(d.type == "cuda" for row in mesh.devices for d in row)
     with profiling.span("gjt.sharded.read"):
-        raws = [np.fromfile(p, dtype=np.uint8, count=2 * L * n_time)
-                for p in paths]
+        raws = [iq_ops.read_raw(p, 2 * L * n_time, pin=pin) for p in paths]
 
     # --- sharded PSD + F1 power profiles, then PCF acquisition on the
     # capture head: every shard's work is queued before any result is read.
@@ -163,8 +166,8 @@ def _analyze(paths, n_devices, cfg, system, sample_rate, max_seconds,
             # complex64 host slices (the same arithmetic on the CPU), so
             # every mesh counts their upload alike
             xc = fusion.sharded_pair_xcorr(iq_ops.uint8_to_complex(
-                torch.from_numpy(np.stack([r[2 * start:2 * (start + width)]
-                                           for r in raws]))), mesh)
+                torch.stack([r[2 * start:2 * (start + width)]
+                             for r in raws])), mesh)
             nfft = xc.shape[-1]
             peaks = xc.argmax(dim=-1).cpu().numpy()
             tdoa = []

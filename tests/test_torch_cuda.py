@@ -50,7 +50,10 @@ path on a mesh of one repeated card launches B1 or B3 once per shard and
 B2 once per time shard, and equals the single-device calls (rtol 2e-4,
 atol 1e-3 * max for the surfaces) and the CPU mesh; on two distinct
 cards, where the machine has them, it equals the repeated card bitwise;
-three files on one card upload their raw bytes, 2 B a sample.
+three files on one card upload their raw bytes, 2 B a sample, from
+page-locked rows (one `Pinned` HtoD record each), and two passes in a row
+over two different sets equal the CPU mesh and, bitwise, the card's
+answers from pageable rows.
 """
 import numpy as np
 import pytest
@@ -1300,6 +1303,65 @@ def test_sharded_three_files_on_one_card_upload_their_bytes(dev, tmp_path):
         assert [(r["prn"], r["doppler_hz"]) for r in ga] == \
             [(r["prn"], r["doppler_hz"]) for r in ca]
     assert g["tdoa_pairs"] == c["tdoa_pairs"]
+
+
+def test_sharded_files_go_up_from_pinned_rows(dev, tmp_path, monkeypatch):
+    """`detect --devices 1` over two different three-file sets of one
+    size, one pass after the other (the second gets the first's freed
+    page-locked blocks back): the rows handed to `place_blocks` are
+    pinned, and under the profiler each file's row is one `Pinned` HtoD
+    record; from pageable rows the same three copies are `Pageable`. Each
+    pass's ranges, PRNs, Dopplers and lags equal the `devices=['cpu']`
+    answers, and its whole answer equals, bitwise, the card's from
+    pageable rows."""
+    from gps_jamming_tpu_torch.parallel import mesh as mesh_lib
+    from gps_jamming_tpu_torch.runtime import profiling, sharded
+    sets = []
+    for name, start in (("a", 0.6), ("b", 0.3)):
+        (tmp_path / name).mkdir()
+        sets.append(_jammed_set(tmp_path / name, start=start)[0])
+    place, read_raw = mesh_lib.place_blocks, sharded.iq_ops.read_raw
+    pinned = []
+
+    def spy(blocks, mesh):
+        if not mesh_lib._is_grid(blocks):     # the host rows, not a grid
+            pinned.extend(r.is_pinned() for r in blocks)
+        return place(blocks, mesh)
+    monkeypatch.setattr(sharded.mesh_lib, "place_blocks", spy)
+
+    def htod(paths):
+        """A pass's answer and its (Pinned, Pageable) HtoD record counts,
+        traced after the pre-roll that keeps the profiler's first device
+        records (`profiling.torch_trace`)."""
+        with profiling.torch_trace(str(tmp_path / f"tr{len(pinned)}"),
+                                   dev) as prof:
+            out = sharded.analyze_capture_sharded(paths, n_devices=1,
+                                                  devices=[dev])
+            torch.cuda.synchronize(dev)
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if "HtoD" in e.name()]
+        return out, tuple(sum(k in n for n in names)
+                          for k in ("Pinned", "Pageable"))
+
+    got = [htod(p) for p in sets]
+    assert pinned == [True] * 6
+    small = got[0][1][1]                 # replica table, TDOA slices, ...
+    assert [n for _, n in got] == [(3, small)] * 2
+    monkeypatch.setattr(sharded.iq_ops, "read_raw",
+                        lambda p, n, pin=False: read_raw(p, n))
+    pageable = [htod(p) for p in sets]
+    assert pinned[6:] == [False] * 6
+    assert [n for _, n in pageable] == [(0, small + 3)] * 2
+    for (g, _), (w, _), paths in zip(got, pageable, sets):
+        assert g == w
+        c = sharded.analyze_capture_sharded(paths, devices=["cpu"])
+        for ga, ca in zip(g["per_antenna"], c["per_antenna"], strict=True):
+            assert ga["power_ranges_bytes"] == ca["power_ranges_bytes"] != []
+        for ga, ca in zip(g["acquisition"], c["acquisition"], strict=True):
+            assert [(r["prn"], r["doppler_hz"]) for r in ga] == \
+                [(r["prn"], r["doppler_hz"]) for r in ca]
+        assert g["tdoa_pairs"] == c["tdoa_pairs"]
+    assert got[0][0]["per_antenna"] != got[1][0]["per_antenna"]
 
 
 def test_sharded_acquisition_on_distinct_cards(dev):

@@ -20,12 +20,18 @@ hand):
   reads 2 bytes per analysed sample (the files' raw bytes, made complex64
   on the device) and 8 per slice sample (complex64 host slices);
 - the pass never builds a capture on the host: with `read_iq_file` made
-  to raise, its answers still equal the reference.
+  to raise, its answers still equal the reference;
+- the files' bytes are read with `iq.read_raw` (never `np.fromfile`):
+  exactly the first bytes asked for of a longer file, bitwise
+  `np.fromfile`'s, however short each `readinto` comes back, page-locked
+  only where asked; two passes in a row over two different sets of the
+  same size each equal their own reference.
 """
 import contextlib
 import dataclasses
 import io
 import json
+import os
 
 import numpy as np
 import pytest
@@ -36,6 +42,7 @@ from gjt_bench.loops import sharded_passes
 from gjt_bench.reference import sharded as ref
 from gps_jamming_tpu_torch import cli as tcli
 from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
+from gps_jamming_tpu_torch.ops import iq
 from gps_jamming_tpu_torch.parallel import mesh as mesh_lib
 from gps_jamming_tpu_torch.runtime import profiling, sharded
 
@@ -45,16 +52,15 @@ OFFSETS = (0, 2500, 9000)
 SECONDS = 1.0
 
 
-@pytest.fixture(scope="module")
-def files(tmp_path_factory):
-    """(paths, the files' bytes, the configuration) of the seeded set."""
+def _file_set(tmp_path_factory, seed, jam):
+    """(paths, the files' bytes, the configuration) of a seeded set."""
     bench = harness.spec()
-    cell = harness.make_cell(bench, "gps.detect_sharded", 2**31 + 29, "cpu")
+    cell = harness.make_cell(bench, "gps.detect_sharded", seed, "cpu")
     scene = cell.traffic["scene"]
     fs = scene["sample_rate_hz"]
     n_file = int(SECONDS * fs)
     scene["seconds"] = (n_file + max(OFFSETS)) / fs
-    scene["jammer"]["start_s"], scene["jammer"]["stop_s"] = 0.5, 0.9
+    scene["jammer"]["start_s"], scene["jammer"]["stop_s"] = jam
     u8 = render.render_scene(scene, cell.seed, "cpu")
     raws = sharded_passes.cut_files([a.numpy() for a in u8], OFFSETS,
                                     n_file)
@@ -63,6 +69,11 @@ def files(tmp_path_factory):
     for a, p in zip(raws, paths):
         a.tofile(p)
     return paths, raws, cell.config
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    return _file_set(tmp_path_factory, 2**31 + 29, (0.5, 0.9))
 
 
 @pytest.fixture(scope="module")
@@ -179,3 +190,82 @@ def test_no_capture_is_built_on_the_host(files, monkeypatch):
     paths, raws, cfg = files
     got = sharded.analyze_capture_sharded(paths, devices=["cpu"])
     _assert_matches_the_reference(got, raws, cfg)
+
+
+@pytest.mark.parametrize("nbytes", [1, 4095, 4096, 4097, 2 * 65536 + 6,
+                                    1 << 20])
+def test_read_raw_takes_the_first_bytes_of_a_longer_file(tmp_path, nbytes):
+    p = str(tmp_path / "long.bin")
+    np.random.default_rng(nbytes).integers(
+        0, 256, nbytes + 4099, dtype=np.uint8).tofile(p)
+    got = iq.read_raw(p, nbytes)
+    assert got.dtype == torch.uint8 and got.shape == (nbytes,)
+    assert got.device.type == "cpu" and not got.is_pinned()
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.fromfile(p, np.uint8, count=nbytes))
+
+
+def test_read_raw_refuses_more_bytes_than_the_file_holds(tmp_path):
+    p = str(tmp_path / "short.bin")
+    np.zeros(100, np.uint8).tofile(p)
+    with pytest.raises(EOFError):
+        iq.read_raw(p, 101)
+
+
+def test_read_raw_fills_the_buffer_from_short_reads(tmp_path, monkeypatch):
+    """A file that hands back at most 777 bytes a `readinto` still fills
+    the whole buffer, each byte where `np.fromfile` puts it."""
+    p = str(tmp_path / "f.bin")
+    want = np.random.default_rng(3).integers(0, 256, 10_000, dtype=np.uint8)
+    want.tofile(p)
+    real_open, calls = open, []
+
+    class Short:
+        def __init__(self, f):
+            self.f = f
+
+        def readinto(self, b):
+            calls.append(len(b))
+            return self.f.readinto(memoryview(b)[:777])
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            self.f.close()
+
+    monkeypatch.setattr("builtins.open",
+                        lambda *a, **k: Short(real_open(*a, **k)))
+    got = iq.read_raw(p, 9_000)
+    monkeypatch.undo()
+    assert len(calls) == -(-9_000 // 777)
+    np.testing.assert_array_equal(got.numpy(), want[:9_000])
+
+
+def test_read_raw_pins_only_where_asked(tmp_path, monkeypatch):
+    asked = []
+    empty = torch.empty
+
+    def spy(*a, pin_memory=False, **k):
+        asked.append(pin_memory)
+        return empty(*a, **k)
+    monkeypatch.setattr(iq.torch, "empty", spy)
+    p = str(tmp_path / "f.bin")
+    np.arange(64, dtype=np.uint8).tofile(p)
+    for pin in (False, True):
+        assert iq.read_raw(p, 64, pin=pin).tolist() == list(range(64))
+    assert asked == [False, True]
+
+
+def test_two_passes_over_two_sets_match_their_own_references(
+        files, tmp_path_factory, monkeypatch):
+    other = _file_set(tmp_path_factory, 2**31 + 31, (0.2, 0.6))
+    assert os.path.getsize(other[0][0]) == os.path.getsize(files[0][0])
+    assert not np.array_equal(other[1][0], files[1][0])
+
+    def no_fromfile(*a, **k):
+        raise AssertionError("the sharded path called np.fromfile")
+    monkeypatch.setattr(np, "fromfile", no_fromfile)
+    for paths, raws, cfg in (files, other, files):
+        got = sharded.analyze_capture_sharded(paths, devices=["cpu"])
+        _assert_matches_the_reference(got, raws, cfg)
