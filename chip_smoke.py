@@ -166,7 +166,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
     `acquire_all(method='std')` on its first 40 ms: B3 once, the same
     PRNs; (c) `spectral.welch_psd` at nperseg 65536 on phase 5's capture
     plus a CW tone, torch.fft patched to raise: B2 once, the peak on the
-    tone;
+    tone; (d) `entry.detect_acquire_step(plan=GALILEO_E1B_8M192)`, as cell
+    galileo.monitor_8m192 runs it, over 8 blocks of 2M samples of that
+    fixture with a tone in chunks 24-39: F1 at 64 chunks against its
+    plain version, F1, B2 and B1 once a block (counts from 0), one traced
+    block with torch.fft patched to raise holding one
+    `pcf_correlate_cluster`, and the first block against the CPU plain
+    path;
 11. the `benchmark` verb's module (`runtime/benchmarks.py`), each part
     with the counts from 0: (a) `single_chip()` in this process (the
     flagship chain, 8 blocks of 512k samples per call, 181 calls): F1, B1
@@ -269,6 +275,11 @@ SBAS_WEEK = 310
 SBAS_NOISE = 0.8                  # rms per I/Q component, before x12
 GAL8K_FS = 8.192e6                # phase 10: Galileo E1B at 8 samples a
 GAL8K_N = 32768                   # chip, one 4 ms code period above 16384
+GAL_MON_BLOCK = 1 << 21           # phase 10d: cell galileo.monitor_8m192's
+#                                   block, 256 ms at 8.192 MS/s, 64 chunks
+GAL_MON_JAM = (24, 40)            # phase 10d: the tone's chunks in a block
+GAL_MON_TONE_HZ = 1.2e6           # PSD bin 150 of 1024 at 8.192 MS/s
+GAL_MON_TONE_LSB = 90.0           # over the fixture's 25.5 LSB rms
 LARGE_STD = ((32000, 8e6), (65536, 16.384e6), (131072, 32.768e6))
 # phase 10: B1 at v3's other sizes above 16384, Galileo E1B's 4 ms period
 # at 5.12, 6.144 and 7.168 MS/s (8 PRN x 10 periods)
@@ -2505,6 +2516,173 @@ def large_kernels(gal_blocks, gal_rep, dev, card) -> dict:
     return out
 
 
+def galileo_monitor(fx8: dict, dev, card) -> dict:
+    """Phase 10d: the monitor step on its Galileo E1B plan
+    (`entry.GALILEO_E1B_8M192`, as cell galileo.monitor_8m192 runs it) over
+    N_BLOCKS consecutive GAL_MON_BLOCK-sample blocks of the 8.192 MS/s
+    fixture's bytes as int8, each with a GAL_MON_TONE_LSB tone in chunks
+    GAL_MON_JAM: kernel F1 at 64 chunks against its plain version (x
+    bitwise, pm rtol 1e-6, flags equal, bitwise repeatable) with CUDA-event
+    times of both; the step's launches counted from 0, F1, B2 and B1 once
+    a block and B3 never, and its median host ms a block; one block traced
+    with torch.fft patched to raise, its launches counted from 0 and its
+    records one `pcf_correlate_cluster`, one F1, no `large_cols_corr` and
+    no B1 record below 16384; the first block against the CPU plain path
+    on the same bytes (PSD rtol 1e-3, atol 1e-4 * max; pm rtol 1e-6; flags
+    equal; peaks rtol 2e-4; the CPU in pieces of 4 PRNs), its flags on the
+    tone's chunks alone, its PSD's peak on the tone's bin and its strongest
+    PRN one in view. Returns the launches and F1's entry."""
+    from gps_jamming_tpu_torch import entry
+    from gps_jamming_tpu_torch.config import DEFAULT_CONFIG as CFG
+    from gps_jamming_tpu_torch.ops import cuda_front
+    from gps_jamming_tpu_torch.runtime import profiling
+    plan = entry.GALILEO_E1B_8M192
+    nb = GAL_MON_BLOCK
+    u8 = np.fromfile(fx8["bin"], np.uint8, count=2 * N_BLOCKS * nb)
+    fail_unless(u8.size == 2 * N_BLOCKS * nb, "phase 10d: short fixture")
+    iq16 = u8.astype(np.int16).reshape(N_BLOCKS, nb, 2) - 128
+    lo, hi = (c * plan.chunk for c in GAL_MON_JAM)
+    ph = 2.0 * np.pi * GAL_MON_TONE_HZ * np.arange(lo, hi) / GAL8K_FS
+    iq16[:, lo:hi, 0] += np.round(GAL_MON_TONE_LSB * np.cos(ph)).astype(
+        np.int16)
+    iq16[:, lo:hi, 1] += np.round(GAL_MON_TONE_LSB * np.sin(ph)).astype(
+        np.int16)
+    raw = torch.from_numpy(np.clip(iq16, -128, 127).astype(np.int8).reshape(
+        N_BLOCKS, 2 * nb)).to(dev)
+    replica = entry.replica_table(plan, dev)
+
+    def step(r):
+        return entry.detect_acquire_step(r, replica, plan=plan)
+
+    # F1 at the cell's shape, 64 chunks of 32768
+    front_args = (raw[0], plan.chunk, CFG.detector.baseline_percentile,
+                  CFG.detector.power_rise_db)
+    got = cuda_front.block_front(*front_args)
+    ref = cuda_front.block_front_reference(*front_args)
+    fail_unless(got[1].numel() == nb // plan.chunk == 64,
+                f"phase 10d: F1 made {got[1].numel()} chunks, want 64")
+    fail_unless(bool(torch.equal(got[0], ref[0])),
+                "phase 10d: F1's x differs from its plain version")
+    ok, abs_err, rel = close(got[1], ref[1], 1e-6, 0.0)
+    fail_unless(ok, f"phase 10d: F1's pm differs from its plain version "
+                    f"(max_rel_err {rel:.3e}, rtol 1e-6)")
+    fail_unless(bool(torch.equal(got[2], ref[2])),
+                "phase 10d: F1's flags differ from its plain version")
+    again = cuda_front.block_front(*front_args)
+    fail_unless(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                "phase 10d: two calls of F1 differ")
+    ms, plain_ms = time_pair(
+        lambda: cuda_front.block_front(*front_args),
+        lambda: cuda_front.block_front_reference(*front_args))
+    front = with_bound({"max_abs_err": abs_err, "max_rel_err": rel,
+                        "ms": ms, "plain_ms": plain_ms}, 0.0,
+                       10.0 * nb + 5.0 * got[1].numel())
+    print(f"phase 10d: F1 block_front n={nb} chunk={plan.chunk} (64 "
+          f"chunks): x bitwise, pm max_abs_err {abs_err:.3e} max_rel_err "
+          f"{rel:.3e} (rtol 1e-6), flags equal, bitwise repeatable; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+          f"{front['bound_ms']:.6f} ms ({front['bound_by']}), share of "
+          f"bound {front['bound_share']:.3f}; card {card}", flush=True)
+
+    # the step over the blocks (warm-up pass first, counters from zero)
+    for b in range(N_BLOCKS):
+        step(raw[b])
+    torch.cuda.synchronize()
+    reset_launches()
+    step_s, outs = [], []
+    for b in range(N_BLOCKS):
+        t0 = time.perf_counter()
+        outs.append(step(raw[b]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launches = read_launches()
+    fail_unless(launches == {"welch_psd": N_BLOCKS, "pcf": N_BLOCKS,
+                             "caf_std": 0, "front": N_BLOCKS},
+                f"phase 10d: expected {N_BLOCKS} launches of F1, B2 and B1, "
+                f"none of B3, got {launches}")
+
+    # one block traced, no plain torch.fft in a kernel's place
+    def refuse(*a, **k):
+        raise RuntimeError("torch.fft called on the Galileo step's path")
+
+    names = ("fft", "ifft", "rfft", "fftn", "ifftn")
+    saved = {k: getattr(torch.fft, k) for k in names}
+    tdir = tempfile.mkdtemp(prefix="trace_gal_step_")
+    reset_launches()
+    try:
+        for k in names:
+            setattr(torch.fft, k, refuse)
+        with profiling.torch_trace(tdir, dev):
+            traced = step(raw[0])
+            torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            setattr(torch.fft, k, v)
+    trace_launches = read_launches()
+    with open(os.path.join(tdir, "trace.json")) as f:
+        kern = [str(e.get("name", "")) for e in json.load(f)["traceEvents"]
+                if e.get("cat") == "kernel"]
+    shutil.rmtree(tdir, ignore_errors=True)
+    held = {k: sum(k in nm for nm in kern)
+            for k in ("pcf_correlate_cluster", "large_cols_corr", "RowsCorr",
+                      "pcf_forward_kernel", "reg_forward_kernel",
+                      "block_front_kernel")}
+    fail_unless(trace_launches == {"welch_psd": 1, "pcf": 1, "caf_std": 0,
+                                   "front": 1},
+                f"phase 10d: the traced block launched {trace_launches}")
+    fail_unless(held == {"pcf_correlate_cluster": 1, "large_cols_corr": 0,
+                         "RowsCorr": 0, "pcf_forward_kernel": 0,
+                         "reg_forward_kernel": 0, "block_front_kernel": 1},
+                f"phase 10d: the traced block's records {held}")
+    fail_unless(all(bool(torch.equal(a, b))
+                    for a, b in zip(traced, outs[0])),
+                "phase 10d: the traced block differs from its first run")
+
+    # the first block against the CPU plain path on the same bytes
+    psd, pm, flags, peak = outs[0]
+    raw_c, rep_c = raw[0].cpu(), replica.cpu()
+    t0 = time.perf_counter()
+    want = [entry.detect_acquire_step(raw_c, rep_c[i:i + 4], plan=plan)
+            for i in range(0, rep_c.shape[0], 4)]
+    cpu_s = time.perf_counter() - t0
+    errs = {}
+    for nm, g, r, rtol, atol in (
+            ("psd", psd, want[0][0], 1e-3, 1e-4 * float(want[0][0].max())),
+            ("pm", pm, want[0][1], 1e-6, 0.0),
+            ("peak", peak, torch.cat([w[3] for w in want]), 2e-4, 0.0)):
+        ok, abs_err, rel = close(g.cpu(), r, rtol, atol)
+        errs[nm] = rel
+        fail_unless(ok, f"phase 10d: the step's {nm} differs from the CPU "
+                        f"plain path (max_rel_err {rel:.3e})")
+    fail_unless(bool(torch.equal(flags.cpu(), want[0][2])),
+                "phase 10d: the step's flags differ from the CPU plain path")
+    want_flags = torch.zeros(nb // plan.chunk, dtype=torch.bool)
+    want_flags[GAL_MON_JAM[0]:GAL_MON_JAM[1]] = True
+    fail_unless(all(bool(torch.equal(o[2].cpu(), want_flags)) for o in outs),
+                f"phase 10d: flags {flags.nonzero().flatten().tolist()}, "
+                f"want chunks {GAL_MON_JAM[0]}-{GAL_MON_JAM[1] - 1}")
+    tone_bin = int(round(GAL_MON_TONE_HZ / (GAL8K_FS / plan.nperseg)))
+    fail_unless(all(int(o[0].argmax()) == tone_bin for o in outs),
+                f"phase 10d: a PSD peaks off the tone's bin {tone_bin}")
+    in_view = sorted(t.prn for t in fx8["truths"])
+    top = [plan.prns[int(o[3].argmax())] for o in outs]
+    fail_unless(all(p in in_view for p in top),
+                f"phase 10d: strongest PRNs {top}, in view {in_view}")
+    med = statistics.median(step_s)
+    print(f"phase 10d: detect_acquire_step(plan=GALILEO_E1B_8M192) "
+          f"x{N_BLOCKS} blocks of {nb} samples (36 PRN x 32768 lags): "
+          f"median {med * 1e3:.3f} ms/block ({nb / med / 1e6:.1f} "
+          f"Msamples/s); steps ms {[round(t * 1e3, 3) for t in step_s]}; "
+          f"launches {launches}; the traced block's launches "
+          f"{trace_launches} and records {held} with torch.fft patched to "
+          f"raise; against the CPU plain path ({cpu_s:.1f} s) max_rel_err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f", flags equal (chunks {GAL_MON_JAM[0]}-{GAL_MON_JAM[1] - 1}), "
+          f"PSD peak on bin {tone_bin}; strongest PRN a block {top} (in "
+          f"view {in_view}); card {card}", flush=True)
+    return {"launches": launches, "front": front}
+
+
 def large_path(fx8: dict, fx_gps: dict, dev, card) -> tuple[dict, dict]:
     """Phase 10 (the path): (a) the Galileo E1B receiver at 8.192 MS/s
     through the CLI, `receiver --system galileo --sample-rate 8.192e6`, in
@@ -3481,7 +3659,8 @@ def phases(args_cli, start_render) -> int:
     # at each such size against its plain
     # version, B1's trace, then (a) the Galileo receiver at
     # 8.192 MS/s through the CLI, (b) its std acquisition, (c) a CW tone
-    # in a Welch PSD at nperseg 65536
+    # in a Welch PSD at nperseg 65536, (d) the monitor step on its Galileo
+    # plan
     t0 = time.perf_counter()
     fx8 = renders["galileo8k"].get()
     x8 = torch.from_numpy(iq.read_iq_file(
@@ -3493,6 +3672,8 @@ def phases(args_cli, start_render) -> int:
     torch.cuda.empty_cache()
     large_launches, large["welch_psd"]["65536_tone"] = large_path(
         fx8, fx_gps, dev, card)
+    gal_mon = galileo_monitor(fx8, dev, card)
+    large_launches["detect_acquire_step_galileo"] = gal_mon["launches"]
     for k in kernels:
         k["sizes_phase10"] = large[k["name"]]
     print(f"phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3541,6 +3722,7 @@ def phases(args_cli, start_render) -> int:
         **{k: front[k] for k in ("max_abs_err", "max_rel_err", "ms",
                                  "plain_ms", "bound_ms", "bound_by",
                                  "bound_share")},
+        "sizes": {f"galileo_{GAL_MON_BLOCK}": gal_mon["front"]},
         "launches": launches["front"],
         "launches_per_step": launches["front"] / N_BLOCKS,
         "launches_by_path": {
@@ -3548,6 +3730,7 @@ def phases(args_cli, start_render) -> int:
             "detect_acquire_step_std": std_launches["front"],
             "entry_forward": fwd_launches["front"],
             "acquire_all_pcf": acq_launches["front"],
+            "detect_acquire_step_galileo": gal_mon["launches"]["front"],
             "benchmark_single_chip":
                 bench_launches["benchmark_single_chip"]["front"]},
         "library_ms": None})

@@ -105,6 +105,15 @@ def replica_table_host(sample_rate: float, n_samples: int,
         boc_table(list(prns)), BOC_RATE, sample_rate, n_samples)
 
 
+def replica_table(sample_rate: float, n_samples: int, device=None,
+                  prns=None):
+    """(P, n) complex64 conj-FFT replica table of `replica_table_host` on
+    `device` (None: the card), at any rate: E1B PRN 1..36 unless `prns`
+    is given."""
+    return codes_ops.replica_tensor(
+        replica_table_host(sample_rate, n_samples, prns), device)
+
+
 # ---------------------------------------------------------------------------
 # I/NAV page codec
 # ---------------------------------------------------------------------------

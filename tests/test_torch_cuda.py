@@ -480,6 +480,85 @@ def test_monitor_step_spans_on_cuda(dev, tmp_path):
     assert all(launched_within(e, b1) for e in b1_k)
 
 
+def _step_trace(step, dev, tmp_path):
+    """(launch counts a step made, the names of its kernels' device
+    records): one warm call, then one inside `torch_trace`."""
+    import json
+
+    from gps_jamming_tpu_torch.runtime import profiling
+    step()
+    torch.cuda.synchronize(dev)
+    before = build.launch_counts()
+    with profiling.torch_trace(str(tmp_path), dev):
+        out = step()
+        torch.cuda.synchronize(dev)
+    after = build.launch_counts()
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return out, {k: after[k] - before[k] for k in after}, names
+
+
+def test_galileo_monitor_step_on_cuda(dev, monkeypatch, tmp_path):
+    """The monitor step on its Galileo E1B plan (8.192 MS/s, 32768 lags, 36
+    PRNs) over a 2M-sample block launches F1, B2 and B1 once each, B1 as
+    `gjt_pcf_large` (its four-step forward and one cluster correlate
+    record), with torch.fft patched to raise (no plain torch in a
+    kernel's place); its outputs equal the CPU's plain version (PSD rtol
+    1e-3, atol 1e-4 * max; pm rtol 1e-6; flags equal; peaks rtol 2e-4),
+    the CPU run in pieces of 4 PRNs."""
+    from gps_jamming_tpu_torch import entry
+    plan = entry.GALILEO_E1B_8M192
+    raw = _front_raw(1 << 21, 23, dev)
+    replica = entry.replica_table(plan, dev)
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("torch.fft on the card")
+
+    def step():
+        return entry.detect_acquire_step(raw, replica, plan=plan)
+
+    monkeypatch.setattr(torch.fft, "fft", forbidden)
+    monkeypatch.setattr(torch.fft, "ifft", forbidden)
+    got, counts, names = _step_trace(step, dev, tmp_path)
+    monkeypatch.undo()
+    assert counts == {"welch_psd": 1, "pcf": 1, "caf_std": 0, "front": 1}
+    assert sum("pcf_correlate_cluster" in k for k in names) == 1
+    assert any("large_cols_fwd" in k for k in names)
+    assert not any("pcf_forward_kernel" in k or "reg_forward_kernel" in k
+                   for k in names)
+    assert got[3].shape == (36,)
+    raw_c, rep_c = raw.cpu(), replica.cpu()
+    want = [entry.detect_acquire_step(raw_c, rep_c[i:i + 4], plan=plan)
+            for i in range(0, 36, 4)]
+    psd, pm, flags = want[0][:3]
+    _assert_close(got[0].cpu(), psd, 1e-3, 1e-4 * float(psd.max()))
+    _assert_close(got[1].cpu(), pm, 1e-6, 0.0)
+    assert torch.equal(got[2].cpu(), flags)
+    _assert_close(got[3].cpu(), torch.cat([w[3] for w in want]), 2e-4, 0.0)
+
+
+def test_gps_monitor_step_launches_are_unchanged(dev, tmp_path):
+    """The GPS plan (the default) keeps its launches: F1, B2 and B1 once
+    each a block, B1 below 16384 (no four-step or cluster record), the
+    same as the step given no plan."""
+    from gps_jamming_tpu_torch import entry
+    from gps_jamming_tpu_torch.ops import codes
+    raw = _front_raw(1 << 19, 29, dev)
+    replica = codes.gps_replica_table(entry.FS, entry.N_CODE, dev)
+    counts = []
+    for kw in ({}, {"plan": entry.GPS}):
+        out, c, names = _step_trace(
+            lambda: entry.detect_acquire_step(raw, replica, **kw), dev,
+            tmp_path)
+        counts.append(c)
+        assert out[3].shape == (32,)
+        assert not any("large_cols_fwd" in k or "pcf_correlate_cluster" in k
+                       for k in names)
+    assert counts[0] == counts[1] == {"welch_psd": 1, "pcf": 1,
+                                      "caf_std": 0, "front": 1}
+
+
 def _c1_blocks(system, dev):
     """10 code periods of unit noise plus one PRN at -18 dB per sample, at
     an n kernels B1 and B3 do not take: Galileo E1B at 4.192 MS/s (n =
