@@ -17,14 +17,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
    mixed-radix size) and 16384, each bitwise repeatable, and one launch
    and one device kernel per call (LAUNCHES and torch.profiler), and at
    16384 over a DC of 127 LSB (the detrend's worst case); (b) the PCF
-   search at 32 PRN x 2048 lags x 10 code periods in surface, stats and
-   peak-only modes; (c) the std search
+   search at 32 PRN x 2048 lags x 10 code periods in surface, stats,
+   peak-only and per-PRN modes, from the code periods (B1's forward
+   builds the prologue's rows as it loads them); (c) the std search
    at the GPS shape (32 PRN x 71 bins x 10 x 2048) and the Galileo E1B
    shape (36 PRN x 71 bins x 10 x 16384 at 4.096 MS/s); (d) B1 in its
-   three modes and B3 at the mixed-radix n of GPS at 2.4, 2.56, 2.8 and
+   four modes and B3 at the mixed-radix n of GPS at 2.4, 2.56, 2.8 and
    3.2 MS/s (n = 2400, 2560, 2800, 3200; 32 PRN x 10 periods x +/-7 kHz;
    the mixed-radix register FFT), B3 alone at 81*128 = 10368, B1 (36 PRN,
-   all three modes) and B3 (36 PRN x 71 bins x 10) at 8192, Galileo E1B
+   all four modes) and B3 (36 PRN x 71 bins x 10) at 8192, Galileo E1B
    at the front end's default 2.048 MS/s, and the power-of-two times of
    (b) and (c) beside them;
 4. the main path: `entry.detect_acquire_step` over 8 consecutive 512k-sample
@@ -154,7 +155,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
     sizes with a prime factor above 127: each kernel at each such size
     against its plain version at the CPU parity tests' tolerances, the
     arg-lag equal on
-    every row (B1 in its three modes at 32768 on the Galileo E1B shape at
+    every row (B1 in its four modes at 32768 on the Galileo E1B shape at
     8.192 MS/s, at 20480, 24576 and 28672, and at 128; B3 at 32768,
     32000, 65536 and 131072, and at 128, 16768, 130304, 160000, 240000 and
     261376; B2 at nperseg 32768 and 131072, 1-D and (rows, n)), each line
@@ -709,22 +710,60 @@ def host_ms(fn, reps: int = 3) -> float:
     return statistics.median(ts)
 
 
+def b1_args(blocks, replica, fs, n_c=None):
+    """Kernel B1's entry arguments for the code periods `blocks` (two
+    groups, the monitor's sets and fine bins, +/-7 kHz unless n_c is
+    given): (blocks, replica, n_c, w, mix); and a callable that computes
+    the same search's surface by the plain version (`fold`, then
+    `pcf_search_reference`)."""
+    from gps_jamming_tpu_torch.ops import cuda_pcf
+    nb, n = blocks.shape
+    w, mix = cuda_pcf.prologue_consts(nb, n, float(fs), 2,
+                                      (-200.0, 0.0, 200.0), 2, blocks.device)
+    if n_c is None:
+        n_c = cuda_pcf.n_coarse(fs, n, 7000.0)
+
+    def plain():
+        return cuda_pcf.pcf_search_reference(cuda_pcf.fold(blocks, w, mix),
+                                             replica, n_c, 6, 2)
+    return (blocks, replica, n_c, w, mix), plain
+
+
+def check_b1_per_prn(tag, args, ref_surf, peak_stats, rtol) -> dict:
+    """B1's per-PRN mode against the plain surface's max over rows and
+    lags (rtol) and, bitwise, against the max over rows of the kernel's
+    own peak-only statistics `peak_stats`; its launches per call."""
+    from gps_jamming_tpu_torch.kernels import build
+    from gps_jamming_tpu_torch.ops import cuda_pcf
+    before = build.LAUNCHES["pcf"]
+    got = cuda_pcf.pcf_search(*args, per_prn=True)
+    torch.cuda.synchronize()
+    per_call = build.LAUNCHES["pcf"] - before
+    ok, abs_err, rel = close(got, ref_surf.amax(dim=(-2, -1)), rtol, 0.0)
+    fail_unless(ok and per_call == 1,
+                f"{tag} per-PRN: the peaks disagree with the plain surface's "
+                f"(rel {rel:.3e}) or it launched {per_call} times")
+    fail_unless(torch.equal(got, peak_stats[0].amax(dim=-1)),
+                f"{tag} per-PRN: the peaks differ from the peak-only "
+                "statistics' max over rows")
+    return {"max_abs_err": abs_err, "max_rel_err": rel,
+            "launches_per_call": per_call}
+
+
 def check_b1(label, blocks, replica, fs, excl) -> dict:
-    """Kernel B1 against its plain version in its three modes (surface,
-    stats, peak-only) at 32 PRN x +/-7 kHz: errors, the arg-lag on rows
-    with a clear peak, and CUDA-event times of both, per mode."""
+    """Kernel B1 against its plain version in its four modes (surface,
+    stats, peak-only, per-PRN) at 32 PRN x +/-7 kHz: errors, the arg-lag
+    on rows with a clear peak, and CUDA-event times of both, per mode."""
     from gps_jamming_tpu_torch.ops import cuda_pcf
     n = blocks.shape[-1]
-    y = cuda_pcf.pcf_prologue(blocks, fs)
-    n_c = cuda_pcf.n_coarse(fs, n, 7000.0)
-    args = (y, replica, n_c, 6, 2)
+    args, plain = b1_args(blocks, replica, fs)
+    n_c = args[2]
     tag = f"B1 pcf{label}"
-    ref_surf = cuda_pcf.pcf_search_reference(*args)
+    ref_surf = plain()
     surf = cuda_pcf.pcf_search(*args)
     ok, abs_err, rel = close(surf, ref_surf, 1e-3,
                              1e-4 * float(ref_surf.max()))
-    ms, plain_ms = time_pair(lambda: cuda_pcf.pcf_search(*args),
-                             lambda: cuda_pcf.pcf_search_reference(*args))
+    ms, plain_ms = time_pair(lambda: cuda_pcf.pcf_search(*args), plain)
     print(f"{tag} surface {tuple(surf.shape)}: max_abs_err {abs_err:.3e} "
           f"max_rel_err {rel:.3e} (rtol 1e-3, atol 1e-4*max); "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
@@ -757,8 +796,7 @@ def check_b1(label, blocks, replica, fs, excl) -> dict:
                         f"{tag} peak-only: exclusion planes are not zero")
         ms, plain_ms = time_pair(
             lambda: cuda_pcf.pcf_search(*args, stats_excl=ex),
-            lambda: cuda_pcf.surface_stats(
-                cuda_pcf.pcf_search_reference(*args), ex))
+            lambda: cuda_pcf.surface_stats(plain(), ex))
         print(f"{tag} {mode} (excl {ex}): max_abs_err(max) {abs_err:.3e} "
               f"max_rel_err {rel:.3e}; arg-lag equal on "
               f"{int(same.sum())}/{same.numel()} rows "
@@ -767,7 +805,16 @@ def check_b1(label, blocks, replica, fs, excl) -> dict:
         modes[mode] = with_bound(
             {"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
              "plain_ms": plain_ms}, *b1_work(n_prn, n_c, 6, 2, n, True))
-    ifft = ifft_ms(n_prn * n_c * 6 * 2, n, y.device)
+    e = check_b1_per_prn(tag, args, ref_surf, got, 1e-3)
+    ms, plain_ms = time_pair(
+        lambda: cuda_pcf.pcf_search(*args, per_prn=True),
+        lambda: plain().amax(dim=(-2, -1)))
+    print(f"{tag} per-PRN {tuple(replica.shape[:1])}: max_rel_err "
+          f"{e['max_rel_err']:.3e}, equal to the peak-only max over rows; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    modes["per_prn"] = with_bound(dict(e, ms=ms, plain_ms=plain_ms),
+                                  *b1_work(n_prn, n_c, 6, 2, n, True))
+    ifft = ifft_ms(n_prn * n_c * 6 * 2, n, blocks.device)
     print(f"{tag}: bound (ms, by) surface {modes['surface']['bound_ms']:.4f} "
           f"{modes['surface']['bound_by']}, peak {modes['peak']['bound_ms']:.4f}"
           f" {modes['peak']['bound_by']}; share of bound, peak "
@@ -2018,15 +2065,13 @@ def shard_kernel_times(a: dict, dev, freqs, kernels: list, card: str):
                     8.0 * x.numel() + 4.0 * 1024)
     blocks = x[: SHARD_PERIODS * N_CODE].reshape(SHARD_PERIODS, N_CODE)
     rep = codes.gps_replica_table(FS, N_CODE, dev)
-    y = cuda_pcf.pcf_prologue(blocks, FS, n_groups=2)
-    n_c = cuda_pcf.n_coarse(FS, N_CODE, 7000.0)
-    args = (y, rep, n_c, 6, 2)
-    ref = cuda_pcf.pcf_search_reference(*args)
+    args, plain = b1_args(blocks, rep, FS)
+    n_c = args[2]
+    ref = plain()
     ok, abs_err, rel = close(cuda_pcf.pcf_search(*args), ref, 1e-3,
                              1e-4 * float(ref.max()))
     fail_unless(ok, "B1 at the shard shape disagrees with its plain version")
-    ms, plain_ms = time_pair(lambda: cuda_pcf.pcf_search(*args),
-                             lambda: cuda_pcf.pcf_search_reference(*args),
+    ms, plain_ms = time_pair(lambda: cuda_pcf.pcf_search(*args), plain,
                              reps=5, inner=3)
     b1 = with_bound({"ms": ms, "plain_ms": plain_ms, "max_abs_err": abs_err,
                      "max_rel_err": rel},
@@ -2288,17 +2333,17 @@ def sharded_phase(sim: dict, td: str, card: str, dev, kernels: list) -> dict:
 
 def large_b1(label, blocks, rep, fs, excl, card, reps=3, inner=1) -> dict:
     """Kernel B1 at one size of phase 10 against its plain version, in its
-    three modes, at the CPU parity tests' tolerances (surface rtol 2e-4,
-    atol 2e-4 * max; stats max and sums rtol 1e-4; the arg-lag equal on
-    every row), with CUDA-event times, bound and launches per call."""
+    four modes, at the CPU parity tests' tolerances (surface rtol 2e-4,
+    atol 2e-4 * max; stats max and sums, per-PRN peaks rtol 1e-4; the
+    arg-lag equal on every row), with CUDA-event times, bound and launches
+    per call."""
     from gps_jamming_tpu_torch.kernels import build
     from gps_jamming_tpu_torch.ops import cuda_pcf
     n = blocks.shape[-1]
     n_prn = rep.shape[0]
-    y = cuda_pcf.pcf_prologue(blocks, fs)
-    n_c = cuda_pcf.n_coarse(fs, n, 7000.0)
-    args = (y, rep, n_c, 6, 2)
-    ref = cuda_pcf.pcf_search_reference(*args)
+    args, plain = b1_args(blocks, rep, fs)
+    n_c = args[2]
+    ref = plain()
     before = build.LAUNCHES["pcf"]
     surf = cuda_pcf.pcf_search(*args)
     torch.cuda.synchronize()
@@ -2308,8 +2353,7 @@ def large_b1(label, blocks, rep, fs, excl, card, reps=3, inner=1) -> dict:
                 f"B1 {label}: the surface disagrees with its plain version "
                 f"(max_abs_err {abs_err:.3e}) or launched {per_call} times")
     del surf
-    ms, plain_ms = time_pair(lambda: cuda_pcf.pcf_search(*args),
-                             lambda: cuda_pcf.pcf_search_reference(*args),
+    ms, plain_ms = time_pair(lambda: cuda_pcf.pcf_search(*args), plain,
                              reps, inner)
     modes = {"surface": with_bound(
         {"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
@@ -2333,14 +2377,21 @@ def large_b1(label, blocks, rep, fs, excl, card, reps=3, inner=1) -> dict:
                         f"(rel {rel_j:.3e})")
         ms, plain_ms = time_pair(
             lambda: cuda_pcf.pcf_search(*args, stats_excl=ex),
-            lambda: cuda_pcf.surface_stats(
-                cuda_pcf.pcf_search_reference(*args), ex), reps, inner)
+            lambda: cuda_pcf.surface_stats(plain(), ex), reps, inner)
         modes[mode] = with_bound(
             {"max_abs_err": abs_err, "max_rel_err": rel, "ms": ms,
              "plain_ms": plain_ms, "launches_per_call": per_call},
             *b1_work(n_prn, n_c, 6, 2, n, True))
         line.append(f"{mode} {ms:.4f}/{plain_ms:.4f} ms (arg-lag equal on "
                     f"{int(same.sum())}/{same.numel()} rows)")
+    e = check_b1_per_prn(f"B1 {label}", args, ref, got, 1e-4)
+    ms, plain_ms = time_pair(
+        lambda: cuda_pcf.pcf_search(*args, per_prn=True),
+        lambda: plain().amax(dim=(-2, -1)), reps, inner)
+    modes["per_prn"] = with_bound(dict(e, ms=ms, plain_ms=plain_ms),
+                                  *b1_work(n_prn, n_c, 6, 2, n, True))
+    line.append(f"per-PRN {ms:.4f}/{plain_ms:.4f} ms (max_rel_err "
+                f"{e['max_rel_err']:.3e})")
     del ref
     torch.cuda.empty_cache()
     print(f"phase 10 B1 {label} ({n_prn} PRN x {n_c * 6} rows x 2 groups, "
@@ -2456,8 +2507,7 @@ def large_kernels(gal_blocks, gal_rep, dev, card) -> dict:
         del b_l, r_l
 
     # one trace of B1 at 32768: the correlate stage is the cluster kernel
-    y = cuda_pcf.pcf_prologue(gal_blocks, GAL8K_FS)
-    args = (y, gal_rep, cuda_pcf.n_coarse(GAL8K_FS, n, 7000.0), 6, 2)
+    args, _ = b1_args(gal_blocks, gal_rep, GAL8K_FS)
     tdir = tempfile.mkdtemp(prefix="trace_b1_")
     before = build.LAUNCHES["pcf"]
     with profiling.torch_trace(tdir):

@@ -78,7 +78,8 @@ cudaError_t launch_mix_forward(const float2* x, const float2* osc, float2* Y,
                                const float2* tw, int F, int nb,
                                const gjt::FftPlan& plan, cudaStream_t s) {
   if (gjt::corr_reg_size(plan.n))
-    return gjt::launch_reg_forward(x, osc, Y, tw, F * nb, nb, plan.n, s);
+    return gjt::launch_reg_forward(gjt::SrcMix{x, osc, plan.n, nb}, Y, tw,
+                                   F * nb, plan.n, s);
   const size_t smem = gjt::fft_smem_bytes(plan.n);
   cudaError_t err = gjt::allow_smem(
       reinterpret_cast<const void*>(caf_mix_forward_kernel), smem);

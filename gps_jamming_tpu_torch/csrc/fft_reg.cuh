@@ -577,13 +577,13 @@ static inline size_t reg_smem_bytes() {
                            S::kTabLen);
 }
 
-// Forward transform of rows: row b of x (nb rows per phasor row when osc is
-// given: Y[b] = FFT(x[b % nb] * osc[b / nb]), else Y[b] = FFT(x[b])).
-template <int N>
+// Forward transform of rows: Y[b] = FFT of the N points src.at(b, k), k <
+// N. Src is a row source of pcf_correlate.cuh (SrcMix for kernel B3,
+// SrcFold for B1), so a device record names the rows it read.
+template <int N, class Src>
 static __global__ void __launch_bounds__(RegShape<N>::T)
-reg_forward_kernel(const float2* __restrict__ x,
-                   const float2* __restrict__ osc, float2* __restrict__ Y,
-                   const float2* __restrict__ tab, int nb) {
+reg_forward_kernel(Src src, float2* __restrict__ Y,
+                   const float2* __restrict__ tab) {
   using S = RegShape<N>;
   extern __shared__ float2 smem[];
   float2* buf0 = smem;
@@ -592,15 +592,7 @@ reg_forward_kernel(const float2* __restrict__ x,
   stage_reg_twiddles<N>(tab_s, tab);
   const int row = blockIdx.x, t = threadIdx.x;
   float2 v[S::P];
-  // one branch per row, not one per point
-  if (osc != nullptr) {
-    const float2* xb = x + static_cast<long long>(row % nb) * N;
-    const float2* of = osc + static_cast<long long>(row / nb) * N;
-    reg_first<N>(v, t, [&](int k) { return cmul(xb[k], of[k]); });
-  } else {
-    const float2* xb = x + static_cast<long long>(row) * N;
-    reg_first<N>(v, t, [&](int k) { return xb[k]; });
-  }
+  reg_first<N>(v, t, [&](int k) { return src.at(row, k); });
   __syncthreads();                       // the table is staged
   int phase = 0;
   reg_fft<N, false>(v, buf0, buf1, tab_s, phase);

@@ -6,11 +6,15 @@
 // multiplies the forward spectrum Y[r, g, k] by rep[p, (k - shift_c) mod n]
 // (shift_c = c - n_c/2, so n_c = 1 is no shift), runs the inverse FFT and
 // adds |.|^2 into per-thread registers; the 1/n of ifft is applied once,
-// as 1/n^2 on the sums. Epilogue: the surface row out[p, c*R + r, :], or
-// per-(p, row) statistics (max, arg-lag with the lowest lag winning ties,
-// max outside the circular window min(d, n-d) <= excl, total sum, window
-// sum) as five (P, n_c*R) planes; excl < 0 is peak-only (the last three
-// are zeros).
+// as 1/n^2 on the sums. Epilogue, by `stats`: 0, the surface row
+// out[p, c*R + r, :]; 1, per-(p, row) statistics (max, arg-lag with the
+// lowest lag winning ties, max outside the circular window min(d, n-d) <=
+// excl, total sum, window sum) as five (P, n_c*R) planes, excl < 0
+// peak-only (the last three are zeros); 2, the per-PRN peak out[p], the
+// max over every row and lag of PRN p: each block takes an atomicMax of
+// its max's float bits into out[p], which the caller zeroed (the powers
+// are >= 0, so the integer order of their bits is the float order, and
+// the result is exact and the same in any order of the blocks).
 //
 // A size of GJT_CORR_SIZES (the powers of two 128..16384; 2400, 2560,
 // 2800, 3200, 10368) takes pcf_correlate_reg_kernel<n>, built on the
@@ -79,8 +83,80 @@ static __device__ __forceinline__ int wrap(int v, int n) {
   return v < 0 ? v + n : (v >= n ? v - n : v);
 }
 
+// out[prn] = max(out[prn], v) for v >= 0, by thread 0 of the block: on
+// the float bits, whose integer order is the float order there.
+static __device__ __forceinline__ void prn_peak(float* out, int prn,
+                                                float v) {
+  if (threadIdx.x == 0)
+    atomicMax(reinterpret_cast<int*>(out) + prn, __float_as_int(v));
+}
+
+// Row sources of the forward transforms (reg_forward_kernel of fft_reg.cuh,
+// pcf.cu's pcf_forward_kernel, the four-step's large_cols_fwd): at(row, j)
+// is point j of row `row`. Each is a kernel's template argument, so the
+// device record of a forward names the rows it read.
+//
+// Kernel B1: row (s, f, g) = (s*F + f)*G + g is
+// mix[s, j] * sum_b w[row, b] * x[g*gl + b, j], the group's gl code
+// periods combined by the row's weights (e^{-j2pi (fine_f + s*set_off)
+// b*T}, ops/cuda_pcf.py's `prologue_consts`) and mixed by set s's sub-bin
+// phasor, built as the forward loads it; the sum runs in float32, b
+// ascending, over chunks of kFoldChunk periods whose loads are all in
+// flight together (B1's callers take 4-5 periods a group: one chunk).
+constexpr int kFoldChunk = 8;
+
+struct SrcFold {
+  const float2* x;       // (G*gl, n) code periods
+  const float2* w;       // (S*F*G, gl) group weights, rows as above
+  const float2* mix;     // (S, n) sub-bin mixes
+  int n;
+  int G;
+  int gl;
+  int FG;                // rows of one set: F*G
+  __device__ __forceinline__ float2 at(int row, int j) const {
+    const float2* xg = x + static_cast<long long>(row % G) * gl * n + j;
+    const float2* wr = w + static_cast<long long>(row) * gl;
+    float2 acc = make_float2(0.f, 0.f);
+    for (int b0 = 0; b0 < gl; b0 += kFoldChunk) {
+      // the loads past gl read period gl - 1 again, so none is
+      // conditional, and their products are not added
+      float2 xb[kFoldChunk], wb[kFoldChunk];
+#pragma unroll
+      for (int u = 0; u < kFoldChunk; ++u) {
+        const int b = min(b0 + u, gl - 1);
+        xb[u] = __ldg(xg + static_cast<long long>(b) * n);
+        wb[u] = __ldg(wr + b);
+      }
+#pragma unroll
+      for (int u = 0; u < kFoldChunk; ++u) {
+        const float2 p = cmul(wb[u], xb[u]);
+        if (b0 + u < gl) {
+          acc.x += p.x;
+          acc.y += p.y;
+        }
+      }
+    }
+    return cmul(__ldg(mix + static_cast<long long>(row / FG) * n + j), acc);
+  }
+};
+
+// Kernel B3: row (f, b) = f*nb + b is block x_b mixed by the phasor row
+// osc_f.
+struct SrcMix {
+  const float2* x;
+  const float2* osc;
+  int n;
+  int nb;
+  __device__ __forceinline__ float2 at(int row, int j) const {
+    const int f = row / nb;
+    return cmul(x[static_cast<long long>(row - f * nb) * n + j],
+                osc[static_cast<long long>(f) * n + j]);
+  }
+};
+
 // The epilogue of a block whose thread owns acc[j] of lag lag[j] (lag[j]
-// >= n: no lag): the surface row or the five statistics of `cell`.
+// >= n: no lag): the surface row or the five statistics of `cell`, or (stats
+// 2) its max into the peak of PRN `prn`.
 // kAscending: lag[j] grows with j, so a strict '>' alone keeps the lowest
 // lag of a thread (RegShape::kAscending, and the shared-memory kernel; the
 // lag compare of the other layouts cost B1 5 % at 2048, measured on the
@@ -89,13 +165,21 @@ template <int NV, bool kAscending>
 static __device__ void correlate_epilogue(const float (&acc)[NV],
                                           const int (&lag)[NV], int n,
                                           long long cell, long long n_cells,
-                                          int stats, int excl, float* out,
-                                          float* red, int* redi) {
+                                          int prn, int stats, int excl,
+                                          float* out, float* red, int* redi) {
   if (!stats) {
     float* o = out + cell * n;
 #pragma unroll
     for (int j = 0; j < NV; ++j)
       if (lag[j] < n) o[lag[j]] = acc[j];
+    return;
+  }
+  if (stats == 2) {
+    float bv = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      if (lag[j] < n) bv = fmaxf(bv, acc[j]);
+    prn_peak(out, prn, block_max(bv, red));
     return;
   }
 
@@ -280,25 +364,26 @@ pcf_correlate_reg_kernel(const float2* __restrict__ Y,
   const long long n_rows = static_cast<long long>(n_c) * R;
   correlate_epilogue<PL, S::kAscending>(
       sums, lags, N, static_cast<long long>(p) * n_rows + c * R + r,
-      static_cast<long long>(n_prn) * n_rows, stats, excl, out, red, redi);
+      static_cast<long long>(n_prn) * n_rows, p, stats, excl, out, red,
+      redi);
 }
 
-// Launches reg_forward_kernel (fft_reg.cuh) over `rows` rows of a size of
-// GJT_CORR_SIZES; osc may be null.
-static inline cudaError_t launch_reg_forward(const float2* x,
-                                             const float2* osc, float2* Y,
+// Launches reg_forward_kernel (fft_reg.cuh) over `rows` rows of src, a
+// size of GJT_CORR_SIZES.
+template <class Src>
+static inline cudaError_t launch_reg_forward(const Src& src, float2* Y,
                                              const float2* tab, int rows,
-                                             int nb, int n, cudaStream_t s) {
+                                             int n, cudaStream_t s) {
   cudaError_t err = cudaErrorInvalidValue;
-#define GJT_FWD(NN)                                                         \
-  if (n == NN) {                                                            \
-    const size_t smem = reg_smem_bytes<NN>();                               \
-    err = allow_smem(reinterpret_cast<const void*>(reg_forward_kernel<NN>), \
-                     smem);                                                 \
-    if (err != cudaSuccess) return err;                                     \
-    reg_forward_kernel<NN><<<rows, RegShape<NN>::T, smem, s>>>(x, osc, Y,   \
-                                                               tab, nb);    \
-    return cudaGetLastError();                                              \
+#define GJT_FWD(NN)                                                      \
+  if (n == NN) {                                                         \
+    const size_t smem = reg_smem_bytes<NN>();                            \
+    err = allow_smem(                                                    \
+        reinterpret_cast<const void*>(reg_forward_kernel<NN, Src>), smem); \
+    if (err != cudaSuccess) return err;                                  \
+    reg_forward_kernel<NN, Src><<<rows, RegShape<NN>::T, smem, s>>>(     \
+        src, Y, tab);                                                    \
+    return cudaGetLastError();                                           \
   }
   GJT_CORR_SIZES(GJT_FWD)
 #undef GJT_FWD
@@ -364,7 +449,8 @@ pcf_correlate_kernel(const float2* __restrict__ Y,
   const long long n_rows = static_cast<long long>(n_c) * R;
   correlate_epilogue<kMaxPerThread, true>(
       acc, lags, n, static_cast<long long>(p) * n_rows + c * R + r,
-      static_cast<long long>(n_prn) * n_rows, stats, excl, out, red, redi);
+      static_cast<long long>(n_prn) * n_rows, p, stats, excl, out, red,
+      redi);
 }
 
 // Threads per block for the mixed-radix FFT of an n-point row: about 8
@@ -438,28 +524,6 @@ static inline cudaError_t launch_correlate(const float2* Y, const float2* rep,
 //    and |.|^2 is summed over the groups in registers (1/n^2 once); the
 //    surface row is written in natural lag order, coalesced.
 // ---------------------------------------------------------------------------
-
-// Rows of x: x[row*n + j] (B1's group signals).
-struct SrcRows {
-  const float2* x;
-  int n;
-  __device__ __forceinline__ float2 at(int row, int j) const {
-    return x[static_cast<long long>(row) * n + j];
-  }
-};
-
-// Row (f, b) = f*nb + b: block x_b mixed by the phasor row osc_f (B3).
-struct SrcMix {
-  const float2* x;
-  const float2* osc;
-  int n;
-  int nb;
-  __device__ __forceinline__ float2 at(int row, int j) const {
-    const int f = row / nb;
-    return cmul(x[static_cast<long long>(row - f * nb) * n + j],
-                osc[static_cast<long long>(f) * n + j]);
-  }
-};
 
 // The row pass of the correlate stage: block b = (cell - c0, g, k1).
 // Cells are (p, c, r), r fastest, over R rows and n_c coarse bins.
@@ -593,7 +657,9 @@ static inline cudaError_t launch_large_correlate(
 //    before it next writes its row, so the next group's loads (into
 //    registers, on the register FFT) run while the other CTAs finish.
 // 1/n^2 is applied once. Epilogue: in surface mode each thread writes the
-// sums it holds, coalesced; in statistics mode each CTA reduces its slice
+// sums it holds, coalesced; in per-PRN mode each CTA takes the max of its
+// slice into out[p] (prn_peak), with no exchange; in statistics mode each
+// CTA reduces its slice
 // to (max, arg-lag, total sum), the lowest lag winning ties, the cluster
 // takes the global (max, arg-lag) through DSMEM, and only then (the window
 // needs the global arg-lag) a CTA whose slice meets the window takes its
@@ -859,6 +925,18 @@ pcf_correlate_cluster(const float2* __restrict__ Y,
         if (j < S) o[static_cast<long long>(t1) * n2 + j] = sums[t1 * kI + i];
       }
     }
+    return;
+  }
+  if (stats == 2) {
+    // no CTA reads another's shared memory after the loop's last wait
+    float bv = 0.f;
+#pragma unroll
+    for (int t1 = 0; t1 < N1; ++t1) {
+#pragma unroll
+      for (int i = 0; i < kI; ++i)
+        if (t + i * T < S) bv = fmaxf(bv, sums[t1 * kI + i]);
+    }
+    prn_peak(out, p, block_max(bv, red));
     return;
   }
   // a thread's lags t1*n2 + lo + j ascend with (t1, i), so a strict '>'

@@ -10,9 +10,10 @@
   PRNs, 2048 lags; `GALILEO_E1B_8M192`: Galileo E1B at 8.192 MS/s, 36
   PRNs, 32768 lags (kernel B1 above 16384, in its thread-block cluster).
   method 'pcf' reduces the PCF search to its per-PRN peak inside kernel B1
-  (peak-only mode); 'std' is the r1/r2 chain (`bench.py:58-61`,
-  acq_method='std'): the reference-shaped search over 200 Hz bins (71 at
-  +/-7 kHz) and 10 periods of kernel B3, reduced to its per-PRN peak.
+  (its per-PRN mode, which reads the block's code periods itself); 'std'
+  is the r1/r2 chain (`bench.py:58-61`, acq_method='std'): the
+  reference-shaped search over 200 Hz bins (71 at +/-7 kHz) and 10
+  periods of kernel B3, reduced to its per-PRN peak.
 """
 from __future__ import annotations
 
@@ -140,12 +141,13 @@ def detect_acquire_step(raw_i8: torch.Tensor,
         x, pm, flags = _front(raw_i8, plan)
         psd = _detect(x, plan)
         with profiling.span("gjt.step.acquire"):
-            blocks = x[: plan.periods * n].reshape(plan.periods, n)
             if method == "pcf":
-                peak = cuda_pcf.caf_accumulate_pcf_fused(
-                    blocks, replica, fs, max_doppler_hz=plan.max_doppler_hz,
-                    stats_excl=-1)[0].amax(dim=-1)
+                # one call, on CUDA one launch: B1 reads x's first periods
+                peak = cuda_pcf.pcf_peak_per_prn(
+                    x, replica, fs, plan.periods,
+                    max_doppler_hz=plan.max_doppler_hz)
             elif method == "std":
+                blocks = x[: plan.periods * n].reshape(plan.periods, n)
                 freqs = caf.doppler_bins(plan.max_doppler_hz, 200.0)
                 peak = caf.caf_accumulate(blocks, replica, freqs,
                                           fs).amax(dim=(-2, -1))

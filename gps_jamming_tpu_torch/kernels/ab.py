@@ -6,28 +6,34 @@ card, timed in turns: other, this, this, other.
 OTHER_ROOT is the root of another checkout of the repo (for example the
 parent commit, unpacked by `git archive` into a directory that .gitignore
 lists). Its `gps_jamming_tpu_torch/kernels/build.py` is loaded by file path,
-so it builds its own csrc/ into its own _build/, and both libraries' C
-entry points (`gjt_welch_psd`, `gjt_pcf`, `gjt_caf_std`, through today's
-C signatures, which the other tree must share) get the same seeded inputs
-at the shapes of chip_smoke.py phases 3a-3d: B2 on a 512k-sample block at
-nperseg 1024 and 1536; B1 peak-only (32 PRN x 15 coarse x 6 rows x 2
-groups) at 2048, 2400, 2560, 2800 and 3200 lags; B3 (32 PRN x 71 bins x 10
-periods) at 2048, 2400, 2560, 2800, 3200 and 10368 lags, and Galileo E1B's
-36 PRN at 16384; and, above 16384, the four-step entry points
-(`gjt_welch_psd_large`, `gjt_pcf_large`, `gjt_caf_std_large`) at the
-shapes of phase 10: B2 on 8 192 512 samples at nperseg 32768 and 131072,
-B1 in its statistics, peak-only and surface modes on Galileo E1B at 8.192
-MS/s (36 PRN x 57 coarse x 6 rows x 2 groups at 32768), B3 at 32768 (36 x
-71 x 10) and at 32000, 65536 and 131072 (8 PRN x 35 bins x 4); and B1 peak
-and B3 at 128 (32 PRN). B2's and B3's large entry points get the scratch
-chunks of each tree's own wrappers (`large_seg_chunk`, `large_chunks`);
-B1's cluster entry point takes none. A shape the other tree's kernel
-refuses is timed on this tree alone. Each reading is the median over
+so it builds its own csrc/ into its own _build/. B2's and B3's C entry
+points (`gjt_welch_psd`, `gjt_caf_std`, through today's C signatures,
+which the other tree must share) get the same seeded inputs at the shapes
+of chip_smoke.py phases 3a-3d: B2 on a 512k-sample block at nperseg 1024
+and 1536; B3 (32 PRN x 71 bins x 10 periods) at 2048, 2400, 2560, 2800,
+3200 and 10368 lags, and Galileo E1B's 36 PRN at 16384; and, above 16384,
+the four-step entry points (`gjt_welch_psd_large`, `gjt_caf_std_large`) at
+the shapes of phase 10: B2 on 8 192 512 samples at nperseg 32768 and
+131072, B3 at 32768 (36 x 71 x 10) and at 32000, 65536 and 131072 (8 PRN
+x 35 bins x 4), and B3 at 128 (32 PRN). B1 goes through each tree's
+wrapper, `ops.cuda_pcf.caf_accumulate_pcf_fused`, on 10 code periods, so
+that a tree whose prologue runs as PyTorch operators before the kernel is
+timed with them: peak-only (32 PRN x 15 coarse x 6 rows x 2 groups) at
+2048, 2400, 2560, 2800, 3200 and 128 lags, and its statistics, peak-only
+and surface modes on Galileo E1B at 8.192 MS/s (36 PRN x 57 coarse x 6
+rows x 2 groups at 32768); "B1 monitor" is the monitor step's acquire
+stage at 2048 (GPS, 32 PRN) and 32768 (Galileo E1B, 36 PRN), the per-PRN
+peak over a block's first 10 periods: `pcf_peak_per_prn`, or, in a tree
+without it, the peak-only statistics' max over rows. B2's and B3's large
+entry points get the scratch chunks of each tree's own wrappers
+(`large_seg_chunk`, `large_chunks`). A shape the other tree refuses is
+timed on this tree alone. Each reading is the median over
 `--reps` samples of CUDA-event time over `--inner` back-to-back calls,
 divided by `--inner`; beside it, in the same turns, the device time of
 the calls' kernels per call (`torch.profiler` over `--inner` calls),
-which leaves out the gaps between launches that event time counts.
-Prints one line per shape, then one JSON object; needs a CUDA device.
+which leaves out the gaps between launches that event time counts, and
+each kernel's share of it. Prints one line per shape, then one JSON
+object; needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -52,7 +58,8 @@ SHAPES = (("B2", 1024), ("B2", 1536),
           ("B2", 32768), ("B2", 131072), ("B1 stats", 32768),
           ("B1 peak", 32768), ("B1 surface", 32768),
           ("B3", 32768), ("B3", 32000), ("B3", 65536), ("B3", 131072),
-          ("B1 peak", 128), ("B3", 128))
+          ("B1 peak", 128), ("B3", 128), ("B1 monitor", 2048),
+          ("B1 monitor", 32768))
 B2_SAMPLES = 1 << 19
 B2_LARGE_SAMPLES = 8_192_512          # above 16384 points per segment
 
@@ -108,23 +115,6 @@ def _large(mod, lib, what: str, n: int, dev, stream):
                 A.data_ptr(), pw.data_ptr(), half.data_ptr(), acc.data_ptr(),
                 out.data_ptr(), n, n_segs, chunk, 1, 1.0 / n_segs, stream)
         return fn, out
-    if what.startswith("B1"):
-        n_c, rows, groups, n_prn = 57, 6, 2, 36
-        excl = {"B1 stats": 16, "B1 peak": -1, "B1 surface": 0}[what]
-        stats = int(what != "B1 surface")
-        y = _cplx((rows * groups, n), n, dev)
-        rep = _cplx((n_prn, n), n + 1, dev)
-        Y = torch.empty_like(y)
-        out = torch.empty((5, n_prn, n_c * rows) if stats
-                          else (n_prn, n_c * rows, n), dtype=torch.float32,
-                          device=dev)
-
-        def fn():
-            return lib.gjt_pcf_large(
-                y.data_ptr(), Y.data_ptr(), rep.data_ptr(), tw2.data_ptr(),
-                twn.data_ptr(), out.data_ptr(), rows, groups, n_c, n_prn, n,
-                stats, excl, stream)
-        return fn, out
     n_f, nb, n_prn = (71, 10, 36) if n == 32768 else (35, 4, 8)
     x = _cplx((nb, n), n + 2, dev)
     osc = _cplx((n_f, n), n + 3, dev)
@@ -144,10 +134,48 @@ def _large(mod, lib, what: str, n: int, dev, stream):
     return fn, out
 
 
+def _b1(mod, what: str, n: int, dev):
+    """(a closure, its output) of B1 at n through the wrapper of build
+    module `mod`'s tree: 10 code periods, 32 PRN at n * 1 kHz (GPS) or, at
+    32768, 36 PRN at 8.192 MS/s (Galileo E1B), +/-7 kHz. Raises
+    RuntimeError where that tree cannot run it."""
+    pkg = mod.__name__.rsplit(".kernels", 1)[0]
+    cuda_pcf = importlib.import_module(f"{pkg}.ops.cuda_pcf")
+    n_prn, fs = (36, 8.192e6) if n == 32768 else (32, n * 1e3)
+    x = _cplx(10 * n, n, dev)
+    rep = _cplx((n_prn, n), n + 1, dev)
+    res = []
+    if what == "B1 monitor":
+        per_prn = getattr(cuda_pcf, "pcf_peak_per_prn", None)
+
+        def fn():
+            if per_prn is not None:
+                res[:] = [per_prn(x, rep, fs, 10)]
+            else:
+                res[:] = [cuda_pcf.caf_accumulate_pcf_fused(
+                    x.reshape(10, n), rep, fs, stats_excl=-1)[0].amax(-1)]
+    else:
+        excl = {"B1 stats": 16, "B1 peak": -1, "B1 surface": None}[what]
+
+        def fn():
+            res[:] = [cuda_pcf.caf_accumulate_pcf_fused(
+                x.reshape(10, n), rep, fs, stats_excl=excl)]
+    try:
+        fn()
+    except (ValueError, TypeError) as e:
+        raise RuntimeError(f"{what} n={n}: {e}") from e
+    torch.cuda.synchronize()
+    out = res[0]
+    return fn, out if torch.is_tensor(out) else torch.stack(out)
+
+
 def _call(mod, what: str, n: int, dev):
     """A closure launching `what` at n through the library of build module
-    `mod`, with its own twiddle table; inputs are seeded, so both
-    libraries see the same ones. Raises if the kernel refuses n."""
+    `mod`, with its own twiddle table (B1: through that tree's wrapper,
+    `_b1`); inputs are seeded, so both libraries see the same ones. Raises
+    if the kernel refuses n."""
+    if what.startswith("B1"):
+        return _b1(mod, what, n, dev)
     lib = mod.load()
     stream = torch.cuda.current_stream().cuda_stream
     if n > 16384:
@@ -163,19 +191,6 @@ def _call(mod, what: str, n: int, dev):
                 x.data_ptr(), win.data_ptr(), tab.data_ptr(),
                 scratch.data_ptr(), out.data_ptr(), n, n_segs, 1,
                 1.0 / n_segs, stream)
-    elif what == "B1 peak":
-        n_c, rows, groups, n_prn = 15, 6, 2, 32
-        y = _cplx((rows * groups, n), n, dev)
-        rep = _cplx((n_prn, n), n + 1, dev)
-        Y = torch.empty_like(y)
-        out = torch.empty((5, n_prn, n_c * rows), dtype=torch.float32,
-                          device=dev)
-        tw = mod.row_twiddles(n, dev)
-
-        def fn():
-            return lib.gjt_pcf(y.data_ptr(), Y.data_ptr(), rep.data_ptr(),
-                               tw.data_ptr(), out.data_ptr(), rows, groups,
-                               n_c, n_prn, n, 1, -1, stream)
     else:
         n_f, nb, n_prn = 71, 10, (36 if n == 16384 else 32)
         x = _cplx((nb, n), n + 2, dev)
@@ -212,18 +227,20 @@ def _median_ms(fn, reps: int, inner: int) -> float:
     return statistics.median(ts)
 
 
-def _device_ms(fn, calls: int) -> float:
-    """The summed device time of the kernels of one call, ms, from
-    torch.profiler over `calls` calls."""
+def _device_ms(fn, calls: int) -> tuple[float, dict]:
+    """The summed device time of the kernels of one call, ms, and each
+    kernel's (by name), from torch.profiler over `calls` calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA)
-    return us / calls / 1000.0
+    per = {ev.key: ev.self_device_time_total / calls / 1000.0
+           for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA
+           and ev.self_device_time_total > 0}
+    return sum(per.values()), per
 
 
 def main() -> int:
@@ -262,8 +279,11 @@ def main() -> int:
         fns = {k: c[0] for k, c in calls.items()}
         turns = ("other", "this", "this", "other")
         ms = [_median_ms(fns[k], args.reps, inner) for k in turns]
-        dms = [_device_ms(fns[k], inner) for k in turns]
+        dev_kernels = [_device_ms(fns[k], inner) for k in turns]
+        dms = [d[0] for d in dev_kernels]
         rows.append({"kernel": what, "n": n, "other_this_this_other_ms": ms,
+                     "device_kernels_ms": {"other": dev_kernels[0][1],
+                                           "this": dev_kernels[1][1]},
                      "change": (ms[1] + ms[2]) / (ms[0] + ms[3]) - 1.0,
                      "device_ms": dms,
                      "device_change": (dms[1] + dms[2]) / (dms[0] + dms[3])

@@ -65,12 +65,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "gjt_welch_scratch_bytes": [_I],
     "gjt_welch_psd": [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
-    "gjt_pcf": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gjt_pcf": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                _I, _I, _P],
     "gjt_caf_std": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gjt_welch_psd_large": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, ctypes.c_float, _P],
-    "gjt_pcf_large": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _P],
+    "gjt_pcf_large": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _I, _P],
     "gjt_caf_std_large": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _I, _P],
     "gjt_corr_cluster_n1": [_I],

@@ -8,7 +8,18 @@ tests/test_pallas_caf.py runs it) for the surface, stats and peak-only modes.
 Surface tolerance rtol 2e-4, atol 2e-4 * max (as test_pallas_caf.py);
 stats max and sums rtol 1e-4; the arg-lag is exact on every row (the seed
 gives every row a top value clear of the next by > 1e-5 relative).
+
+Kernel B1's entry takes the code periods (`cuda_pcf.pcf_search` with the
+weights and mixes of `prologue_consts`): its plain version equals
+`pcf_prologue` then `pcf_search_reference` exactly in the surface,
+statistics and peak-only modes, from (nb, n) periods or a longer 1-D
+signal, and its per-PRN peak equals the statistics' max over rows; all
+four modes match the Pallas kernel in interpret mode at 2048 (32 PRNs, 10
+periods) and at 32768 (2 PRNs, 2 periods, +/-1 kHz), the per-PRN peak
+against the max over rows of its peak-only statistics (rtol 1e-4).
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -130,14 +141,24 @@ def test_surface_stats_ties_take_the_lowest_lag():
 
 
 def test_pcf_search_rejects_bad_arguments():
-    y = torch.zeros(12, 256, dtype=torch.complex64)
+    x = torch.zeros(10, 256, dtype=torch.complex64)
     rep = torch.zeros(2, 256, dtype=torch.complex64)
+    w, mix = cuda_pcf.prologue_consts(10, 256, FS, 2, (-200.0, 0.0, 200.0),
+                                      2, torch.device("cpu"))
     with pytest.raises(ValueError):
-        cuda_pcf.pcf_search(y, rep, 14, 6, 2)                # even n_c
+        cuda_pcf.pcf_search(x, rep, 14, w, mix)               # even n_c
     with pytest.raises(ValueError):
-        cuda_pcf.pcf_search(y, rep, 15, 6, 2, stats_excl=128)
+        cuda_pcf.pcf_search(x, rep, 15, w, mix, stats_excl=128)
     with pytest.raises(ValueError):
-        cuda_pcf.pcf_search(y, rep, 15, 6, 2, stats_excl=-2)
+        cuda_pcf.pcf_search(x, rep, 15, w, mix, stats_excl=-2)
+    with pytest.raises(ValueError, match="peak alone"):
+        cuda_pcf.pcf_search(x, rep, 15, w, mix, stats_excl=4, per_prn=True)
+    with pytest.raises(ValueError, match="periods"):
+        cuda_pcf.pcf_search(x[:8], rep, 15, w, mix)           # 8 periods
+    with pytest.raises(ValueError, match="periods"):
+        cuda_pcf.pcf_search(x.reshape(-1)[:2559], rep, 15, w, mix)
+    with pytest.raises(ValueError, match="divisible"):
+        cuda_pcf.prologue_consts(9, 256, FS, 2, (0.0,), 2, torch.device("cpu"))
     assert cuda_pcf.supported(2048) and cuda_pcf.supported(16384)
     # mixed-radix lengths (prime factors <= 127) are in; GLONASS's 10000
     # qualifies, though its search stays in plain torch
@@ -150,6 +171,95 @@ def test_pcf_search_rejects_bad_arguments():
     assert cuda_pcf.supported(32768) and cuda_pcf.supported(20480)
     assert not cuda_pcf.supported(32768 + 128)
     assert not cuda_pcf.supported(65536)
+
+
+MODES = {"surface": {}, "stats": {"stats_excl": 4},
+         "peak": {"stats_excl": -1}, "per_prn": {"per_prn": True}}
+
+
+def _folded(x, rep, fs, max_doppler_hz, mode):
+    """Kernel B1's entry on CPU tensors: the periods x, `mode` of MODES."""
+    nb, n = x.shape[-2:] if x.dim() == 2 else (10, rep.shape[-1])
+    w, mix = cuda_pcf.prologue_consts(nb, n, fs, 2, (-200.0, 0.0, 200.0), 2,
+                                      x.device)
+    return cuda_pcf.pcf_search(x, rep, cuda_pcf.n_coarse(fs, n,
+                                                         max_doppler_hz),
+                               w, mix, **MODES[mode])
+
+
+@pytest.mark.parametrize("form", ["periods", "signal"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_folded_search_plain_equals_prologue_then_search(mode, form):
+    """The plain version of B1's entry is `pcf_prologue` then
+    `pcf_search_reference`, exactly, from (nb, n) periods or from a 1-D
+    signal of more samples whose first nb * n are the periods; its per-PRN
+    peak is the statistics' max over rows."""
+    x, planes = _case(256, 10, 3, seed=21)
+    xt, rep = torch.from_numpy(x), convert.replica_from_jax(planes, "cpu")
+    arg = xt if form == "periods" else torch.cat(
+        [xt.reshape(-1), torch.ones(300, dtype=torch.complex64)])
+    before = build.LAUNCHES["pcf"]
+    got = _folded(arg, rep, FS, 7000.0, mode)
+    assert build.LAUNCHES["pcf"] == before          # no kernel on the CPU
+    n_c = cuda_pcf.n_coarse(FS, 256, 7000.0)
+    surf = cuda_pcf.pcf_search_reference(cuda_pcf.pcf_prologue(xt, FS), rep,
+                                         n_c, 6, 2)
+    if mode == "per_prn":
+        stats = cuda_pcf.surface_stats(surf, 4)
+        assert got.shape == (3,)
+        assert torch.equal(got, stats[0].amax(dim=-1))
+        assert torch.equal(got, surf.amax(dim=(-2, -1)))
+        return
+    excl = MODES[mode].get("stats_excl")
+    if excl is None:
+        assert torch.equal(got, surf)
+        return
+    for g, w in zip(got, cuda_pcf.surface_stats(surf, excl), strict=True):
+        assert torch.equal(g, w)
+
+
+# (n, periods, PRNs, sample rate, max Doppler): GPS at 2.048 MS/s, and
+# Galileo E1B at 8.192 MS/s above 16384 lags
+PALLAS_CASES = {"gps_2048": (2048, 10, 32, FS, 7000.0),
+                "e1b_32768": (32768, 2, 2, 8.192e6, 1000.0)}
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_case(case, excl):
+    """The seeded case's periods and replica planes, and the Pallas PCF
+    kernel's answer in interpret mode (excl None: the surface)."""
+    n, nb, nprn, fs, hz = PALLAS_CASES[case]
+    x, planes = _case(n, nb, nprn, seed=n + nb)
+    kw = {} if excl is None else {"stats_excl": excl}
+    out = pallas_caf.caf_accumulate_pcf_fused(
+        _jax_blocks(x), cplx.CArray(*planes), fs, max_doppler_hz=hz,
+        precision="f32", interpret=True, **kw)
+    want = np.asarray(out) if excl is None else [np.asarray(s) for s in out]
+    return x, planes, want
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("case", list(PALLAS_CASES))
+def test_folded_search_matches_pallas_interpret(case, mode):
+    """B1's entry, plain, from the periods, against the Pallas PCF kernel;
+    the per-PRN peak against the max over rows of its peak-only stats."""
+    n, nb, nprn, fs, hz = PALLAS_CASES[case]
+    excl = {"surface": None, "stats": 4}.get(mode, -1)
+    x, planes, want = _pallas_case(case, excl)
+    got = _folded(torch.from_numpy(x), convert.replica_from_jax(planes, "cpu"),
+                  fs, hz, mode)
+    if mode == "surface":
+        assert tuple(got.shape) == want.shape
+        _surf_close(got.numpy(), want)
+    elif mode == "per_prn":
+        assert tuple(got.shape) == (nprn,)
+        np.testing.assert_allclose(got.numpy(), want[0].max(axis=-1),
+                                   rtol=1e-4)
+    else:
+        got = [g.numpy() for g in got]
+        np.testing.assert_array_equal(got[1], want[1])          # arg-lag
+        for i in (0, 2, 3, 4):
+            np.testing.assert_allclose(got[i], want[i], rtol=1e-4)
 
 
 @pytest.mark.parametrize("n_prn", [1, 3, 32, 130])

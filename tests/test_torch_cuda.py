@@ -259,6 +259,17 @@ def test_monitor_step_front_is_one_launch(dev, monkeypatch, method):
     assert torch.equal(got[2].cpu(), cpu[2])
 
 
+def _folded_args(blocks, rep, fs=FS, n_c=None):
+    """B1's entry arguments for the periods `blocks` (two groups, the
+    default sets and fine bins): (blocks, rep, n_c, w, mix)."""
+    nb, n = blocks.shape
+    w, mix = cuda_pcf.prologue_consts(nb, n, fs, 2, (-200.0, 0.0, 200.0), 2,
+                                      blocks.device)
+    if n_c is None:
+        n_c = cuda_pcf.n_coarse(fs, n, 7000.0)
+    return blocks, rep, n_c, w, mix
+
+
 @pytest.mark.parametrize("n,nb,nprn", [(2048, 10, 32), (256, 4, 5),
                                        (16384, 4, 3), (2400, 10, 32),
                                        (3200, 10, 32), (10368, 4, 3),
@@ -269,14 +280,21 @@ def test_monitor_step_front_is_one_launch(dev, monkeypatch, method):
                                        (1536, 4, 5), (14336, 4, 3),
                                        (20480, 4, 3), (32768, 4, 3),
                                        (128, 10, 32), (24576, 4, 3),
-                                       (28672, 4, 3)])
+                                       (28672, 4, 3), (2048, 20, 4),
+                                       (3 ** 7, 18, 3), (32768, 18, 2)])
 def test_pcf_kernel_matches_plain(dev, n, nb, nprn):
+    """B1 from the code periods (its forward builds the prologue's rows as
+    it loads them) against the plain search of the prologue's rows, in the
+    surface, statistics, peak-only and per-PRN modes, at up to 8 periods a
+    group (straight-line loads) and above (in chunks: 2048, 3^7 and 32768
+    at 9 and 10); the per-PRN peak is the kernel's own statistics' max over
+    rows, bitwise, and the same from a longer 1-D signal whose first nb * n
+    samples are the periods."""
     blocks = _cplx((nb, n), seed=n, dev=dev)
     rep = _cplx((nprn, n), seed=n + 1, dev=dev)
-    y = cuda_pcf.pcf_prologue(blocks, FS)
-    n_c = cuda_pcf.n_coarse(FS, n, 7000.0)
-    args = (y, rep, n_c, 6, 2)
-    ref = cuda_pcf.pcf_search_reference(*args)
+    args = _folded_args(blocks, rep)
+    ref = cuda_pcf.pcf_search_reference(cuda_pcf.fold(blocks, *args[3:]),
+                                        rep, args[2], 6, 2)
     before = build.LAUNCHES["pcf"]
     surf = cuda_pcf.pcf_search(*args)
     torch.cuda.synchronize()
@@ -293,6 +311,14 @@ def test_pcf_kernel_matches_plain(dev, n, nb, nprn):
         _assert_close(got[3], want[3], 1e-3, 0.0)
         _assert_close(got[2][same], want[2][same], 1e-3, 0.0)
         _assert_close(got[4][same], want[4][same], 1e-3, 0.0)
+    peak = cuda_pcf.pcf_search(*args, per_prn=True)
+    assert peak.shape == (nprn,)
+    _assert_close(peak, ref.amax(dim=(-2, -1)), 1e-3, 0.0)
+    assert torch.equal(peak, got[0].amax(dim=-1))
+    signal = torch.cat([blocks.reshape(-1), _cplx(777, seed=n + 2, dev=dev)])
+    assert torch.equal(cuda_pcf.pcf_search(signal, *args[1:], per_prn=True),
+                       peak)
+    assert build.LAUNCHES["pcf"] == before + 5
 
 
 @pytest.mark.parametrize("n", [256, 2048, 16384, 2400, 32768, 128, 20480])
@@ -304,9 +330,9 @@ def test_pcf_stats_ties_take_the_lowest_lag(dev, n):
     rep = _cplx((4, n), seed=n + 8, dev=dev)
     rep[1] = 0
     rep[3] = 0
-    y = cuda_pcf.pcf_prologue(blocks, FS)
-    args = (y, rep, 3, 6, 2)
-    ref = cuda_pcf.pcf_search_reference(*args)
+    args = _folded_args(blocks, rep, n_c=3)
+    ref = cuda_pcf.pcf_search_reference(cuda_pcf.pcf_prologue(blocks, FS),
+                                        rep, 3, 6, 2)
     top2 = ref.topk(2, dim=-1).values
     clear = (top2[..., 0] - top2[..., 1]) > 1e-4 * top2[..., 0]
     assert not bool(clear[[1, 3]].any()) and bool(clear[[0, 2]].all())
@@ -559,6 +585,63 @@ def test_gps_monitor_step_launches_are_unchanged(dev, tmp_path):
                                       "caf_std": 0, "front": 1}
 
 
+@pytest.mark.parametrize("system", ["gps", "galileo"])
+def test_monitor_step_acquire_is_b1_alone(dev, tmp_path, system):
+    """Inside `gjt.step.acquire` the PCF monitor step makes one call, B1's
+    wrapper: no PyTorch operator runs there outside its `gjt.b1.launch`
+    span, and every device record launched there is B1's own (its forward,
+    whose name carries the folded source `SrcFold`, once; the four-step's
+    row pass; the correlate; the memset of the per-PRN peaks): no GEMM, no
+    elementwise kernel, no reduce. The (P,) peaks equal the CPU's plain
+    version (rtol 2e-4), the CPU run in pieces of 4 PRNs."""
+    import json
+
+    from gps_jamming_tpu_torch import entry
+    from gps_jamming_tpu_torch.runtime import profiling
+    plan = entry.GPS if system == "gps" else entry.GALILEO_E1B_8M192
+    raw = _front_raw(1 << (19 if system == "gps" else 21), 31, dev)
+    replica = entry.replica_table(plan, dev)
+    entry.detect_acquire_step(raw, replica, plan=plan)
+    torch.cuda.synchronize(dev)
+    with profiling.torch_trace(str(tmp_path), dev):
+        got = entry.detect_acquire_step(raw, replica, plan=plan)
+        torch.cuda.synchronize(dev)
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+
+    def span(name):
+        (sp,) = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("name") == name
+                 and e.get("cat") == "user_annotation"]
+        return sp
+
+    def inside(ts, sp):
+        return sp[0] <= ts <= sp[1]
+
+    acquire, b1 = span("gjt.step.acquire"), span("gjt.b1.launch")
+    ops = [e["name"] for e in events if e.get("cat") == "cpu_op"
+           and inside(e["ts"], acquire) and not inside(e["ts"], b1)]
+    assert ops == []
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    records = [(e["cat"], e["name"]) for e in events
+               if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")
+               and inside(launched.get(e["args"].get("correlation"), -1.0),
+                          acquire)]
+    b1_kernels = ("SrcFold", "large_rows_", "pcf_correlate")
+    assert records and all(
+        cat == "gpu_memset" or (cat == "kernel" and any(
+            k in name for k in b1_kernels)) for cat, name in records), records
+    assert sum("SrcFold" in name for _, name in records) == 1
+    assert got[3].shape == (len(plan.prns),)
+    raw_c, rep_c = raw.cpu(), replica.cpu()
+    want = torch.cat([entry.detect_acquire_step(raw_c, rep_c[i:i + 4],
+                                                plan=plan)[3]
+                      for i in range(0, len(plan.prns), 4)])
+    _assert_close(got[3].cpu(), want, 2e-4, 0.0)
+
+
 def _c1_blocks(system, dev):
     """10 code periods of unit noise plus one PRN at -18 dB per sample, at
     an n kernels B1 and B3 do not take: Galileo E1B at 4.192 MS/s (n =
@@ -686,9 +769,8 @@ def test_cluster_plan_matches_its_twin(dev):
         calls = [lambda: cuda_caf.caf_accumulate_fused(blocks, rep, [0.0],
                                                        n / 4e-3)]
         if cuda_pcf.supported(n):
-            y = cuda_pcf.pcf_prologue(blocks, n / 4e-3)
-            calls.append(lambda: cuda_pcf.pcf_search(y, rep, 3, 6, 2,
-                                                     stats_excl=4))
+            args = _folded_args(blocks, rep, n / 4e-3, 3)
+            calls.append(lambda: cuda_pcf.pcf_search(*args, stats_excl=4))
         for call in calls:
             call()
             torch.cuda.synchronize()
